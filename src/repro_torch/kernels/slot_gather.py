@@ -1,0 +1,77 @@
+"""Slot-indirect expert FFN (ExpertFlow's expert-cache read path).
+
+The expert weights live in a bounded slot buffer (S < E slots); an
+(E,) expert -> slot table says where each expert's weights sit. On a CUDA
+tensor `slot_ffn` launches the hand-written Hopper kernel
+(`csrc/slot_ffn.cu`), which chases the table inside the kernel; on a CPU
+tensor it runs the plain version (`kernels.ref.slot_ffn_ref`) with the same
+arithmetic. Any other device raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.build import LIBS
+from repro_torch.kernels.ref import slot_ffn_ref
+
+
+def _check(x, slot_of_expert, s_gate, s_up, s_down):
+    E, C, D = x.shape
+    S, D2, F = s_gate.shape
+    if D2 != D or tuple(s_up.shape) != (S, D, F) \
+            or tuple(s_down.shape) != (S, F, D):
+        raise ValueError(
+            f"slot buffer shapes {tuple(s_gate.shape)}, {tuple(s_up.shape)}, "
+            f"{tuple(s_down.shape)} do not fit x {tuple(x.shape)}")
+    if tuple(slot_of_expert.shape) != (E,):
+        raise ValueError(f"slot_of_expert must be ({E},), got "
+                         f"{tuple(slot_of_expert.shape)}")
+    for name, t in (("x", x), ("s_gate", s_gate), ("s_up", s_up),
+                    ("s_down", s_down)):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{name} must be bfloat16, got {t.dtype}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    if slot_of_expert.dtype != torch.int32 or not slot_of_expert.is_contiguous() \
+            or slot_of_expert.device != x.device:
+        raise TypeError("slot_of_expert must be a contiguous int32 tensor on "
+                        "x's device")
+    if D % 8 or F % 8:
+        raise ValueError(f"D={D} and F={F} must be multiples of 8 "
+                         "(16-byte loads)")
+
+
+def slot_ffn(x: torch.Tensor, slot_of_expert: torch.Tensor,
+             s_gate: torch.Tensor, s_up: torch.Tensor,
+             s_down: torch.Tensor) -> torch.Tensor:
+    """x: (E, C, D) bf16 dispatch buffer; slot_of_expert: (E,) int32 slots in
+    [0, S); slot buffers (S, D, F) / (S, F, D) bf16. Returns (E, C, D) fp32.
+
+    Launches on the current CUDA stream and counts each launch in
+    `slot_ffn.launches`."""
+    if x.device.type == "cpu":
+        return slot_ffn_ref(x, slot_of_expert, s_gate, s_up, s_down)
+    if x.device.type != "cuda":
+        raise ValueError(f"slot_ffn runs on cuda or cpu, not {x.device}")
+    _check(x, slot_of_expert, s_gate, s_up, s_down)
+    E, C, D = x.shape
+    S, _, F = s_gate.shape
+    out = torch.empty((E, C, D), dtype=torch.float32, device=x.device)
+    if out.numel() == 0:
+        return out
+    h = torch.empty((E, C, F), dtype=torch.bfloat16, device=x.device)
+    lib = LIBS.get("slot_ffn")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.slot_ffn_launch(
+        x.data_ptr(), slot_of_expert.data_ptr(), s_gate.data_ptr(),
+        s_up.data_ptr(), s_down.data_ptr(), h.data_ptr(), out.data_ptr(),
+        E, C, D, F, S, stream)
+    if err != 0:
+        raise RuntimeError(f"slot_ffn launch failed with CUDA error {err}")
+    slot_ffn.launches += 1
+    return out
+
+
+slot_ffn.launches = 0

@@ -1,0 +1,260 @@
+"""Decoder stack for the slot-buffer runtime: GQA attention + MoE FFN
+layers (olmoe-style; other layer kinds are not ported yet).
+
+The port's parameter tree is flat: ``{"embed", "final_norm", "lm_head",
+"layers": [one dict per absolute layer]}`` — the reference's stacked
+``unit`` lists are unstacked once, by `repro_torch.bridge` or by
+`Model.init`. Per-layer dicts keep the reference's keys and layouts.
+
+Entry points used by `runtime.engine`: `layer_forward`, `layer_prefill`,
+`layer_decode` (each also works on FFN-stripped params from
+`split_ffn_params`), `init_layer_cache` and `Model.embed` / `Model.logits`.
+Caches are never written in place: each step returns new cache tensors, so
+a saved state stays valid (decode rollback and branching rely on it).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, NamedTuple, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models.layers import (dense_init, embed_init, rms_norm,
+                                       trunc_normal)
+
+
+class LayerSpec(NamedTuple):
+    kind: str          # attn (the only kind the port runs so far)
+    window: int        # sliding window (0 = global, the only one ported)
+    is_moe: bool
+    layer_idx: int     # absolute depth index (first occurrence)
+
+
+# Parameter keys that belong to a layer's FFN half.
+FFN_PARAM_KEYS = ("ffn_norm", "moe")
+
+
+def split_ffn_params(p, spec: LayerSpec):
+    """(attention-only params, FFN-stripped spec) for a layer param dict."""
+    stripped = {k: v for k, v in p.items() if k not in FFN_PARAM_KEYS}
+    return stripped, LayerSpec(spec.kind, spec.window, False, spec.layer_idx)
+
+
+def build_layout(cfg: ModelConfig):
+    """Layout: (prefix, unit, num_units, tail) — the reference's pattern
+    decomposition (prefix = leading aperiodic layers, unit = smallest
+    repeating pattern, tail = remainder)."""
+    kinds = [cfg.layer_kind(i) for i in range(cfg.num_layers)]
+    windows = [cfg.attn_window(i) if kinds[i] == "attn" else 0
+               for i in range(cfg.num_layers)]
+    moes = [cfg.is_moe_layer(i) for i in range(cfg.num_layers)]
+    specs = [LayerSpec(kinds[i], windows[i], moes[i], i)
+             for i in range(cfg.num_layers)]
+    prefix: List[LayerSpec] = []
+    if cfg.moe is not None and cfg.moe.first_dense_layers:
+        prefix = specs[:cfg.moe.first_dense_layers]
+        specs = specs[cfg.moe.first_dense_layers:]
+
+    def key(s: LayerSpec):
+        return (s.kind, s.window, s.is_moe)
+
+    n = len(specs)
+    period = max(n, 1)
+    for p in range(1, n + 1):
+        k = n // p
+        if k >= 1 and all(key(specs[i]) == key(specs[i % p])
+                          for i in range(k * p)):
+            period = p
+            break
+    num_units = n // period if n else 0
+    unit = specs[:period] if n else []
+    tail = specs[num_units * period:]
+    return prefix, unit, num_units, tail
+
+
+def all_specs(cfg: ModelConfig) -> List[LayerSpec]:
+    """One spec per absolute layer, in depth order."""
+    prefix, unit, num_units, tail = build_layout(cfg)
+    return list(prefix) + list(unit) * num_units + list(tail)
+
+
+def _check_supported(cfg: ModelConfig, spec: LayerSpec) -> None:
+    """The port runs global-attention GQA layers with a MoE FFN, pre-norm,
+    untied embeddings; anything else raises rather than run wrong."""
+    if spec.kind != "attn" or cfg.attention != "gqa" or spec.window:
+        raise NotImplementedError(
+            f"{cfg.name} layer {spec.layer_idx}: the port runs global GQA "
+            f"attention only, got {spec}")
+    if (cfg.is_encoder_decoder or cfg.abs_pos or cfg.attn_logit_softcap
+            or cfg.tie_embeddings or cfg.moe.num_shared_experts
+            or cfg.name.startswith(("gemma", "recurrentgemma"))):
+        raise NotImplementedError(f"{cfg.name}: not ported yet")
+
+
+# ---------------------------------------------------------------------------
+# Per-layer parameter init
+# ---------------------------------------------------------------------------
+
+def init_layer(cfg: ModelConfig, spec: LayerSpec, dtype, **kw):
+    """One layer's params; `kw` carries `generator` and `device`."""
+    _check_supported(cfg, spec)
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    H, Hkv = cfg.num_heads, cfg.num_kv_heads
+    dev = kw.get("device", "cpu")
+    attn = {
+        "wq": trunc_normal((d, H, hd), d ** -0.5, dtype, **kw),
+        "wk": trunc_normal((d, Hkv, hd), d ** -0.5, dtype, **kw),
+        "wv": trunc_normal((d, Hkv, hd), d ** -0.5, dtype, **kw),
+        "wo": trunc_normal((H, hd, d), (H * hd) ** -0.5, dtype, **kw),
+    }
+    if cfg.qk_norm:
+        attn["q_norm"] = torch.ones((hd,), dtype=dtype, device=dev)
+        attn["k_norm"] = torch.ones((hd,), dtype=dtype, device=dev)
+    return {"pre_norm": torch.ones((d,), dtype=dtype, device=dev),
+            "attn": attn,
+            "ffn_norm": torch.ones((d,), dtype=dtype, device=dev),
+            "moe": moe_mod.init_moe_params(d, cfg.moe, dtype, **kw)}
+
+
+# ---------------------------------------------------------------------------
+# Per-layer forward (prefill path)
+# ---------------------------------------------------------------------------
+
+def _ffn_part(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """x + MoE FFN (capacity-buffer grouped, resident weights); FFN-stripped
+    params pass x through."""
+    if "ffn_norm" not in p:
+        return x
+    h2 = rms_norm(x, p["ffn_norm"], cfg.norm_eps)
+    ff, _ = moe_mod.moe_grouped(p["moe"], h2, cfg.moe)
+    return x + ff
+
+
+def _attn_prefill(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
+                  positions: torch.Tensor):
+    """Pre-norm GQA self-attention over the whole sequence.
+    Returns (x + attention, k, v)."""
+    _check_supported(cfg, spec)
+    h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
+    q = attn_mod.gqa_project_q(p["attn"], h, positions, cfg.rope_theta,
+                               cfg.norm_eps)
+    k, v = attn_mod.gqa_project_kv(p["attn"], h, positions, cfg.rope_theta,
+                                   cfg.norm_eps)
+    mix = attn_mod.flash_attention(q, k, v)
+    return x + attn_mod.gqa_out(p["attn"], mix), k, v
+
+
+def layer_forward(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
+                  positions: torch.Tensor) -> torch.Tensor:
+    """Full-sequence layer (prefill without a cache). x: (B, T, d)."""
+    x, _, _ = _attn_prefill(p, cfg, spec, x, positions)
+    return _ffn_part(p, cfg, x)
+
+
+# ---------------------------------------------------------------------------
+# Caches
+# ---------------------------------------------------------------------------
+
+def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
+                     max_seq: int, dtype, device="cpu"):
+    _check_supported(cfg, spec)
+    shape = (batch, max_seq, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def layer_prefill(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
+                  positions: torch.Tensor, max_seq: int):
+    """Like layer_forward but also returns a populated cache entry."""
+    B, T, _ = x.shape
+    x, k, v = _attn_prefill(p, cfg, spec, x, positions)
+    cache = init_layer_cache(cfg, spec, B, max_seq, x.dtype, x.device)
+    cache["k"][:, :T] = k           # T <= max_seq: no ring wrap yet
+    cache["v"][:, :T] = v
+    return _ffn_part(p, cfg, x), cache
+
+
+def layer_decode(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
+                 cache, cache_len: torch.Tensor):
+    """One-token layer step. x: (B, 1, d). Returns (x, new_cache).
+
+    `cache_len` is a () tensor (all rows at one position) or a (B,) tensor
+    (each row at its own position). The new token's K/V goes to ring slot
+    `cache_len % size` of each row, in a NEW cache tensor: the input cache
+    is left as it was."""
+    _check_supported(cfg, spec)
+    B = x.shape[0]
+    h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
+    size = cache["k"].shape[1]
+    clen = cache_len.reshape(-1).expand(B)
+    positions = clen[:, None]
+    q = attn_mod.gqa_project_q(p["attn"], h, positions, cfg.rope_theta,
+                               cfg.norm_eps)
+    k, v = attn_mod.gqa_project_kv(p["attn"], h, positions, cfg.rope_theta,
+                                   cfg.norm_eps)
+    rows = torch.arange(B, device=x.device)
+    slot = torch.remainder(clen, size)
+    kc = cache["k"].clone()
+    vc = cache["v"].clone()
+    kc[rows, slot] = k[:, 0]
+    vc[rows, slot] = v[:, 0]
+    valid = torch.clamp(clen + 1, max=size)
+    mix = attn_mod.decode_attention(q, kc, vc, valid)
+    x = x + attn_mod.gqa_out(p["attn"], mix)
+    new_cache = dict(cache, k=kc, v=vc)
+    if "ffn_norm" in p:
+        h2 = rms_norm(x, p["ffn_norm"], cfg.norm_eps)
+        m = cfg.moe
+        # capacity sized to expected load (4x slack), not worst case
+        cap = min(B * m.top_k, max(8, -(-B * m.top_k // m.num_experts) * 4))
+        out, _ = moe_mod.moe_grouped(p["moe"], h2.reshape(B, -1), m,
+                                     capacity=cap)
+        x = x + out.reshape(B, 1, -1)
+    return x, new_cache
+
+
+# ---------------------------------------------------------------------------
+# Whole model
+# ---------------------------------------------------------------------------
+
+class Model:
+    """Config-driven decoder-only LM (embedding, layer specs, LM head)."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+        self.specs = all_specs(cfg)
+        for s in self.specs:
+            _check_supported(cfg, s)
+            if not s.is_moe:
+                raise NotImplementedError(
+                    f"{cfg.name}: dense FFN layers are not ported yet")
+        self.dtype = torch.bfloat16 if cfg.dtype == "bfloat16" \
+            else torch.float32
+
+    def init(self, generator: Optional[torch.Generator] = None,
+             device="cuda") -> Dict[str, Any]:
+        """Random params with the reference's init law, drawn on `device`
+        from `generator` (which must live on that device)."""
+        dev = resolve_device(device)
+        cfg, dt = self.cfg, self.dtype
+        kw = dict(generator=generator, device=dev)
+        params: Dict[str, Any] = {
+            "embed": embed_init(cfg.vocab_size, cfg.d_model, dt, **kw),
+            "final_norm": torch.ones((cfg.d_model,), dtype=dt, device=dev),
+            "lm_head": dense_init(cfg.d_model, cfg.vocab_size, dt, **kw),
+        }
+        params["layers"] = [init_layer(cfg, s, dt, **kw) for s in self.specs]
+        return params
+
+    def embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
+        return params["embed"][tokens]
+
+    def logits(self, params, h: torch.Tensor) -> torch.Tensor:
+        """Final norm + LM head; the product rounds to the params' dtype
+        before widening to fp32, as the reference's does."""
+        h = rms_norm(h, params["final_norm"], self.cfg.norm_eps)
+        return (h @ params["lm_head"]).float()
