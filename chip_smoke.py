@@ -7,30 +7,50 @@ Phases, each printed on its own lines; any failure exits non-zero before
 the last line:
 
 1. environment: the card's name and power limit (nvidia-smi);
-2. build: every CUDA kernel of the serving path, from `src/repro_torch/
+2. build: every CUDA kernel of the serving paths (`slot_ffn`,
+   `fused_moe_entry`, `fused_decode_attention`), from `src/repro_torch/
    kernels/csrc`, one nvcc per source, all at once;
 3. kernels: each kernel against its plain PyTorch version on the card at
-   the serving path's shapes (olmoe-1b-7b decode at batch 4, prefill of a
-   128-token prompt, and a ragged shape), tolerance 2e-2, with CUDA-event
-   medians of the kernel, the plain version and a library yardstick, and
-   the kernel's bound (the larger of needed bytes / 3.35 TB/s and needed
-   bf16 FLOPs / 989 TFLOP/s, H100 SXM peaks);
-4. serving: olmoe-1b-7b at its published widths (16 layers, weights drawn
-   from a seed on the card), 16 expert slots per layer, `slot_ffn` on,
-   8 greedy requests of 64-128 prompt tokens and 16 new tokens at batch 4
-   through `ServingEngine`. Kernel launch counts are zeroed just before and
-   read just after; every prefill and decode step must launch `slot_ffn`
-   once per MoE layer at least, and experts must be swapped in and evicted;
-5. oracle: one prompt decoded single-stream through the slot path must give
-   logits bitwise equal to the fully-resident reference path, and every
-   served request's tokens must match the reference's unless the
-   reference's top two logits are within 5e-2 (a near-tie);
+   the serving paths' shapes, with CUDA-event medians of the kernel, the
+   plain version and a library yardstick (timed only; the port never calls
+   it), and the kernel's bound (the larger of needed bytes / 3.35 TB/s and
+   needed operations over the H100 SXM peak for their type):
+   - `slot_ffn` at olmoe-1b-7b decode (batch 4), prefill (128 tokens) and a
+     ragged shape, tolerance 2e-2;
+   - `fused_moe_entry` at decode (T=4, 256 slots) with every routed expert
+     resident and with 16 resident experts per layer (some routed ones
+     absent), bias zeros and nonzero: ids equal, gates within 1e-6, y within
+     2e-2;
+   - `fused_decode_attention` at B=4, Hq=Hkv=16, D=128, S=256 with cache
+     lengths 0, 63, 128, 255, a wrapped ring (lengths >= S) and a GQA shape
+     (G=4), softcap 0 and 30: new caches bitwise equal, out within 2e-2;
+4. serving, unfused path: olmoe-1b-7b at its published widths (16 layers,
+   weights drawn from a seed on the card), 16 expert slots per layer,
+   `slot_ffn` on, 8 greedy requests of 64-128 prompt tokens and 16 new
+   tokens at batch 4 through `ServingEngine`. Every kernel's launch count is
+   zeroed just before and read just after; every prefill and decode step
+   must launch `slot_ffn` once per MoE layer at least, and experts must be
+   swapped in and evicted. Oracle: one prompt decoded single-stream through
+   the slot path gives logits bitwise equal to the fully-resident reference
+   path, and every served request's tokens match the reference's unless
+   its top two logits are within 5e-2 (a near-tie);
+5. serving, superkernel path: the same model (same seed), requests and
+   batch through `ServingEngine(SlotBufferEngine(use_kernel=True,
+   use_superkernel=True))`. Every decode step must launch `fused_moe_entry`
+   and `fused_decode_attention` once per MoE layer at least and `slot_ffn`
+   never (prefill still does, once per MoE layer at least); experts must be
+   swapped in and evicted. Oracle: one prompt decoded single-stream through
+   the superkernel slot path gives logits bitwise equal to the same segment
+   functions run over every expert with the identity slot table, and the
+   served streams match the fully-resident reference decode under the
+   near-tie rule;
 6. a `{"kernels": [...]}` line, then the last line
    `{"ok": true, "device": {...}}`.
 
 Exits with code 2 and prints no result without a CUDA device or outside a
 checkout of the repository.
 """
+import gc
 import json
 import statistics
 import subprocess
@@ -42,8 +62,12 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 H100_BYTES_PER_S = 3.35e12        # HBM3, H100 SXM data sheet
 H100_BF16_FLOP_PER_S = 989e12     # dense bf16 tensor cores, H100 SXM
+H100_FP32_FLOP_PER_S = 67e12      # fp32 outside the tensor cores, H100 SXM
 TOL = 2e-2
+TOL_GATES = 1e-6
+NEAR_TIE = 5e-2
 SEED = 0
+KERNELS = ("slot_ffn", "fused_moe_entry", "fused_decode_attention")
 
 
 def log(*a):
@@ -73,6 +97,14 @@ def time_ms(torch, fn, reps=5, inner=5):
     return statistics.median(out)
 
 
+def bound(nbytes, ops):
+    """(bound ms, what bounds it): `ops` is [(operations, peak per s)]."""
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = sum(n / peak for n, peak in ops) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
 # --------------------------------------------------------------- phase 3
 
 def slot_ffn_inputs(torch, moe_mod, g, *, B, T, k, E, D, F, S, resident_frac):
@@ -98,9 +130,8 @@ def slot_ffn_inputs(torch, moe_mod, g, *, B, T, k, E, D, F, S, resident_frac):
     return (buf, slot, wg, wu, wd), slot[routed]
 
 
-def kernel_phase(torch, moe_mod, slot_gather, ref):
+def slot_ffn_phase(torch, moe_mod, slot_gather, ref, g):
     import torch.nn.functional as Fn
-    g = torch.Generator(device="cuda").manual_seed(SEED)
 
     def library(x, slot, wg, wu, wd):
         # yardstick only: a slot gather + torch.bmm chain (bf16 throughout)
@@ -133,9 +164,8 @@ def kernel_phase(torch, moe_mod, slot_gather, ref):
         distinct = int(torch.unique(routed_slots).numel())
         nbytes = (x.numel() * 2 + E * C * D * 4 + E * 4
                   + distinct * 3 * D * F * 2)
-        flops = 2 * 3 * D * F * rows
-        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-        t_flops = flops / H100_BF16_FLOP_PER_S * 1e3
+        b_ms, b_by = bound(nbytes, [(2 * 3 * D * F * rows,
+                                     H100_BF16_FLOP_PER_S)])
         dense_ms = 2 * 3 * D * F * E * C / H100_BF16_FLOP_PER_S * 1e3
         heavy = E * C * D > 2 ** 26
         r = {
@@ -146,8 +176,7 @@ def kernel_phase(torch, moe_mod, slot_gather, ref):
             "plain_ms": time_ms(torch, lambda: ref.slot_ffn_ref(*args),
                                 reps=3, inner=2 if heavy else 5),
             "library_ms": time_ms(torch, lambda: library(*args)),
-            "bound_ms": max(t_bytes, t_flops),
-            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+            "bound_ms": b_ms, "bound_by": b_by,
             "needed_rows": rows, "distinct_routed_slots": distinct,
             "dense_rows_flop_ms": dense_ms,
         }
@@ -162,12 +191,184 @@ def kernel_phase(torch, moe_mod, slot_gather, ref):
     return results
 
 
+def moe_entry_phase(torch, dsk, ref, g):
+    """`fused_moe_entry` at olmoe-1b-7b's decode shape."""
+    import torch.nn.functional as Fn
+    dev = "cuda"
+    T, d, E, k, f, S = 4, 2048, 64, 8, 1024, 256
+
+    def library(x, rw, bias, soe, sg, su, sd):
+        # yardstick only: route + gather of the routed experts + torch.bmm
+        probs = torch.softmax(x.float() @ rw + bias, dim=-1)
+        gates, ids = torch.topk(probs, k)
+        gates = gates / gates.sum(-1, keepdim=True)
+        gates = gates * (soe[ids] >= 0)
+        slot = soe[ids].clamp(min=0).long().reshape(-1)
+        xr = x.repeat_interleave(k, 0)[:, None]               # (T*k, 1, d)
+        h = Fn.silu(torch.bmm(xr, sg[slot])) * torch.bmm(xr, su[slot])
+        part = torch.bmm(h, sd[slot])[:, 0].float().view(T, k, d)
+        return (part * gates[..., None]).sum(1)
+
+    w = lambda *s: (torch.randn(s, generator=g, device=dev)  # noqa: E731
+                    * s[-2] ** -0.5).to(torch.bfloat16)
+    sg, su, sd = w(S, d, f), w(S, d, f), w(S, f, d)
+    x = torch.randn((T, d), generator=g, device=dev).to(torch.bfloat16)
+    rw = torch.randn((d, E), generator=g, device=dev) * d ** -0.5
+    perm = torch.randperm(S, generator=g, device=dev)[:E].to(torch.int32)
+    probs = torch.softmax(x.float() @ rw, dim=-1)
+    routed = torch.zeros(E, dtype=torch.bool, device=dev)
+    routed[torch.topk(probs, k).indices.reshape(-1)] = True
+    cases = {
+        # as after a verified sync: every routed expert resident, plus a
+        # quarter of the rest
+        "decode": (routed | (torch.rand(E, generator=g, device=dev) < 0.25),
+                   torch.zeros(E, device=dev)),
+        # 16 resident experts, some routed ones absent; a nonzero bias
+        "decode_16_resident": (
+            torch.zeros(E, dtype=torch.bool, device=dev).index_fill_(
+                0, torch.randperm(E, generator=g, device=dev)[:16], True),
+            torch.randn(E, generator=g, device=dev) * 0.5),
+    }
+    results = {}
+    for name, (resident, bias) in cases.items():
+        soe = torch.where(resident, perm, torch.full_like(perm, -1))
+        args = (x, rw, bias, soe, sg, su, sd)
+        y, gates, ids = dsk.fused_moe_entry(*args, top_k=k)
+        y2, _, _ = dsk.fused_moe_entry(*args, top_k=k)
+        yr, gr, ir = ref.fused_moe_entry_ref(*args, top_k=k)
+        torch.cuda.synchronize()
+        err = float((y - yr).abs().max())
+        check(torch.equal(ids, ir), f"fused_moe_entry ids differ at {name}")
+        check(float((gates - gr).abs().max()) <= TOL_GATES,
+              f"fused_moe_entry gates differ at {name}")
+        check(torch.allclose(y, yr, rtol=TOL, atol=TOL),
+              f"fused_moe_entry y disagrees at {name}: max |err| {err}")
+        check(torch.equal(y, y2), "fused_moe_entry not deterministic")
+        live = soe[ids.long()] >= 0
+        pairs = int(live.sum())
+        distinct = int(torch.unique(ids[live]).numel())
+        nbytes = (x.numel() * 2 + rw.numel() * 4 + E * 4 + E * 4
+                  + distinct * 3 * d * f * 2 + T * d * 4 + T * k * 8)
+        b_ms, b_by = bound(nbytes, [(2 * 3 * d * f * pairs,
+                                     H100_BF16_FLOP_PER_S),
+                                    (2 * T * d * E, H100_FP32_FLOP_PER_S)])
+        r = {"shape": {"T": T, "d": d, "E": E, "k": k, "f": f, "S": S},
+             "resident": int(resident.sum()), "routed_resident_pairs": pairs,
+             "distinct_routed_resident": distinct,
+             "max_abs_err": err,
+             "ms": time_ms(torch, lambda: dsk.fused_moe_entry(*args,
+                                                              top_k=k)),
+             "plain_ms": time_ms(torch, lambda: ref.fused_moe_entry_ref(
+                 *args, top_k=k), reps=3, inner=2),
+             "library_ms": time_ms(torch, lambda: library(*args)),
+             "bound_ms": b_ms, "bound_by": b_by}
+        results[name] = r
+        log(f"kernel fused_moe_entry {name}: {distinct} distinct routed "
+            f"resident experts ({pairs} pairs), max|err| {err:.3g}, kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, route+gather+"
+            f"bmm {r['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    del sg, su, sd
+    torch.cuda.empty_cache()
+    return results
+
+
+def attention_phase(torch, dsk, ref, g):
+    """`fused_decode_attention` at olmoe-1b-7b's decode shape, a wrapped
+    ring and a GQA shape."""
+    import torch.nn.functional as Fn
+    dev = "cuda"
+    B, D, S = 4, 128, 256
+
+    def library(q, kn, vn, kc, vc, clen):
+        # yardstick only: clone + ring insert + scaled_dot_product_attention
+        rows = torch.arange(B, device=dev)
+        slot = clen % S
+        k2, v2 = kc.clone(), vc.clone()
+        k2[rows, slot] = kn[:, 0]
+        v2[rows, slot] = vn[:, 0]
+        valid = (clen + 1).clamp(max=S)
+        mask = torch.arange(S, device=dev)[None] < valid[:, None]
+        out = Fn.scaled_dot_product_attention(
+            q.transpose(1, 2), k2.transpose(1, 2), v2.transpose(1, 2),
+            attn_mask=mask[:, None, None, :])
+        return out.transpose(1, 2), k2, v2
+
+    cases = {"decode": (16, 16, [0, 63, 128, 255]),
+             "wrapped": (16, 16, [256, 300, 511, 1000]),
+             "gqa_G4": (16, 4, [17, 255, 0, 90])}
+    results = {}
+    for name, (Hq, Hkv, clens) in cases.items():
+        r16 = lambda *s: torch.randn(s, generator=g,  # noqa: E731
+                                     device=dev).to(torch.bfloat16)
+        args = (r16(B, 1, Hq, D), r16(B, 1, Hkv, D), r16(B, 1, Hkv, D),
+                r16(B, S, Hkv, D), r16(B, S, Hkv, D),
+                torch.tensor(clens, device=dev))
+        err = 0.0
+        for cap in (0.0, 30.0):
+            o, k2, v2 = dsk.fused_decode_attention(*args, logit_softcap=cap)
+            o2, _, _ = dsk.fused_decode_attention(*args, logit_softcap=cap)
+            orf, kr, vr = ref.fused_decode_attention_ref(
+                *args, logit_softcap=cap)
+            torch.cuda.synchronize()
+            check(torch.equal(k2, kr) and torch.equal(v2, vr),
+                  f"fused_decode_attention caches differ at {name}")
+            e = float((o.float() - orf.float()).abs().max())
+            check(e <= TOL, f"fused_decode_attention out disagrees at {name}"
+                            f" softcap {cap}: max |err| {e}")
+            check(torch.equal(o, o2), "fused_decode_attention not "
+                                      "deterministic")
+            err = max(err, e)
+        valid = sum(min(c + 1, S) for c in clens)
+        nbytes = (4 * B * S * Hkv * D * 2 + B * Hq * D * 2 * 2
+                  + 2 * B * Hkv * D * 2 + B * 8)
+        b_ms, b_by = bound(nbytes, [(4 * Hq * D * valid,
+                                     H100_FP32_FLOP_PER_S)])
+        r = {"shape": {"B": B, "Hq": Hq, "Hkv": Hkv, "D": D, "S": S,
+                       "cache_len": clens},
+             "max_abs_err": err,
+             "ms": time_ms(torch, lambda: dsk.fused_decode_attention(*args)),
+             "plain_ms": time_ms(torch, lambda:
+                                 ref.fused_decode_attention_ref(*args)),
+             "library_ms": (time_ms(torch, lambda: library(*args))
+                            if Hq == Hkv else None),
+             "bound_ms": b_ms, "bound_by": b_by}
+        results[name] = r
+        lib = ("n/a" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
+        log(f"kernel fused_decode_attention {name} {r['shape']}: max|err| "
+            f"{err:.3g}, kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}"
+            f" ms, clone+insert+sdpa {lib}, bound {b_ms:.4f} ms ({b_by})")
+    return results
+
+
 # --------------------------------------------------------------- phase 4/5
 
-def serving_phase(torch, np, mods):
+def sk_reference_decode_step(eng, tok, state, DecodeState):
+    """The fully-resident oracle of the superkernel path: the engine's own
+    segment functions over every expert of each layer with the identity
+    slot table (no slot buffer, no swaps, no pre-gate rows)."""
+    segs, _ = eng._sk_segments()
+    caches, clen = list(state.caches), state.cache_len
+    x = tok
+    logits = None
+    for li, seg in enumerate(segs):
+        x, _, new_cs, logits = eng._sk_seg(
+            seg, [eng._p[j] for j in seg], [caches[j] for j in seg], x, clen,
+            eng._full_experts(li), eng._ident_map, eng._router_stack[:0],
+            eng._zero_bias, first=li == 0, with_logits=li == len(segs) - 1)
+        for jj, aj in enumerate(seg):
+            caches[aj] = new_cs[jj]
+    return logits, DecodeState(caches, clen + 1, pos=state.pos + 1)
+
+
+def counters(mods):
+    return {n: getattr(mods[n], "launches") for n in KERNELS}
+
+
+def serving_phase(torch, np, mods, *, superkernel: bool):
+    tag = "superkernel" if superkernel else "unfused"
     cfg = mods["get_config"]("olmoe-1b-7b")
     Model, SlotBufferEngine = mods["Model"], mods["SlotBufferEngine"]
-    slot_ffn = mods["slot_gather"].slot_ffn
     model = Model(cfg)
     t0 = time.perf_counter()
     g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -176,11 +377,12 @@ def serving_phase(torch, np, mods):
     t_init = time.perf_counter() - t0
     t0 = time.perf_counter()
     eng = SlotBufferEngine(cfg, params, model, n_slots_per_layer=16,
-                           use_kernel=True, max_seq=256, device="cuda")
+                           use_kernel=True, use_superkernel=superkernel,
+                           max_seq=256, device="cuda")
     del params                      # the experts now live in pinned memory
     torch.cuda.empty_cache()
     t_engine = time.perf_counter() - t0
-    log(f"serving: olmoe-1b-7b, {cfg.num_layers} layers, d_model "
+    log(f"serving [{tag}]: olmoe-1b-7b, {cfg.num_layers} layers, d_model "
         f"{cfg.d_model}, {cfg.moe.num_experts} experts top-{cfg.moe.top_k}; "
         f"init {t_init:.1f} s on the card, host store "
         f"{eng.store.nbytes / 1e9:.2f} GB pinned ({t_engine:.1f} s), slot "
@@ -195,58 +397,87 @@ def serving_phase(torch, np, mods):
     srv = mods["ServingEngine"](eng, mods["EngineServingConfig"](
         max_batch=4, admission_cap=False))
 
-    # per-call launch counts through shims on the engine instance
-    per = {"prefill": [], "decode": [], "decode_syncs": []}
+    # per-call launch counts and engine counters through shims
+    per = {"prefill": [], "decode": []}
     orig_prefill, orig_step = eng.prefill, eng.decode_step
+    st = eng.stats
+
+    def snap():
+        return dict(counters(mods), dispatches=st.dispatches,
+                    host_syncs=st.host_syncs, replays=st.replays)
+
+    def delta(a, b):
+        return {k: b[k] - a[k] for k in a}
 
     def prefill(tokens):
-        n0 = slot_ffn.launches
+        s0 = snap()
         out = orig_prefill(tokens)
-        per["prefill"].append(slot_ffn.launches - n0)
+        per["prefill"].append(delta(s0, snap()))
         return out
 
     def decode_step(tok, state):
-        n0, s0 = slot_ffn.launches, eng.stats.host_syncs
+        s0 = snap()
         out = orig_step(tok, state)
-        per["decode"].append(slot_ffn.launches - n0)
-        per["decode_syncs"].append(eng.stats.host_syncs - s0)
+        per["decode"].append(delta(s0, snap()))
         return out
 
     eng.prefill, eng.decode_step = prefill, decode_step
     eng.stats.reset()
-    slot_ffn.launches = 0                      # the main path's count
+    for n in KERNELS:                          # this path's counts
+        mods[n].launches = 0
     t0 = time.perf_counter()
     report = srv.serve(reqs)
     eng.synchronize()
     wall = time.perf_counter() - t0
-    launches = slot_ffn.launches
+    launches = counters(mods)
     eng.prefill, eng.decode_step = orig_prefill, orig_step
 
-    st = eng.stats
     summ = report.summary()
     n_moe = len(eng.moe_layer_ids)
     for r in reqs:
         check(len(r.output) == 16 and all(0 <= t < cfg.vocab_size
                                           for t in r.output),
-              f"request {r.request_id} output {r.output}")
-    check(launches > 0, "slot_ffn was never launched on the serving path")
-    check(min(per["prefill"]) >= n_moe and min(per["decode"]) >= n_moe,
-          f"slot_ffn launches per prefill {per['prefill']} / per decode "
-          f"step {per['decode']} fall below {n_moe}")
+              f"[{tag}] request {r.request_id} output {r.output}")
+
+    def per_call(kind, name):
+        return [c[name] for c in per[kind]]
+
+    check(min(per_call("prefill", "slot_ffn")) >= n_moe,
+          f"[{tag}] slot_ffn launches per prefill "
+          f"{per_call('prefill', 'slot_ffn')} fall below {n_moe}")
+    if superkernel:
+        for name in ("fused_moe_entry", "fused_decode_attention"):
+            check(min(per_call("decode", name)) >= n_moe,
+                  f"[{tag}] {name} launches per decode step "
+                  f"{per_call('decode', name)} fall below {n_moe}")
+        check(max(per_call("decode", "slot_ffn")) == 0,
+              f"[{tag}] decode steps launched slot_ffn")
+    else:
+        check(min(per_call("decode", "slot_ffn")) >= n_moe,
+              f"[{tag}] slot_ffn launches per decode step "
+              f"{per_call('decode', 'slot_ffn')} fall below {n_moe}")
+    path = KERNELS if superkernel else ("slot_ffn",)
+    check(all(launches[n] > 0 for n in path),
+          f"[{tag}] a kernel of the path was never launched: {launches}")
     check(st.swap_experts > 0 and st.evictions > 0,
-          f"no churn: swapped {st.swap_experts}, evicted {st.evictions}")
+          f"[{tag}] no churn: swapped {st.swap_experts}, evicted "
+          f"{st.evictions}")
     gbps = st.swap_bytes / st.copy_s / 1e9 if st.copy_s > 0 else float("nan")
+    mean = lambda xs: float(np.mean(xs))  # noqa: E731
     serving = {
-        "requests": len(reqs), "batch": 4,
+        "path": tag, "requests": len(reqs), "batch": 4,
         "prompt_tokens": [int(len(p)) for p in prompts],
         "new_tokens": 16, "wall_s": wall,
         "ttft_p50_s": summ["ttft_p50_s"], "tpot_p50_s": summ["tpot_p50_s"],
         "throughput_tok_s": summ["throughput_tok_s"],
-        "slot_ffn_launches": launches,
-        "launches_per_prefill": per["prefill"],
-        "launches_per_decode_step_mean": float(np.mean(per["decode"])),
+        "launches": launches,
+        "launches_per_prefill": {n: per_call("prefill", n) for n in KERNELS},
+        "launches_per_decode_step_mean": {
+            n: mean(per_call("decode", n)) for n in KERNELS},
         "decode_steps": len(per["decode"]),
-        "host_syncs_per_decode_step": float(np.mean(per["decode_syncs"])),
+        "dispatches_per_decode_step": mean(per_call("decode", "dispatches")),
+        "host_syncs_per_decode_step": mean(per_call("decode", "host_syncs")),
+        "replays_per_decode_step": mean(per_call("decode", "replays")),
         "replays": st.replays, "spec_layers": st.spec_layers,
         "swap_experts": st.swap_experts, "evictions": st.evictions,
         "demand_misses": st.demand_misses, "prefetched": st.prefetched,
@@ -256,21 +487,30 @@ def serving_phase(torch, np, mods):
         "peak_device_GB": torch.cuda.max_memory_allocated() / 1e9,
         "controller_s_history": list(eng.controller.s_history),
     }
-    log(f"serving: {len(reqs)} requests done in {wall:.2f} s; TTFT p50 "
-        f"{serving['ttft_p50_s'] * 1e3:.1f} ms, TPOT p50 "
+    log(f"serving [{tag}]: {len(reqs)} requests done in {wall:.2f} s; TTFT "
+        f"p50 {serving['ttft_p50_s'] * 1e3:.1f} ms, TPOT p50 "
         f"{serving['tpot_p50_s'] * 1e3:.1f} ms, "
-        f"{serving['throughput_tok_s']:.1f} tok/s")
-    log(f"serving: slot_ffn launches {launches} (per prefill "
-        f"{per['prefill']}, per decode step mean "
-        f"{serving['launches_per_decode_step_mean']:.2f} over "
-        f"{len(per['decode'])} steps); host syncs per decode step "
-        f"{serving['host_syncs_per_decode_step']:.2f}; replays {st.replays}")
-    log(f"serving: swapped {st.swap_experts} experts = "
+        f"{serving['throughput_tok_s']:.2f} tok/s")
+    log(f"serving [{tag}]: launches {launches}; per decode step (mean over "
+        f"{len(per['decode'])} steps) "
+        f"{serving['launches_per_decode_step_mean']}, dispatches "
+        f"{serving['dispatches_per_decode_step']:.2f}, host syncs "
+        f"{serving['host_syncs_per_decode_step']:.2f}, replays "
+        f"{serving['replays_per_decode_step']:.2f}")
+    log(f"serving [{tag}]: swapped {st.swap_experts} experts = "
         f"{st.swap_bytes / 1e9:.2f} GB in {st.copy_s:.3f} s of copies "
         f"({gbps:.2f} GB/s host->device), {st.evictions} evictions")
-    log("serving: " + json.dumps(serving))
+    log(f"serving [{tag}]: " + json.dumps(serving))
 
-    # ---- phase 5: oracle checks ------------------------------------------
+    # ---- oracle checks -----------------------------------------------------
+    if superkernel:
+        DecodeState = mods["DecodeState"]
+        step_ref = lambda tok, s: sk_reference_decode_step(  # noqa: E731
+            eng, tok, s, DecodeState)
+        what = "the segment functions over every expert"
+    else:
+        step_ref = eng.reference_decode_step
+        what = "the fully-resident reference"
     prompt = prompts[0][None, :]
     lg, s_slot = eng.prefill(prompt)
     lr, s_ref = eng.reference_prefill(prompt)
@@ -281,14 +521,13 @@ def serving_phase(torch, np, mods):
         toks_ref.append(int(lr.argmax(-1)[0]))
         tok = lr.argmax(-1)
         lg, s_slot = eng.decode_step(tok, s_slot)
-        lr, s_ref = eng.reference_decode_step(tok, s_ref)
+        lr, s_ref = step_ref(tok, s_ref)
         worst = max(worst, float((lg - lr).abs().max()))
     check(worst == 0.0 and toks_slot == toks_ref,
-          f"slot path differs from the fully-resident oracle: max |dlogit| "
-          f"{worst}, tokens {toks_slot} vs {toks_ref}")
-    log(f"oracle: single-stream slot path bitwise equal to the fully-"
-        f"resident reference over prefill + 16 decode steps "
-        f"(tokens {toks_slot[:8]}...)")
+          f"[{tag}] slot path differs from {what}: max |dlogit| {worst}, "
+          f"tokens {toks_slot} vs {toks_ref}")
+    log(f"oracle [{tag}]: single-stream slot path bitwise equal to {what} "
+        f"over prefill + 16 decode steps (tokens {toks_slot[:8]}...)")
     near_ties = 0
     for r, p in zip(reqs, prompts):
         lr, s_ref = eng.reference_prefill(p[None, :])
@@ -297,15 +536,16 @@ def serving_phase(torch, np, mods):
             want = int(row.argmax())
             if t != want:
                 top2 = np.sort(row)[-2:]
-                check(top2[1] - top2[0] <= 5e-2,
-                      f"request {r.request_id} step {step}: served {t}, "
-                      f"reference {want}, top-2 gap {top2[1] - top2[0]}")
+                check(top2[1] - top2[0] <= NEAR_TIE,
+                      f"[{tag}] request {r.request_id} step {step}: served "
+                      f"{t}, reference {want}, top-2 gap "
+                      f"{top2[1] - top2[0]}")
                 near_ties += 1
                 break
             lr, s_ref = eng.reference_decode_step(
                 torch.tensor([t], device="cuda"), s_ref)
-    log(f"oracle: served streams match single-request reference decoding "
-        f"({near_ties} stream(s) part at a near-tie)")
+    log(f"oracle [{tag}]: served streams match single-request reference "
+        f"decoding ({near_ties} stream(s) part at a near-tie)")
     eng.drop_resident_experts()
     serving["oracle_bitwise"] = True
     serving["served_streams_near_ties"] = near_ties
@@ -347,34 +587,58 @@ def main() -> int:
                 log(f"build {name}: {line.strip()}")
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_superkernel as dsk
     from repro_torch.kernels import ref, slot_gather
     from repro_torch.models import moe as moe_mod
     from repro_torch.models.transformer import Model
-    from repro_torch.runtime.engine import SlotBufferEngine
+    from repro_torch.runtime.engine import DecodeState, SlotBufferEngine
     from repro_torch.runtime.request import Request
     from repro_torch.runtime.serving import EngineServingConfig, ServingEngine
 
     # ---- phase 3: kernels against their plain versions ----------------------
-    kres = kernel_phase(torch, moe_mod, slot_gather, ref)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    kres = {"slot_ffn": slot_ffn_phase(torch, moe_mod, slot_gather, ref, g),
+            "fused_moe_entry": moe_entry_phase(torch, dsk, ref, g),
+            "fused_decode_attention": attention_phase(torch, dsk, ref, g)}
 
-    # ---- phases 4-5: serving at published widths, oracle -----------------
-    serving, launches = serving_phase(torch, np, dict(
-        get_config=get_config, Model=Model, SlotBufferEngine=SlotBufferEngine,
-        Request=Request, ServingEngine=ServingEngine,
-        EngineServingConfig=EngineServingConfig, slot_gather=slot_gather))
+    # ---- phases 4-5: serving at published widths, oracles -----------------
+    mods = dict(get_config=get_config, Model=Model,
+                SlotBufferEngine=SlotBufferEngine, DecodeState=DecodeState,
+                Request=Request, ServingEngine=ServingEngine,
+                EngineServingConfig=EngineServingConfig,
+                slot_ffn=slot_gather.slot_ffn,
+                fused_moe_entry=dsk.fused_moe_entry,
+                fused_decode_attention=dsk.fused_decode_attention)
+    serving = {}
+    launches = {}
+    for superkernel in (False, True):
+        tag = "superkernel" if superkernel else "unfused"
+        serving[tag], launches[tag] = serving_phase(torch, np, mods,
+                                                    superkernel=superkernel)
+        gc.collect()
+        torch.cuda.empty_cache()
 
-    dec = kres["decode"]
-    kernels = {"kernels": [{
-        "name": "slot_ffn", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/slot_ffn.cu",
-        "replaces": "src/repro/kernels/slot_gather.py:72",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in kres.values()),
-        "ms": dec["ms"], "plain_ms": dec["plain_ms"],
-        "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
-        "library_ms": dec["library_ms"],
-        "shapes": kres,
-    }]}
+    src = "src/repro_torch/kernels/csrc/"
+    rows = [("slot_ffn", "slot_ffn.cu", "src/repro/kernels/slot_gather.py:72",
+             "unfused", "decode"),
+            ("fused_moe_entry", "fused_moe_entry.cu",
+             "src/repro/kernels/decode_superkernel.py:141", "superkernel",
+             "decode"),
+            ("fused_decode_attention", "fused_decode_attention.cu",
+             "src/repro/kernels/decode_superkernel.py:259", "superkernel",
+             "decode")]
+    kernels = {"kernels": []}
+    for name, file, replaces, main_path, shape in rows:
+        r = kres[name][shape]
+        kernels["kernels"].append({
+            "name": name, "route": "cuda", "source": src + file,
+            "replaces": replaces,
+            "launches": launches[main_path][name],
+            "launches_by_path": {p: launches[p][name] for p in launches},
+            "max_abs_err": max(v["max_abs_err"] for v in kres[name].values()),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "shapes": kres[name]})
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(

@@ -27,11 +27,17 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # kernel name -> (source file, {C symbol: argtypes})
 KERNELS: Dict[str, Tuple[str, Dict[str, list]]] = {
     "slot_ffn": ("slot_ffn.cu", {
         "slot_ffn_launch": [_P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _P]}),
+    "fused_moe_entry": ("fused_moe_entry.cu", {
+        "fused_moe_entry_launch": [_P] * 13 + [_I] * 7 + [_P]}),
+    "fused_decode_attention": ("fused_decode_attention.cu", {
+        "fused_decode_attention_launch": [_P] * 6 + [_I] + [_P] * 3
+        + [_I] * 5 + [_F, _F, _P]}),
 }
 
 

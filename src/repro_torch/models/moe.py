@@ -5,6 +5,8 @@
                   reference's single-device `moe_grouped`)
 - `moe_slotbuf`   ExpertFlow runtime path: expert weights are read from a
                   bounded slot buffer through an expert -> slot table
+- `moe_slotbuf_fused` the decode superkernel's MoE entry: routing, top-k,
+                  slot lookup and expert FFN in one kernel call
 
 Everything here is deterministic on the card: top-k breaks ties towards the
 lowest expert id through a stable sort, and the combine sums each token's k
@@ -17,6 +19,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.decode_superkernel import fused_moe_entry
 from repro_torch.kernels.slot_gather import slot_ffn
 from repro_torch.models.layers import trunc_normal
 
@@ -194,6 +197,29 @@ def moe_slotbuf(params, slot_weights, slot_of_expert: torch.Tensor,
                               order, weight, T, k,
                               valid=keep & (sid < n_slots)).to(x.dtype)
     return out, r
+
+
+def moe_slotbuf_fused(params, slot_weights, slot_of_expert: torch.Tensor,
+                      x: torch.Tensor, moe,
+                      logit_bias: Optional[torch.Tensor] = None):
+    """Decode-superkernel MoE entry: route + top-k + slot lookup +
+    gate-weighted expert FFN in one `fused_moe_entry` call (no dispatch
+    buffer: only routed, resident (token, expert) pairs are computed).
+
+    `slot_of_expert`: (E,) int32 on x's device, -1 if not resident;
+    `logit_bias`: (E,) fp32 added to the router logits (None: zeros).
+    Returns (out (T, d) in x's dtype, gates (T, k) fp32 zeroed for
+    non-resident experts, expert ids (T, k) int32)."""
+    if "shared" in params:
+        raise NotImplementedError("shared experts are not ported yet")
+    if logit_bias is None:
+        logit_bias = torch.zeros(moe.num_experts, dtype=torch.float32,
+                                 device=x.device)
+    y, gates, ids = fused_moe_entry(
+        x, params["router"], logit_bias, slot_of_expert,
+        slot_weights["w_gate"], slot_weights["w_up"], slot_weights["w_down"],
+        top_k=moe.top_k, norm_topk=moe.router_norm_topk)
+    return y.to(x.dtype), gates, ids
 
 
 def moe_grouped(params, x: torch.Tensor, moe,

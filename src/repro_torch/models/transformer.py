@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.kernels.decode_superkernel import fused_decode_attention
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (dense_init, embed_init, rms_norm,
@@ -179,13 +180,16 @@ def layer_prefill(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
 
 
 def layer_decode(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
-                 cache, cache_len: torch.Tensor):
+                 cache, cache_len: torch.Tensor, use_kernel: bool = False):
     """One-token layer step. x: (B, 1, d). Returns (x, new_cache).
 
     `cache_len` is a () tensor (all rows at one position) or a (B,) tensor
     (each row at its own position). The new token's K/V goes to ring slot
     `cache_len % size` of each row, in a NEW cache tensor: the input cache
-    is left as it was."""
+    is left as it was.
+
+    `use_kernel=True` runs the ring insert and the attention in one
+    `fused_decode_attention` call, which writes the new caches itself."""
     _check_supported(cfg, spec)
     B = x.shape[0]
     h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
@@ -196,14 +200,20 @@ def layer_decode(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
                                cfg.norm_eps)
     k, v = attn_mod.gqa_project_kv(p["attn"], h, positions, cfg.rope_theta,
                                    cfg.norm_eps)
-    rows = torch.arange(B, device=x.device)
-    slot = torch.remainder(clen, size)
-    kc = cache["k"].clone()
-    vc = cache["v"].clone()
-    kc[rows, slot] = k[:, 0]
-    vc[rows, slot] = v[:, 0]
-    valid = torch.clamp(clen + 1, max=size)
-    mix = attn_mod.decode_attention(q, kc, vc, valid)
+    if use_kernel:
+        mix, kc, vc = fused_decode_attention(
+            q.contiguous(), k.contiguous(), v.contiguous(), cache["k"],
+            cache["v"], cache_len,
+            logit_softcap=cfg.attn_logit_softcap)
+    else:
+        rows = torch.arange(B, device=x.device)
+        slot = torch.remainder(clen, size)
+        kc = cache["k"].clone()
+        vc = cache["v"].clone()
+        kc[rows, slot] = k[:, 0]
+        vc[rows, slot] = v[:, 0]
+        valid = torch.clamp(clen + 1, max=size)
+        mix = attn_mod.decode_attention(q, kc, vc, valid)
     x = x + attn_mod.gqa_out(p["attn"], mix)
     new_cache = dict(cache, k=kc, v=vc)
     if "ffn_norm" in p:

@@ -23,6 +23,14 @@ Outputs are bitwise equal to the fully-resident oracle
 (`reference_prefill` / `reference_decode_step`), which runs the same
 functions over the full expert weights with the identity slot table,
 whenever residency is guaranteed (or replayed) before each FFN.
+
+`use_superkernel=True` decodes through *segments* instead: one function
+call per MoE layer (attention through `fused_decode_attention`, routing and
+the expert FFN through `fused_moe_entry`, the needed / pre-gate mask block,
+and the logits folded into the last segment). Routing happens inside the
+call, so every segment runs against the residency it finds; sync segments
+pull the accumulated masks, verify, and replay from the first segment that
+needed an expert it did not find, with that demand made resident first.
 """
 from __future__ import annotations
 
@@ -135,15 +143,18 @@ class DecodeState:
 
 class SlotBufferEngine:
     """MoE forward through the bounded expert slot buffer (see the module
-    docstring). `use_kernel=True` runs every MoE FFN through the
-    slot-indirect `slot_ffn` kernel; otherwise through bf16 per-slot
-    einsums. `device` defaults to CUDA; without CUDA the engine raises
-    unless the caller passes ``device="cpu"``."""
+    docstring). `use_kernel=True` runs every MoE FFN of prefill and of the
+    unfused decode through the slot-indirect `slot_ffn` kernel; otherwise
+    through bf16 per-slot einsums. `use_superkernel=True` decodes through
+    the segment-fused path (`fused_decode_attention` + `fused_moe_entry`).
+    `device` defaults to CUDA; without CUDA the engine raises unless the
+    caller passes ``device="cpu"``."""
 
     def __init__(self, cfg: ModelConfig, params, model: Model,
                  n_slots_per_layer: int, *, use_kernel: bool = False,
                  max_seq: int = 256, step_size: Optional[int] = None,
-                 pregate_margin: int = 2, device="cuda"):
+                 pregate_margin: int = 2, use_superkernel: bool = False,
+                 device="cuda"):
         assert cfg.moe is not None
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -159,6 +170,8 @@ class SlotBufferEngine:
         self.use_kernel = use_kernel
         self.stats = SlotPathStats()
         self._dispatch = Dispatcher(self.stats)
+        self.use_superkernel = use_superkernel
+        self._sk_segs: Optional[Tuple[List[List[int]], List[int]]] = None
         # experts live in the host store (pinned on CUDA); everything else
         # moves to the device once
         self.store = HostExpertStore(pin=self.device.type == "cuda")
@@ -190,6 +203,8 @@ class SlotBufferEngine:
         self._evicted_spec: Dict[Tuple[int, int], bool] = {}
         self._ident_map = torch.arange(E, dtype=torch.int32,
                                        device=self.device)
+        self._zero_bias = torch.zeros(E, dtype=torch.float32,
+                                      device=self.device)
         # adaptive prefetch horizon: `step_size` pins S; otherwise the
         # controller's stall/overfetch feedback moves it, clamped to depth
         self.fixed_s = step_size
@@ -298,16 +313,18 @@ class SlotBufferEngine:
         self._resident = None
 
     # -- asynchronous swap-ins -------------------------------------------------
-    def _wait_slots(self, slot_map: np.ndarray) -> None:
+    def _wait_slots(self, slot_map: np.ndarray, fused: bool = False) -> None:
         """Make the compute stream wait for pending copies into the slots
         the next FFN reads: the layer's resident slots, slot 0 (where the
-        kernel path points non-resident experts) and, on the einsum path,
-        every slot."""
+        `slot_ffn` path points non-resident experts) and, on the einsum
+        path, every slot. `fused_moe_entry` (`fused=True`) routes on the
+        device, so it may read any resident slot of the layer, and never
+        reads an absent expert's."""
         if not self._slot_ready:
             return
-        if self.use_kernel:
+        if fused or self.use_kernel:
             read = {int(s) for s in slot_map if s >= 0}
-            if (slot_map < 0).any():
+            if not fused and (slot_map < 0).any():
                 read.add(0)
         else:
             read = set(self._slot_ready)
@@ -704,7 +721,9 @@ class SlotBufferEngine:
         with its own and verifies needed ⊆ resident-at-dispatch for every
         speculative layer; a misprediction rolls x and the caches back to
         the first wrong layer and replays it as a sync layer. Batched
-        states run the same control flow over the union of active rows."""
+        states run the same control flow over the union of active rows.
+        An engine built with `use_superkernel=True` takes the
+        segment-fused step instead (`_decode_step_superkernel`)."""
         batched = state.batched
         if batched:
             act = np.asarray(state.active, bool)
@@ -718,6 +737,8 @@ class SlotBufferEngine:
                 f"decode past max_seq={self.max_seq} would silently wrap the "
                 "KV ring buffer")
             active_dev = None
+        if self.use_superkernel:
+            return self._decode_step_superkernel(tok, state, active_dev)
         t0 = time.perf_counter()
         self.stats.steps += 1
         tok = torch.as_tensor(tok, device=self.device)
@@ -831,14 +852,221 @@ class SlotBufferEngine:
         logits = self._dispatch(self._logits, x)
         step_s = time.perf_counter() - t0
         self.controller.update_layer_time(step_s / max(len(self.specs), 1))
-        if batched:
-            # only occupied rows advance; idle rows hold their position
-            return logits, DecodeState(
-                caches, clen + active_dev.long(),
+        return logits, self._advance(state, caches, active_dev)
+
+    @staticmethod
+    def _advance(state: DecodeState, caches,
+                 active_dev: Optional[torch.Tensor]) -> DecodeState:
+        """The state after one decode step: only occupied rows of a batched
+        state advance; idle rows hold their position."""
+        if state.batched:
+            act = np.asarray(state.active, bool)
+            return DecodeState(
+                caches, state.cache_len + active_dev.long(),
                 pos=np.where(act, np.asarray(state.pos) + 1,
                              np.asarray(state.pos)),
                 active=act.copy())
-        return logits, DecodeState(caches, clen + 1, pos=state.pos + 1)
+        return DecodeState(caches, state.cache_len + 1, pos=state.pos + 1)
+
+    # -- decode superkernel (segment-fused decode) ---------------------------
+    def _sk_segments(self) -> Tuple[List[List[int]], List[int]]:
+        """The layer stack as decode segments: each segment is the run of
+        dense layers up to and including the next MoE layer (so segment
+        index == MoE layer index), plus the trailing dense layers."""
+        if self._sk_segs is None:
+            segs: List[List[int]] = []
+            cur: List[int] = []
+            for i, spec in enumerate(self.specs):
+                cur.append(i)
+                if spec.is_moe:
+                    segs.append(cur)
+                    cur = []
+            assert segs, "superkernel decode needs at least one MoE layer"
+            self._sk_segs = (segs, cur)
+        return self._sk_segs
+
+    def _sk_seg(self, seg: List[int], ps, seg_caches, x, clen, slot_weights,
+                slot_map, routers_next, bias, active=None, *,
+                first: bool = False, with_logits: bool = False):
+        """One decode segment: (embed the tokens if first) -> its layers'
+        attention through `fused_decode_attention` -> ffn-norm -> routing,
+        top-k and the expert FFN through `fused_moe_entry` -> residual, and
+        the (1 + s, E) mask block (row 0 the experts routed to over `active`
+        rows, rows 1.. the top-(k + margin) pre-gate of the next s routers).
+        `with_logits`: the last segment of an all-MoE stack also computes
+        the final-norm logits. Returns (x, masks, new caches, logits)."""
+        cfg = self.cfg
+        if first:
+            x = self._embed_decode(x)
+        new_caches = []
+        for j, i in enumerate(seg[:-1]):
+            x, c = layer_decode(ps[j], cfg, self.specs[i], x, seg_caches[j],
+                                clen, use_kernel=True)
+            new_caches.append(c)
+        p = ps[-1]
+        stripped, spec_nf = split_ffn_params(p, self.specs[seg[-1]])
+        x, c = layer_decode(stripped, cfg, spec_nf, x, seg_caches[-1], clen,
+                            use_kernel=True)
+        new_caches.append(c)
+        B, T, d = x.shape
+        flat = rms_norm(x, p["ffn_norm"], cfg.norm_eps).reshape(-1, d)
+        out, _, ids = moe_mod.moe_slotbuf_fused(
+            p["moe"], slot_weights, slot_map, flat, cfg.moe, logit_bias=bias)
+        x = x + out.reshape(B, T, d)
+        needed = _needed_mask(ids, cfg.moe.num_experts, active)
+        masks = self._pregate(flat, needed, routers_next, active)
+        logits = self._logits(x) if with_logits else None
+        return x, masks, new_caches, logits
+
+    def _decode_step_superkernel(self, tok, state: DecodeState,
+                                 active_dev: Optional[torch.Tensor]
+                                 ) -> Tuple[torch.Tensor, DecodeState]:
+        """One decode step through the segment-fused path: one call per
+        segment instead of about two per MoE layer plus embed and logits.
+
+        Each segment runs against the residency it finds (absent experts'
+        gates are zeroed inside the kernel). Segments the last sync
+        predicted run speculatively; a sync segment pulls every pending
+        segment's mask block at once and verifies needed ⊆
+        resident-at-dispatch. On a miss the caches and x roll back to the
+        failed segment, which replays with the pulled demand made resident
+        first (`demand_hint`, growing monotonically, so replays end). A
+        hinted segment whose demand still does not fit is capacity
+        overflow: its absent experts' tokens drop, as on the unfused path.
+        Route bias and fault handling are not ported: the bias is zeros."""
+        t0 = time.perf_counter()
+        self.stats.steps += 1
+        tok = torch.as_tensor(tok, device=self.device)
+        caches, clen = list(state.caches), state.cache_len
+        segs, tail = self._sk_segments()
+        if tail:
+            raise NotImplementedError(
+                "trailing dense layers on the superkernel path are not "
+                "ported yet")
+        n_segs = len(segs)
+        logits = x = None
+
+        predicted: Dict[int, set] = {}
+        demand_hint: Dict[int, set] = {}   # li -> known demand after replay
+        # pending: (li, seg_i, masks_dev, slot_snap, ready_snap, hint)
+        pending: List[tuple] = []
+        ckpt: Dict[int, tuple] = {}        # seg_i -> (x_in, [seg caches])
+        self._window_layers.clear()
+        self._evicted_spec.clear()
+
+        def commit():
+            pending.clear()
+            ckpt.clear()
+            self._window_layers.clear()
+
+        def replay_from(fail_idx: int, needed_h):
+            plj, psi = pending[fail_idx][0], pending[fail_idx][1]
+            self.stats.replays += 1
+            for kk, (_, cs_old) in ckpt.items():
+                if kk >= psi:
+                    for jj, aj in enumerate(segs[kk]):
+                        caches[aj] = cs_old[jj]
+            x_r = ckpt[psi][0]
+            for kk in [kk for kk in self._evicted_spec if kk[0] >= plj]:
+                del self._evicted_spec[kk]
+                self.prefetcher.note_unused(kk)
+                self.controller.record_overfetch()
+            demand_hint[plj] = demand_hint.get(plj, set()) | {
+                int(e) for e in needed_h}
+            predicted.clear()
+            commit()
+            return psi, x_r
+
+        def pull_and_verify():
+            """ONE blocking pull of every pending segment's mask block.
+            Returns (fail_idx, fail_needed, sync_rows): fail_idx < 0 on
+            success, with sync_rows the last segment's (1 + s, E) block."""
+            masks_h = self._pull(torch.cat([pp[2] for pp in pending]))
+            row = 0
+            for idx, (plj, _, mdev, snap, rsnap, hint) in enumerate(pending):
+                needed = np.nonzero(masks_h[row])[0]
+                self._settle_prediction(plj, {int(e) for e in needed},
+                                        ready_at_dispatch=rsnap)
+                if any(snap[int(e)] < 0 for e in needed):
+                    # within a replay's hint a still-absent expert is
+                    # capacity overflow, not a misprediction
+                    if not (hint and {int(e) for e in needed} <= hint):
+                        return idx, needed, None
+                row += mdev.shape[0]
+            return -1, None, masks_h[row - pending[-1][2].shape[0]: row]
+
+        si = 0
+        while True:
+            if si == n_segs:
+                if pending:
+                    fail, needed_h, _ = pull_and_verify()
+                    if fail >= 0:
+                        si, x = replay_from(fail, needed_h)
+                        continue
+                    commit()
+                break
+            li = si
+            seg = segs[si]
+            first = si == 0
+            hint = demand_hint.pop(li, set())
+            if hint:
+                self.cache.retier([(li, int(e)) for e in sorted(hint)],
+                                  recent_layers=(), current_layer=li)
+                self.ensure_resident(li, sorted(hint))
+            elif li in predicted:
+                self.ensure_resident(li, sorted(predicted[li]),
+                                     speculative=True)
+            sync = li not in predicted or bool(hint)
+            s = self._horizon(li) if sync else 0
+            x_in = tok if first else x
+            last = si == n_segs - 1
+            ckpt[si] = (x_in, [caches[j] for j in seg])
+            slot_map = self.table.layer_slot_map(li)
+            self._wait_slots(slot_map, fused=True)
+            x, masks_dev, new_cs, lg = self._dispatch(
+                self._sk_seg, seg, [self._p[j] for j in seg],
+                [caches[j] for j in seg], x_in, clen, self.buffer,
+                torch.from_numpy(slot_map).to(self.device),
+                self._router_stack[li + 1: li + 1 + s], self._zero_bias,
+                active_dev, first=first, with_logits=last)
+            if last:
+                logits = lg
+            for jj, aj in enumerate(seg):
+                caches[aj] = new_cs[jj]
+            self._advance_clock()
+            ready_snap = {kk: self.prefetcher.is_ready(kk, self._clock)
+                          for kk in self._prefetch_pending if kk[0] == li}
+            pending.append((li, si, masks_dev, slot_map, ready_snap, hint))
+            self._window_layers.add(li)
+            if not sync:
+                self.stats.spec_layers += 1
+                si += 1
+                continue
+            fail, needed_h, sync_rows = pull_and_verify()
+            if fail >= 0:
+                si, x = replay_from(fail, needed_h)
+                continue
+            needed, pred = self._decode_sync_rows(li, s, sync_rows)
+            predicted.clear()
+            predicted.update(pred)
+            self.cache.retier(
+                [(li, int(e)) for e in needed]
+                + [(lj, int(e)) for lj, es in pred.items() for e in es],
+                recent_layers=(), current_layer=li)
+            # verified: LRU touches only, unless a hinted segment overflowed
+            # capacity, in which case this books the miss
+            self.ensure_resident(li, needed)
+            if pred:
+                self.prefetch_window(
+                    [(lj, sorted(es)) for lj, es in sorted(pred.items())])
+            commit()
+            si += 1
+
+        self.cache.protect_early_layers(
+            max(1, min(self._s_eff(), len(self.moe_layer_ids))))
+        step_s = time.perf_counter() - t0
+        self.controller.update_layer_time(step_s / max(len(self.specs), 1))
+        return logits, self._advance(state, caches, active_dev)
 
     # -- fully-resident decode oracle ---------------------------------------
     def reference_prefill(self, tokens) -> Tuple[torch.Tensor, DecodeState]:

@@ -13,6 +13,9 @@ reference. Loop shape:
 
 Timing is wall-clock on the host; every decode iteration ends in a host
 pull of its sampled tokens, so a step's time includes its device work.
+Serving through the decode superkernel is
+`ServingEngine(SlotBufferEngine(..., use_superkernel=True))`: the loop is
+the same, the engine's `decode_step` takes the segment-fused path.
 Chunked prefill is not ported yet: `prefill_chunk > 0` raises.
 """
 from __future__ import annotations

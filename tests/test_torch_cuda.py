@@ -1,6 +1,7 @@
-"""Card-only tests of the port: the CUDA kernel against its plain version,
-the wrapper's checks, and the slot path against its fully-resident oracle
-with asynchronous swap-ins. They skip without a CUDA device; on a machine
+"""Card-only tests of the port: each CUDA kernel against its plain version
+(and against itself, for determinism), the wrappers' checks, and the slot
+paths (unfused and superkernel) against their fully-resident oracles with
+asynchronous swap-ins. They skip without a CUDA device; on a machine
 with one (and the CUDA toolkit), run them with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -11,11 +12,13 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import get_smoke_config
+from repro_torch.configs import get_config, get_smoke_config, reduce_config
+from repro_torch.kernels import decode_superkernel as dsk
 from repro_torch.kernels import slot_gather
-from repro_torch.kernels.ref import slot_ffn_ref
+from repro_torch.kernels.ref import (fused_decode_attention_ref,
+                                     fused_moe_entry_ref, slot_ffn_ref)
 from repro_torch.models.transformer import Model
-from repro_torch.runtime.engine import SlotBufferEngine
+from repro_torch.runtime.engine import DecodeState, SlotBufferEngine
 
 pytestmark = pytest.mark.cuda
 TOL = 2e-2
@@ -85,3 +88,144 @@ def test_slot_path_bitwise_vs_oracle_on_the_card(gen):
             tok = lr.argmax(-1)
     eng.synchronize()
     assert eng.stats.evictions > 0 and eng.stats.copy_s > 0
+
+
+# ---------------------------------------------------------------------------
+# decode superkernels
+# ---------------------------------------------------------------------------
+
+def _moe_args(g, T, d, E, f, S, n_resident):
+    dev = "cuda"
+    w = lambda *s: (torch.randn(s, generator=g, device=dev)  # noqa: E731
+                    * s[-2] ** -0.5).bfloat16()
+    x = torch.randn((T, d), generator=g, device=dev).bfloat16()
+    rw = torch.randn((d, E), generator=g, device=dev) * d ** -0.5
+    bias = torch.randn(E, generator=g, device=dev) * 0.5
+    soe = torch.full((E,), -1, dtype=torch.int32, device=dev)
+    live = torch.randperm(E, generator=g, device=dev)[:n_resident]
+    soe[live] = torch.randperm(S, generator=g, device=dev)[:n_resident].int()
+    return x, rw, bias, soe, w(S, d, f), w(S, d, f), w(S, f, d)
+
+
+@pytest.mark.parametrize("case", [(4, 2048, 64, 1024, 256, 64, 8),
+                                  (4, 2048, 64, 1024, 256, 16, 8),
+                                  (5, 48, 8, 72, 6, 5, 2)],
+                         ids=["decode_all_resident", "decode_16_resident",
+                              "off_tile"])
+def test_fused_moe_entry_kernel_matches_plain_version(gen, case):
+    T, d, E, f, S, n_res, k = case
+    args = _moe_args(gen, T, d, E, f, S, n_res)
+    before = dsk.fused_moe_entry.launches
+    y, g, i = dsk.fused_moe_entry(*args, top_k=k)
+    y2, g2, i2 = dsk.fused_moe_entry(*args, top_k=k)
+    yr, gr, ir = fused_moe_entry_ref(*args, top_k=k)
+    torch.cuda.synchronize()
+    assert dsk.fused_moe_entry.launches == before + 2
+    assert torch.equal(i, ir)
+    torch.testing.assert_close(g, gr, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(y, yr, rtol=TOL, atol=TOL)
+    assert torch.equal(y, y2) and torch.equal(g, g2) and torch.equal(i, i2)
+
+
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+@pytest.mark.parametrize("case", [([0, 63, 128, 255], 16, 16),
+                                  ([256, 300, 511, 1000], 16, 16),
+                                  ([17, 255, 0, 90], 16, 4)],
+                         ids=["decode", "wrapped", "gqa_G4"])
+def test_fused_decode_attention_kernel_matches_plain_version(gen, case,
+                                                             softcap):
+    clens, Hq, Hkv = case
+    B, S, D = len(clens), 256, 128
+    r = lambda *s: torch.randn(s, generator=gen,  # noqa: E731
+                               device="cuda").bfloat16()
+    args = (r(B, 1, Hq, D), r(B, 1, Hkv, D), r(B, 1, Hkv, D),
+            r(B, S, Hkv, D), r(B, S, Hkv, D),
+            torch.tensor(clens, device="cuda"))
+    old = [a.clone() for a in args[3:5]]
+    before = dsk.fused_decode_attention.launches
+    o, kc, vc = dsk.fused_decode_attention(*args, logit_softcap=softcap)
+    o2, _, _ = dsk.fused_decode_attention(*args, logit_softcap=softcap)
+    orf, kr, vr = fused_decode_attention_ref(*args, logit_softcap=softcap)
+    torch.cuda.synchronize()
+    assert dsk.fused_decode_attention.launches == before + 2
+    assert torch.equal(kc, kr) and torch.equal(vc, vr)
+    assert torch.equal(args[3], old[0]) and torch.equal(args[4], old[1])
+    torch.testing.assert_close(o.float(), orf.float(), rtol=TOL, atol=TOL)
+    assert torch.equal(o, o2), "the kernel must be deterministic"
+
+
+def test_superkernel_wrappers_reject_what_the_kernels_do_not_take(gen):
+    x, rw, bias, soe, sg, su, sd = _moe_args(gen, 4, 64, 8, 32, 4, 4)
+    with pytest.raises(TypeError):
+        dsk.fused_moe_entry(x.float(), rw, bias, soe, sg, su, sd, top_k=2)
+    with pytest.raises(TypeError):
+        dsk.fused_moe_entry(x, rw, bias, soe.long(), sg, su, sd, top_k=2)
+    with pytest.raises(ValueError):
+        dsk.fused_moe_entry(x, rw, bias, soe, sg.transpose(1, 2), su, sd,
+                            top_k=2)
+    with pytest.raises(ValueError):
+        dsk.fused_moe_entry(x, rw.cpu(), bias, soe, sg, su, sd, top_k=2)
+    wide = torch.zeros((4, 128), device="cuda").bfloat16()[:, ::2]
+    with pytest.raises(ValueError):
+        dsk.fused_moe_entry(wide, rw, bias, soe, sg, su, sd, top_k=2)
+    r = lambda *s: torch.randn(s, generator=gen,  # noqa: E731
+                               device="cuda").bfloat16()
+    q, kn, vn = r(2, 1, 4, 32), r(2, 1, 2, 32), r(2, 1, 2, 32)
+    kc, vc = r(2, 16, 2, 32), r(2, 16, 2, 32)
+    clen = torch.tensor([3, 9], device="cuda")
+    with pytest.raises(TypeError):
+        dsk.fused_decode_attention(q.float(), kn, vn, kc, vc, clen)
+    with pytest.raises(TypeError):
+        dsk.fused_decode_attention(q, kn, vn, kc, vc, clen.int())
+    with pytest.raises(ValueError):
+        dsk.fused_decode_attention(q, kn, vn, kc[:, :8], vc, clen)
+    with pytest.raises(ValueError):
+        dsk.fused_decode_attention(q, kn.cpu(), vn, kc, vc, clen)
+    with pytest.raises(ValueError):
+        dsk.fused_decode_attention(q, kn, vn, kc.transpose(1, 2)
+                                   .contiguous().transpose(1, 2), vc, clen)
+
+
+def sk_reference_decode_step(eng, tok, state):
+    """The fully-resident oracle of the superkernel path: the engine's own
+    segment functions over every expert of each layer with the identity
+    slot table."""
+    segs, _ = eng._sk_segments()
+    caches, clen = list(state.caches), state.cache_len
+    x = torch.as_tensor(tok, device=eng.device)
+    logits = None
+    for li, seg in enumerate(segs):
+        x, _, new_cs, logits = eng._sk_seg(
+            seg, [eng._p[j] for j in seg], [caches[j] for j in seg], x, clen,
+            eng._full_experts(li), eng._ident_map, eng._router_stack[:0],
+            eng._zero_bias, first=li == 0, with_logits=li == len(segs) - 1)
+        for jj, aj in enumerate(seg):
+            caches[aj] = new_cs[jj]
+    return logits, DecodeState(caches, clen + 1, pos=state.pos + 1)
+
+
+def test_superkernel_slot_path_bitwise_vs_oracle_on_the_card(gen):
+    cfg = reduce_config(get_config("olmoe-1b-7b"), layers=4, d_model=64,
+                        heads=4, kv_heads=4, d_ff=128, vocab=512, experts=8,
+                        top_k=2, d_expert=32)
+    model = Model(cfg)
+    params = model.init(gen, device="cuda")
+    eng = SlotBufferEngine(cfg, params, model, n_slots_per_layer=3,
+                           use_kernel=True, use_superkernel=True, max_seq=64,
+                           step_size=1, pregate_margin=0)
+    rng = np.random.default_rng(0)
+    n0 = dsk.fused_moe_entry.launches
+    for _ in range(2):
+        prompt = rng.integers(0, cfg.vocab_size, (2, 9))
+        lg, st = eng.prefill(prompt)
+        lr, sr = eng.reference_prefill(prompt)
+        assert torch.equal(lg, lr)
+        tok = lr.argmax(-1)
+        for _ in range(8):
+            lg, st = eng.decode_step(tok, st)
+            lr, sr = sk_reference_decode_step(eng, tok, sr)
+            assert torch.equal(lg, lr)
+            tok = lr.argmax(-1)
+    eng.synchronize()
+    assert dsk.fused_moe_entry.launches > n0
+    assert eng.stats.replays > 0 and eng.stats.evictions > 0
