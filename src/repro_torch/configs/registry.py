@@ -1,8 +1,8 @@
 """Architecture registry: ``--arch <id>`` resolution for the ported configs.
 
-The port carries the architectures its runtime supports so far (GQA MoE
-only); the rest of the reference registry arrives with the slices that port
-their attention flavours.
+The port carries the architectures its runtime supports so far (GQA and
+MLA MoE models); the rest of the reference registry arrives with the slices
+that port their layer kinds.
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ from repro_torch.configs.base import ModelConfig
 # arch id -> module name
 _MODULES: Dict[str, str] = {
     "olmoe-1b-7b": "olmoe_1b_7b",
+    "deepseek-v2-lite": "deepseek_v2_lite",
 }
 
 ARCH_IDS: List[str] = list(_MODULES)

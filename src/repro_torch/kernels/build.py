@@ -38,6 +38,9 @@ KERNELS: Dict[str, Tuple[str, Dict[str, list]]] = {
     "fused_decode_attention": ("fused_decode_attention.cu", {
         "fused_decode_attention_launch": [_P] * 6 + [_I] + [_P] * 3
         + [_I] * 5 + [_F, _F, _P]}),
+    "fused_mla_decode_attention": ("fused_mla_decode_attention.cu", {
+        "fused_mla_decode_attention_launch": [_P] * 7 + [_I] + [_P] * 3
+        + [_I] * 5 + [_F, _P]}),
 }
 
 

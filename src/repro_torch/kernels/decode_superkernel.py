@@ -1,5 +1,5 @@
 """Decode superkernels: the per-layer decode hot path of the segment-fused
-engine in two kernels.
+engine in three kernels.
 
 - `fused_moe_entry`: router logits (+ an additive bias), softmax, top-k,
   the expert -> slot lookup with the dead-sentinel rule and the
@@ -7,13 +7,17 @@ engine in two kernels.
 - `fused_decode_attention`: one-token GQA attention that inserts the new
   K/V row into the ring at `cache_len % S` (into new cache tensors) and
   runs an online softmax over the filled prefix.
+- `fused_mla_decode_attention`: weight-absorbed MLA decode attention that
+  inserts the new latent / rope-key row at position `cache_len` (into new
+  cache tensors) and runs an online softmax over the filled prefix.
 
 On a CUDA tensor each wrapper launches its hand-written Hopper kernel
-(`csrc/fused_moe_entry.cu`, `csrc/fused_decode_attention.cu`) on the
-current stream, or raises; on a CPU tensor it runs the plain version in
-`kernels.ref`, which follows the kernel's rounding points. Any other device
-raises. Each wrapper counts the calls that launched its kernel in
-`.launches` (one per call, though `fused_moe_entry` is four CUDA launches).
+(`csrc/fused_moe_entry.cu`, `csrc/fused_decode_attention.cu`,
+`csrc/fused_mla_decode_attention.cu`) on the current stream, or raises; on
+a CPU tensor it runs the plain version in `kernels.ref`, which follows the
+kernel's rounding points. Any other device raises. Each wrapper counts the
+calls that launched its kernel in `.launches` (one per call, though
+`fused_moe_entry` is four CUDA launches).
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import torch
 
 from repro_torch.kernels.build import LIBS
 from repro_torch.kernels.ref import (fused_decode_attention_ref,
+                                     fused_mla_decode_attention_ref,
                                      fused_moe_entry_ref)
 
 MAX_TOKENS = 1024        # fused_moe_entry: tokens per call (a decode batch)
@@ -30,6 +35,9 @@ MAX_EXPERTS = 256
 MAX_TOP_K = 16
 MAX_GROUP = 16           # fused_decode_attention: query heads per kv head
 MAX_HEAD_DIM = 256
+MAX_MLA_HEADS = 16       # fused_mla_decode_attention: query heads
+MAX_LATENT = 512         # latent width R
+MAX_ROPE = 128           # rope key width P
 
 
 def _device(x: torch.Tensor, name: str) -> str:
@@ -48,6 +56,14 @@ def _need(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if not t.is_contiguous() or t.data_ptr() % 16:
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def _check_cache_len(cache_len: torch.Tensor, B: int, dev) -> None:
+    if (cache_len.dtype != torch.int64 or cache_len.device != dev
+            or cache_len.numel() not in (1, B)
+            or not cache_len.is_contiguous()):
+        raise TypeError(f"cache_len must be a contiguous int64 () or ({B},) "
+                        f"tensor on {dev}")
 
 
 def _check_moe(x, router_w, logit_bias, slot_of_expert, s_gate, s_up,
@@ -147,11 +163,7 @@ def fused_decode_attention(q: torch.Tensor, k_new: torch.Tensor,
         _need(t, name, torch.bfloat16, (B, 1, Hkv, D), dev)
     for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
         _need(t, name, torch.bfloat16, (B, S, Hkv, D), dev)
-    if (cache_len.dtype != torch.int64 or cache_len.device != dev
-            or cache_len.numel() not in (1, B)
-            or not cache_len.is_contiguous()):
-        raise TypeError(f"cache_len must be a contiguous int64 () or ({B},) "
-                        f"tensor on {dev}")
+    _check_cache_len(cache_len, B, dev)
     if Hq % Hkv or not 1 <= Hq // Hkv <= MAX_GROUP:
         raise ValueError(f"Hq={Hq} must be 1..{MAX_GROUP} times Hkv={Hkv}")
     if D % 8 or not 8 <= D <= MAX_HEAD_DIM:
@@ -178,3 +190,77 @@ def fused_decode_attention(q: torch.Tensor, k_new: torch.Tensor,
 
 
 fused_decode_attention.launches = 0
+
+
+def fused_mla_decode_attention(q_abs: torch.Tensor, q_pe: torch.Tensor,
+                               c_new: torch.Tensor, pe_new: torch.Tensor,
+                               latent: torch.Tensor, pe: torch.Tensor,
+                               cache_len: torch.Tensor, *, scale: float):
+    """q_abs: (B, H, R) fp32 (q_nope absorbed through wkv_b's key half);
+    q_pe: (B, H, P) fp32; c_new: (B, R) / pe_new: (B, P) bf16, this token's
+    latent and rope key; latent: (B, S, R) / pe: (B, S, P) bf16 caches;
+    cache_len: () or (B,) int64, the positions cached BEFORE this token.
+
+    Returns (ctx (B, H, R) fp32, new latent, new pe): the new row lands at
+    position `cache_len` of each row (positional, no ring); the input
+    caches are left as they were. Raises if any `cache_len` is outside
+    [0, S): the cache has no room for the token. On CUDA that check reads
+    the lengths back to the host, one synchronisation per call."""
+    if latent.dim() != 3 or q_abs.dim() != 3:
+        raise ValueError("q_abs must be (B, H, R), latent (B, S, R)")
+    B, S, R = latent.shape
+    H, P = q_abs.shape[1], pe.shape[-1]
+    cpu = _device(q_abs, "fused_mla_decode_attention") == "cpu"
+    if not cpu:
+        dev = q_abs.device
+        _need(q_abs, "q_abs", torch.float32, (B, H, R), dev)
+        _need(q_pe, "q_pe", torch.float32, (B, H, P), dev)
+        _need(c_new, "c_new", torch.bfloat16, (B, R), dev)
+        _need(pe_new, "pe_new", torch.bfloat16, (B, P), dev)
+        _need(latent, "latent", torch.bfloat16, (B, S, R), dev)
+        _need(pe, "pe", torch.bfloat16, (B, S, P), dev)
+        _check_cache_len(cache_len, B, dev)
+        if not 1 <= H <= MAX_MLA_HEADS:
+            raise ValueError(f"H={H} heads: the kernel takes 1.."
+                             f"{MAX_MLA_HEADS}")
+        if R % 8 or not 8 <= R <= MAX_LATENT or P % 8 \
+                or not 8 <= P <= MAX_ROPE:
+            raise ValueError(f"latent width {R} and rope width {P} must be "
+                             f"multiples of 8, at most {MAX_LATENT} / "
+                             f"{MAX_ROPE}")
+    lo, hi = (int(v) for v in torch.stack(torch.aminmax(cache_len)).tolist())
+    if lo < 0 or hi >= S:
+        raise ValueError(f"cache_len in [{lo}, {hi}] does not fit a cache of "
+                         f"{S} positions")
+    if cpu:
+        return fused_mla_decode_attention_ref(q_abs, q_pe, c_new, pe_new,
+                                              latent, pe, cache_len,
+                                              scale=scale)
+    return _launch_mla(q_abs, q_pe, c_new, pe_new, latent, pe, cache_len,
+                       scale)
+
+
+def _launch_mla(q_abs, q_pe, c_new, pe_new, latent, pe, cache_len, scale):
+    """Enqueue the kernel on checked inputs and count the launch."""
+    B, S, R = latent.shape
+    H, P = q_abs.shape[1], pe.shape[-1]
+    dev = q_abs.device
+    ctx = torch.empty((B, H, R), dtype=torch.float32, device=dev)
+    lat = torch.empty_like(latent)
+    pe2 = torch.empty_like(pe)
+    lib = LIBS.get("fused_mla_decode_attention")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.fused_mla_decode_attention_launch(
+        q_abs.data_ptr(), q_pe.data_ptr(), c_new.data_ptr(),
+        pe_new.data_ptr(), latent.data_ptr(), pe.data_ptr(),
+        cache_len.data_ptr(), 0 if cache_len.numel() == 1 else 1,
+        ctx.data_ptr(), lat.data_ptr(), pe2.data_ptr(), B, S, H, R, P,
+        ctypes.c_float(scale), stream)
+    if err != 0:
+        raise RuntimeError(f"fused_mla_decode_attention launch failed with "
+                           f"CUDA error {err}")
+    fused_mla_decode_attention.launches += 1
+    return ctx, lat, pe2
+
+
+fused_mla_decode_attention.launches = 0

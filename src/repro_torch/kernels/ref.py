@@ -118,3 +118,37 @@ def fused_decode_attention_ref(q: torch.Tensor, k_new: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgk,bkhd->bhgd", p, vc.float())
     return out.reshape(B, 1, Hq, D).to(q.dtype), kc, vc
+
+
+def fused_mla_decode_attention_ref(q_abs: torch.Tensor, q_pe: torch.Tensor,
+                                   c_new: torch.Tensor, pe_new: torch.Tensor,
+                                   latent: torch.Tensor, pe: torch.Tensor,
+                                   cache_len: torch.Tensor, *, scale: float):
+    """Weight-absorbed MLA decode attention with the new latent / rope-key
+    row inserted at each row's position.
+
+    q_abs: (B, H, R) (q_nope absorbed through wkv_b's key half); q_pe:
+    (B, H, P); c_new: (B, R); pe_new: (B, P); latent: (B, S, R); pe:
+    (B, S, P); cache_len: () or (B,) integer, the positions cached BEFORE
+    this token, each < S. Returns (ctx (B, H, R) float32, new latent, new
+    pe): the caches are new tensors with position `cache_len` replaced
+    (positional, no ring) and the inputs are left as they were. Scores
+    (q_abs . latent + q_pe . pe) * scale in fp32 from the fp32-cast caches,
+    masked softmax over the first `cache_len + 1` positions, ctx the
+    p-weighted sum of the fp32 latent rows.
+    """
+    B, H, R = q_abs.shape
+    S = latent.shape[1]
+    clen = cache_len.reshape(-1).expand(B).long()
+    rows = torch.arange(B, device=q_abs.device)
+    lat = latent.clone()
+    pe2 = pe.clone()
+    lat[rows, clen] = c_new
+    pe2[rows, clen] = pe_new
+    latf, pef = lat.float(), pe2.float()
+    s = (torch.einsum("bhr,bsr->bhs", q_abs.float(), latf)
+         + torch.einsum("bhp,bsp->bhs", q_pe.float(), pef)) * scale
+    mask = torch.arange(S, device=q_abs.device)[None, :] < (clen + 1)[:, None]
+    s = torch.where(mask[:, None, :], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhs,bsr->bhr", p, latf), lat, pe2

@@ -1,5 +1,5 @@
-"""Attention (GQA, global causal): chunked online-softmax prefill and
-one-token decode.
+"""Attention (global causal): GQA and multi-head latent attention (MLA),
+each with a chunked online-softmax prefill and a one-token decode.
 
 `flash_attention` is plain PyTorch: it walks query and key/value blocks with
 an online softmax, so the (T x S) score matrix is never materialised, and it
@@ -11,7 +11,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.layers import rms_norm, rope
+from repro_torch.kernels.decode_superkernel import fused_mla_decode_attention
+from repro_torch.models.layers import rms_norm, rope, trunc_normal
 
 NEG_INF = -2.0 ** 30  # large-finite: avoids NaN from (-inf) - (-inf)
 
@@ -114,3 +115,143 @@ def gqa_project_kv(params, x: torch.Tensor, positions: torch.Tensor,
 def gqa_out(params, mix: torch.Tensor) -> torch.Tensor:
     """Output projection (B, T, Hq, D) -> (B, T, d)."""
     return torch.einsum("bthk,hkd->btd", mix, params["wo"])
+
+
+# ---------------------------------------------------------------------------
+# Multi-head Latent Attention (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+def init_mla_params(d_model: int, num_heads: int, mla, dtype=torch.bfloat16,
+                    **kw):
+    """MLA weights with the reference's init law; `kw` carries `generator`
+    and `device`."""
+    qk_head = mla.qk_nope_head_dim + mla.qk_rope_head_dim
+    dev = kw.get("device", "cpu")
+    p = {}
+    if mla.q_lora_rank:
+        p["wq_a"] = trunc_normal((d_model, mla.q_lora_rank), d_model ** -0.5,
+                                 dtype, **kw)
+        p["q_a_norm"] = torch.ones((mla.q_lora_rank,), dtype=dtype,
+                                   device=dev)
+        p["wq_b"] = trunc_normal((mla.q_lora_rank, num_heads, qk_head),
+                                 mla.q_lora_rank ** -0.5, dtype, **kw)
+    else:
+        p["wq"] = trunc_normal((d_model, num_heads, qk_head),
+                               d_model ** -0.5, dtype, **kw)
+    # joint KV down-projection: latent + shared rope key
+    p["wkv_a"] = trunc_normal(
+        (d_model, mla.kv_lora_rank + mla.qk_rope_head_dim), d_model ** -0.5,
+        dtype, **kw)
+    p["kv_a_norm"] = torch.ones((mla.kv_lora_rank,), dtype=dtype, device=dev)
+    p["wkv_b"] = trunc_normal(
+        (mla.kv_lora_rank, num_heads, mla.qk_nope_head_dim + mla.v_head_dim),
+        mla.kv_lora_rank ** -0.5, dtype, **kw)
+    p["wo"] = trunc_normal((num_heads, mla.v_head_dim, d_model),
+                           (num_heads * mla.v_head_dim) ** -0.5, dtype, **kw)
+    return p
+
+
+def _mla_q(params, x: torch.Tensor, positions: torch.Tensor, mla,
+           rope_theta: float, norm_eps: float) -> torch.Tensor:
+    """The MLA query (LoRA or dense projection), rope on its pe half.
+    x: (B, T, d) -> (B, T, H, nope + rope)."""
+    nope = mla.qk_nope_head_dim
+    if "wq_a" in params:
+        qa = rms_norm(torch.einsum("btd,dr->btr", x, params["wq_a"]),
+                      params["q_a_norm"], norm_eps)
+        q = torch.einsum("btr,rhk->bthk", qa, params["wq_b"])
+    else:
+        q = torch.einsum("btd,dhk->bthk", x, params["wq"])
+    q_nope, q_pe = q[..., :nope], q[..., nope:]
+    return torch.cat([q_nope, rope(q_pe, positions, rope_theta)], dim=-1)
+
+
+def _mla_latent(params, x: torch.Tensor, positions: torch.Tensor, mla,
+                rope_theta: float, norm_eps: float):
+    """The compressed KV of x (B, T, d): the normed latent (B, T, R) and the
+    shared rope key (B, T, 1, P), both in x's dtype — what the cache holds."""
+    R = mla.kv_lora_rank
+    kv_a = torch.einsum("btd,dr->btr", x, params["wkv_a"])
+    c_kv = rms_norm(kv_a[..., :R], params["kv_a_norm"], norm_eps)
+    k_pe = rope(kv_a[..., R:][..., None, :], positions, rope_theta)
+    return c_kv, k_pe
+
+
+def _mla_qkv(params, x: torch.Tensor, positions: torch.Tensor, mla,
+             rope_theta: float, norm_eps: float):
+    """q, k, v expanded from the latent (the prefill side), and the
+    (latent, rope key) pair the cache stores."""
+    nope, rope_d = mla.qk_nope_head_dim, mla.qk_rope_head_dim
+    q = _mla_q(params, x, positions, mla, rope_theta, norm_eps)
+    c_kv, k_pe = _mla_latent(params, x, positions, mla, rope_theta, norm_eps)
+    kv = torch.einsum("btr,rhk->bthk", c_kv, params["wkv_b"])
+    k_nope, v = kv[..., :nope], kv[..., nope:]
+    B, S, H, _ = k_nope.shape
+    k = torch.cat([k_nope, k_pe.expand(B, S, H, rope_d)], dim=-1)
+    return q, k, v, (c_kv, k_pe)
+
+
+def mla_attention(params, x: torch.Tensor, *, positions: torch.Tensor, mla,
+                  rope_theta: float, norm_eps: float = 1e-6) -> torch.Tensor:
+    """Causal MLA over the whole sequence. x: (B, T, d) -> (B, T, d).
+    `flash_attention` scales by q's width ** -0.5, which is MLA's
+    (nope + rope) ** -0.5, and takes v narrower than q/k."""
+    q, k, v, _ = _mla_qkv(params, x, positions, mla, rope_theta, norm_eps)
+    return gqa_out(params, flash_attention(q, k, v))
+
+
+def mla_decode(params, x: torch.Tensor, latent_cache: torch.Tensor,
+               pe_cache: torch.Tensor, cache_len: torch.Tensor, *, mla,
+               rope_theta: float, norm_eps: float = 1e-6,
+               use_kernel: bool = False):
+    """One-token MLA decode over the compressed cache, weight-absorbed.
+
+    x: (B, 1, d); latent_cache: (B, S, R); pe_cache: (B, S, 1, P);
+    cache_len: () or (B,) int64, the positions cached before this token.
+    The new latent / rope-key row lands at position `cache_len` of each row
+    (positional, no ring) in NEW cache tensors. The key half of wkv_b is
+    absorbed into the query and the value half into the output, both in
+    fp32, so attention runs over R-wide latent rows:
+
+      score[h, s] = ((q_nope[h] @ Wk[h]) . c[s] + q_pe[h] . pe[s]) * scale
+      out         = ((sum_s p[h, s] c[s]) @ Wv[h]) @ Wo
+
+    `use_kernel=True` inserts and attends in one `fused_mla_decode_attention`
+    call; otherwise the same in torch ops. Returns (out (B, 1, d) in x's
+    dtype, new latent cache, new pe cache)."""
+    B = x.shape[0]
+    nope, rope_d = mla.qk_nope_head_dim, mla.qk_rope_head_dim
+    clen = cache_len.reshape(-1).expand(B)
+    positions = clen[:, None]
+    c_new, pe_new = _mla_latent(params, x, positions, mla, rope_theta,
+                                norm_eps)
+    q = _mla_q(params, x, positions, mla, rope_theta, norm_eps)
+    q_nope, q_pe = q[..., :nope], q[..., nope:]
+    wk = params["wkv_b"][..., :nope]          # (R, H, nope)
+    wv = params["wkv_b"][..., nope:]          # (R, H, v)
+    scale = (nope + rope_d) ** -0.5
+    q_abs = torch.einsum("bthk,rhk->bhr", q_nope.float(), wk.float())
+    if use_kernel:
+        ctx, latent_cache, pe_sq = fused_mla_decode_attention(
+            q_abs.contiguous(), q_pe[:, 0].float().contiguous(),
+            c_new[:, 0].contiguous(), pe_new[:, 0, 0].contiguous(),
+            latent_cache, pe_cache[:, :, 0], cache_len, scale=scale)
+        pe_cache = pe_sq[:, :, None]
+    else:
+        rows = torch.arange(B, device=x.device)
+        latent_cache = latent_cache.clone()
+        pe_cache = pe_cache.clone()
+        latent_cache[rows, clen] = c_new[:, 0]
+        pe_cache[rows, clen] = pe_new[:, 0]
+        lat = latent_cache.float()
+        s_nope = torch.einsum("bhr,bsr->bhs", q_abs, lat)
+        s_pe = torch.einsum("bthk,bsxk->bhs", q_pe.float(), pe_cache.float())
+        s = (s_nope + s_pe) * scale
+        S = latent_cache.shape[1]
+        valid = torch.arange(S, device=x.device)[None, :] < (clen + 1)[:, None]
+        s = torch.where(valid[:, None, :], s, torch.full_like(s, NEG_INF))
+        p = torch.softmax(s, dim=-1)
+        ctx = torch.einsum("bhs,bsr->bhr", p, lat)
+    out = torch.einsum("bhr,rhv->bhv", ctx, wv.float())
+    out = torch.einsum("bhv,hvd->bd", out, params["wo"].float())[:, None, :]
+    return out.to(x.dtype), latent_cache, pe_cache

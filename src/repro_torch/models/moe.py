@@ -8,6 +8,10 @@
 - `moe_slotbuf_fused` the decode superkernel's MoE entry: routing, top-k,
                   slot lookup and expert FFN in one kernel call
 
+Shared experts (DeepSeek style), where the params have them, are one dense
+SwiGLU over every token, added after the routed experts on every path; they
+stay resident and never go through the slot buffer.
+
 Everything here is deterministic on the card: top-k breaks ties towards the
 lowest expert id through a stable sort, and the combine sums each token's k
 contributions in one fixed order instead of scatter-adding them.
@@ -21,7 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.decode_superkernel import fused_moe_entry
 from repro_torch.kernels.slot_gather import slot_ffn
-from repro_torch.models.layers import trunc_normal
+from repro_torch.models.layers import swiglu, trunc_normal
 
 
 class RouterOutput(NamedTuple):
@@ -33,13 +37,30 @@ class RouterOutput(NamedTuple):
 
 def init_moe_params(d_model: int, moe, dtype=torch.bfloat16, **kw):
     E, f = moe.num_experts, moe.d_expert
-    return {
+    p = {
         "router": trunc_normal((d_model, E), d_model ** -0.5, torch.float32,
                                **kw),
         "w_gate": trunc_normal((E, d_model, f), d_model ** -0.5, dtype, **kw),
         "w_up": trunc_normal((E, d_model, f), d_model ** -0.5, dtype, **kw),
         "w_down": trunc_normal((E, f, d_model), f ** -0.5, dtype, **kw),
     }
+    if moe.num_shared_experts:
+        fs = (moe.d_shared or moe.d_expert) * moe.num_shared_experts
+        p["shared"] = {
+            "w_gate": trunc_normal((d_model, fs), d_model ** -0.5, dtype,
+                                   **kw),
+            "w_up": trunc_normal((d_model, fs), d_model ** -0.5, dtype, **kw),
+            "w_down": trunc_normal((fs, d_model), fs ** -0.5, dtype, **kw),
+        }
+    return p
+
+
+def _add_shared(params, x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """out + the shared experts' SwiGLU of x, where the layer has them."""
+    if "shared" not in params:
+        return out
+    s = params["shared"]
+    return out + swiglu(x, s["w_gate"], s["w_up"], s["w_down"])
 
 
 def top_k_first_max(vals: torch.Tensor, k: int):
@@ -74,7 +95,7 @@ def moe_reference(params, x: torch.Tensor, moe):
     comb = torch.zeros((T, moe.num_experts), dtype=torch.float32,
                        device=x.device).scatter_(1, r.expert_ids, r.gates)
     out = torch.einsum("te,ted->td", comb.to(x.dtype), y_all)
-    return out, r
+    return _add_shared(params, x, out), r
 
 
 def compute_dispatch(expert_ids: torch.Tensor, num_experts: int,
@@ -196,7 +217,7 @@ def moe_slotbuf(params, slot_weights, slot_of_expert: torch.Tensor,
         out = _combine_gather(y.reshape(n_slots * capacity, d), flat_slot,
                               order, weight, T, k,
                               valid=keep & (sid < n_slots)).to(x.dtype)
-    return out, r
+    return _add_shared(params, x, out), r
 
 
 def moe_slotbuf_fused(params, slot_weights, slot_of_expert: torch.Tensor,
@@ -209,9 +230,8 @@ def moe_slotbuf_fused(params, slot_weights, slot_of_expert: torch.Tensor,
     `slot_of_expert`: (E,) int32 on x's device, -1 if not resident;
     `logit_bias`: (E,) fp32 added to the router logits (None: zeros).
     Returns (out (T, d) in x's dtype, gates (T, k) fp32 zeroed for
-    non-resident experts, expert ids (T, k) int32)."""
-    if "shared" in params:
-        raise NotImplementedError("shared experts are not ported yet")
+    non-resident experts, expert ids (T, k) int32). Shared experts are
+    added outside the kernel."""
     if logit_bias is None:
         logit_bias = torch.zeros(moe.num_experts, dtype=torch.float32,
                                  device=x.device)
@@ -219,7 +239,7 @@ def moe_slotbuf_fused(params, slot_weights, slot_of_expert: torch.Tensor,
         x, params["router"], logit_bias, slot_of_expert,
         slot_weights["w_gate"], slot_weights["w_up"], slot_weights["w_down"],
         top_k=moe.top_k, norm_topk=moe.router_norm_topk)
-    return y.to(x.dtype), gates, ids
+    return _add_shared(params, x, y.to(x.dtype)), gates, ids
 
 
 def moe_grouped(params, x: torch.Tensor, moe,

@@ -1,5 +1,7 @@
-"""Decoder stack for the slot-buffer runtime: GQA attention + MoE FFN
-layers (olmoe-style; other layer kinds are not ported yet).
+"""Decoder stack for the slot-buffer runtime: global-attention layers (GQA
+or MLA) with a MoE FFN (routed experts, optionally shared experts) or a
+dense SwiGLU FFN — olmoe- and DeepSeek-V2-style stacks; other layer kinds
+are not ported yet.
 
 The port's parameter tree is flat: ``{"embed", "final_norm", "lm_head",
 "layers": [one dict per absolute layer]}`` — the reference's stacked
@@ -24,18 +26,18 @@ from repro_torch.kernels.decode_superkernel import fused_decode_attention
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (dense_init, embed_init, rms_norm,
-                                       trunc_normal)
+                                       swiglu, trunc_normal)
 
 
 class LayerSpec(NamedTuple):
     kind: str          # attn (the only kind the port runs so far)
     window: int        # sliding window (0 = global, the only one ported)
-    is_moe: bool
+    is_moe: bool       # MoE FFN; otherwise a dense SwiGLU FFN
     layer_idx: int     # absolute depth index (first occurrence)
 
 
 # Parameter keys that belong to a layer's FFN half.
-FFN_PARAM_KEYS = ("ffn_norm", "moe")
+FFN_PARAM_KEYS = ("ffn_norm", "moe", "ffn")
 
 
 def split_ffn_params(p, spec: LayerSpec):
@@ -83,14 +85,16 @@ def all_specs(cfg: ModelConfig) -> List[LayerSpec]:
 
 
 def _check_supported(cfg: ModelConfig, spec: LayerSpec) -> None:
-    """The port runs global-attention GQA layers with a MoE FFN, pre-norm,
-    untied embeddings; anything else raises rather than run wrong."""
-    if spec.kind != "attn" or cfg.attention != "gqa" or spec.window:
+    """The port runs global-attention GQA or MLA layers with a MoE or dense
+    SwiGLU FFN, pre-norm, untied embeddings, in MoE models; anything else
+    raises rather than run wrong."""
+    if (spec.kind != "attn" or cfg.attention not in ("gqa", "mla")
+            or spec.window):
         raise NotImplementedError(
             f"{cfg.name} layer {spec.layer_idx}: the port runs global GQA "
-            f"attention only, got {spec}")
-    if (cfg.is_encoder_decoder or cfg.abs_pos or cfg.attn_logit_softcap
-            or cfg.tie_embeddings or cfg.moe.num_shared_experts
+            f"or MLA attention only, got {spec}")
+    if (cfg.moe is None or cfg.is_encoder_decoder or cfg.abs_pos
+            or cfg.attn_logit_softcap or cfg.tie_embeddings
             or cfg.name.startswith(("gemma", "recurrentgemma"))):
         raise NotImplementedError(f"{cfg.name}: not ported yet")
 
@@ -105,53 +109,80 @@ def init_layer(cfg: ModelConfig, spec: LayerSpec, dtype, **kw):
     d, hd = cfg.d_model, cfg.resolved_head_dim
     H, Hkv = cfg.num_heads, cfg.num_kv_heads
     dev = kw.get("device", "cpu")
-    attn = {
-        "wq": trunc_normal((d, H, hd), d ** -0.5, dtype, **kw),
-        "wk": trunc_normal((d, Hkv, hd), d ** -0.5, dtype, **kw),
-        "wv": trunc_normal((d, Hkv, hd), d ** -0.5, dtype, **kw),
-        "wo": trunc_normal((H, hd, d), (H * hd) ** -0.5, dtype, **kw),
-    }
-    if cfg.qk_norm:
-        attn["q_norm"] = torch.ones((hd,), dtype=dtype, device=dev)
-        attn["k_norm"] = torch.ones((hd,), dtype=dtype, device=dev)
-    return {"pre_norm": torch.ones((d,), dtype=dtype, device=dev),
-            "attn": attn,
-            "ffn_norm": torch.ones((d,), dtype=dtype, device=dev),
-            "moe": moe_mod.init_moe_params(d, cfg.moe, dtype, **kw)}
+    if cfg.attention == "mla":
+        attn = attn_mod.init_mla_params(d, H, cfg.mla, dtype, **kw)
+    else:
+        attn = {
+            "wq": trunc_normal((d, H, hd), d ** -0.5, dtype, **kw),
+            "wk": trunc_normal((d, Hkv, hd), d ** -0.5, dtype, **kw),
+            "wv": trunc_normal((d, Hkv, hd), d ** -0.5, dtype, **kw),
+            "wo": trunc_normal((H, hd, d), (H * hd) ** -0.5, dtype, **kw),
+        }
+        if cfg.qk_norm:
+            attn["q_norm"] = torch.ones((hd,), dtype=dtype, device=dev)
+            attn["k_norm"] = torch.ones((hd,), dtype=dtype, device=dev)
+    p = {"pre_norm": torch.ones((d,), dtype=dtype, device=dev),
+         "attn": attn,
+         "ffn_norm": torch.ones((d,), dtype=dtype, device=dev)}
+    if spec.is_moe:
+        p["moe"] = moe_mod.init_moe_params(d, cfg.moe, dtype, **kw)
+    else:
+        p["ffn"] = {"w_gate": dense_init(d, cfg.d_ff, dtype, **kw),
+                    "w_up": dense_init(d, cfg.d_ff, dtype, **kw),
+                    "w_down": dense_init(cfg.d_ff, d, dtype, **kw)}
+    return p
 
 
 # ---------------------------------------------------------------------------
 # Per-layer forward (prefill path)
 # ---------------------------------------------------------------------------
 
-def _ffn_part(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """x + MoE FFN (capacity-buffer grouped, resident weights); FFN-stripped
+def _ffn_part(p, cfg: ModelConfig, x: torch.Tensor,
+              capacity: Optional[int] = None) -> torch.Tensor:
+    """x + FFN: MoE (capacity-buffer grouped over the layer's own experts,
+    shared experts included) or dense SwiGLU. x: (B, T, d). FFN-stripped
     params pass x through."""
     if "ffn_norm" not in p:
         return x
     h2 = rms_norm(x, p["ffn_norm"], cfg.norm_eps)
-    ff, _ = moe_mod.moe_grouped(p["moe"], h2, cfg.moe)
-    return x + ff
+    if "ffn" in p:
+        f = p["ffn"]
+        return x + swiglu(h2, f["w_gate"], f["w_up"], f["w_down"])
+    if capacity is None:
+        ff, _ = moe_mod.moe_grouped(p["moe"], h2, cfg.moe)
+        return x + ff
+    B = x.shape[0]
+    out, _ = moe_mod.moe_grouped(p["moe"], h2.reshape(B, -1), cfg.moe,
+                                 capacity=capacity)
+    return x + out.reshape(B, 1, -1)
 
 
 def _attn_prefill(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
                   positions: torch.Tensor):
-    """Pre-norm GQA self-attention over the whole sequence.
-    Returns (x + attention, k, v)."""
+    """Pre-norm self-attention (GQA or MLA) over the whole sequence.
+    Returns (x + attention, {cache name: the T rows the cache keeps})."""
     _check_supported(cfg, spec)
     h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
-    q = attn_mod.gqa_project_q(p["attn"], h, positions, cfg.rope_theta,
-                               cfg.norm_eps)
-    k, v = attn_mod.gqa_project_kv(p["attn"], h, positions, cfg.rope_theta,
+    if cfg.attention == "mla":
+        q, k, v, (c_kv, k_pe) = attn_mod._mla_qkv(
+            p["attn"], h, positions, cfg.mla, cfg.rope_theta, cfg.norm_eps)
+        rows = {"latent": c_kv, "pe": k_pe}
+    else:
+        q = attn_mod.gqa_project_q(p["attn"], h, positions, cfg.rope_theta,
                                    cfg.norm_eps)
+        k, v = attn_mod.gqa_project_kv(p["attn"], h, positions,
+                                       cfg.rope_theta, cfg.norm_eps)
+        rows = {"k": k, "v": v}
+    # MLA: q's width is nope + rope, so flash_attention's q-width ** -0.5
+    # is MLA's scale; v (v_head_dim) may be narrower than q and k
     mix = attn_mod.flash_attention(q, k, v)
-    return x + attn_mod.gqa_out(p["attn"], mix), k, v
+    return x + attn_mod.gqa_out(p["attn"], mix), rows
 
 
 def layer_forward(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
                   positions: torch.Tensor) -> torch.Tensor:
     """Full-sequence layer (prefill without a cache). x: (B, T, d)."""
-    x, _, _ = _attn_prefill(p, cfg, spec, x, positions)
+    x, _ = _attn_prefill(p, cfg, spec, x, positions)
     return _ffn_part(p, cfg, x)
 
 
@@ -161,21 +192,25 @@ def layer_forward(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
 
 def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
                      max_seq: int, dtype, device="cpu"):
+    """GQA: a K/V ring {"k", "v"} (B, S, Hkv, D). MLA: the positional
+    compressed cache {"latent": (B, S, R), "pe": (B, S, 1, P)}."""
     _check_supported(cfg, spec)
-    shape = (batch, max_seq, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    z = lambda *s: torch.zeros(s, dtype=dtype, device=device)  # noqa: E731
+    if cfg.attention == "mla":
+        return {"latent": z(batch, max_seq, cfg.mla.kv_lora_rank),
+                "pe": z(batch, max_seq, 1, cfg.mla.qk_rope_head_dim)}
+    shape = (batch, max_seq, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return {"k": z(*shape), "v": z(*shape)}
 
 
 def layer_prefill(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
                   positions: torch.Tensor, max_seq: int):
     """Like layer_forward but also returns a populated cache entry."""
     B, T, _ = x.shape
-    x, k, v = _attn_prefill(p, cfg, spec, x, positions)
+    x, rows = _attn_prefill(p, cfg, spec, x, positions)
     cache = init_layer_cache(cfg, spec, B, max_seq, x.dtype, x.device)
-    cache["k"][:, :T] = k           # T <= max_seq: no ring wrap yet
-    cache["v"][:, :T] = v
+    for name, r in rows.items():    # T <= max_seq: no ring wrap yet
+        cache[name][:, :T] = r
     return _ffn_part(p, cfg, x), cache
 
 
@@ -184,15 +219,23 @@ def layer_decode(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
     """One-token layer step. x: (B, 1, d). Returns (x, new_cache).
 
     `cache_len` is a () tensor (all rows at one position) or a (B,) tensor
-    (each row at its own position). The new token's K/V goes to ring slot
-    `cache_len % size` of each row, in a NEW cache tensor: the input cache
-    is left as it was.
+    (each row at its own position). GQA: the new token's K/V goes to ring
+    slot `cache_len % size` of each row; MLA: its latent / rope-key row goes
+    to position `cache_len` (no ring). Either way into NEW cache tensors:
+    the input cache is left as it was.
 
-    `use_kernel=True` runs the ring insert and the attention in one
-    `fused_decode_attention` call, which writes the new caches itself."""
+    `use_kernel=True` runs the insert and the attention in one
+    `fused_decode_attention` (GQA) or `fused_mla_decode_attention` (MLA)
+    call, which writes the new caches itself."""
     _check_supported(cfg, spec)
     B = x.shape[0]
     h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
+    if cfg.attention == "mla":
+        mix, lat, pe = attn_mod.mla_decode(
+            p["attn"], h, cache["latent"], cache["pe"], cache_len,
+            mla=cfg.mla, rope_theta=cfg.rope_theta, norm_eps=cfg.norm_eps,
+            use_kernel=use_kernel)
+        return _decode_ffn(p, cfg, x + mix), dict(cache, latent=lat, pe=pe)
     size = cache["k"].shape[1]
     clen = cache_len.reshape(-1).expand(B)
     positions = clen[:, None]
@@ -215,16 +258,15 @@ def layer_decode(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
         valid = torch.clamp(clen + 1, max=size)
         mix = attn_mod.decode_attention(q, kc, vc, valid)
     x = x + attn_mod.gqa_out(p["attn"], mix)
-    new_cache = dict(cache, k=kc, v=vc)
-    if "ffn_norm" in p:
-        h2 = rms_norm(x, p["ffn_norm"], cfg.norm_eps)
-        m = cfg.moe
-        # capacity sized to expected load (4x slack), not worst case
-        cap = min(B * m.top_k, max(8, -(-B * m.top_k // m.num_experts) * 4))
-        out, _ = moe_mod.moe_grouped(p["moe"], h2.reshape(B, -1), m,
-                                     capacity=cap)
-        x = x + out.reshape(B, 1, -1)
-    return x, new_cache
+    return _decode_ffn(p, cfg, x), dict(cache, k=kc, v=vc)
+
+
+def _decode_ffn(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The FFN half of a one-token step; a MoE layer's capacity is sized to
+    the expected load (4x slack), not the worst case."""
+    B, m = x.shape[0], cfg.moe
+    cap = min(B * m.top_k, max(8, -(-B * m.top_k // m.num_experts) * 4))
+    return _ffn_part(p, cfg, x, capacity=cap)
 
 
 # ---------------------------------------------------------------------------
@@ -239,9 +281,6 @@ class Model:
         self.specs = all_specs(cfg)
         for s in self.specs:
             _check_supported(cfg, s)
-            if not s.is_moe:
-                raise NotImplementedError(
-                    f"{cfg.name}: dense FFN layers are not ported yet")
         self.dtype = torch.bfloat16 if cfg.dtype == "bfloat16" \
             else torch.float32
 

@@ -24,13 +24,19 @@ Outputs are bitwise equal to the fully-resident oracle
 functions over the full expert weights with the identity slot table,
 whenever residency is guaranteed (or replayed) before each FFN.
 
+Dense (non-MoE) layers, such as DeepSeek-V2's first, take one plain
+dispatch each on every path: they route nothing and have no slot map, and
+the MoE layer index `li` counts MoE layers only.
+
 `use_superkernel=True` decodes through *segments* instead: one function
-call per MoE layer (attention through `fused_decode_attention`, routing and
-the expert FFN through `fused_moe_entry`, the needed / pre-gate mask block,
-and the logits folded into the last segment). Routing happens inside the
-call, so every segment runs against the residency it finds; sync segments
-pull the accumulated masks, verify, and replay from the first segment that
-needed an expert it did not find, with that demand made resident first.
+call per MoE layer, which also runs the dense layers before it (attention
+through `fused_decode_attention` or `fused_mla_decode_attention`, routing
+and the expert FFN through `fused_moe_entry`, the needed / pre-gate mask
+block, and the logits folded into the last segment). Routing happens
+inside the call, so every segment runs against the residency it finds;
+sync segments pull the accumulated masks, verify, and replay from the
+first segment that needed an expert it did not find, with that demand made
+resident first.
 """
 from __future__ import annotations
 
@@ -523,6 +529,10 @@ class SlotBufferEngine:
         li = 0
         for i, spec in enumerate(self.specs):
             p = self._p[i]
+            if not spec.is_moe:
+                x = self._dispatch(layer_forward, p, self.cfg, spec, x,
+                                   positions)
+                continue
             nxt = self._next_router(li + 1)
             x, flat, r, masks = self._dispatch(self._pre, p, spec, x,
                                                positions, nxt)
@@ -550,6 +560,9 @@ class SlotBufferEngine:
         li = 0
         for i, spec in enumerate(self.specs):
             p = self._p[i]
+            if not spec.is_moe:
+                x = layer_forward(p, self.cfg, spec, x, positions)
+                continue
             nxt = self._next_router(li + 1)
             x, flat, r, _ = self._pre(p, spec, x, positions, nxt)
             x = self._ffn(p, self._full_experts(li), self._ident_map, x, flat,
@@ -648,6 +661,11 @@ class SlotBufferEngine:
         li = 0
         for i, spec in enumerate(self.specs):
             p = self._p[i]
+            if not spec.is_moe:
+                x, c = self._dispatch(layer_prefill, p, self.cfg, spec, x,
+                                      positions, self.max_seq)
+                caches.append(c)
+                continue
             x, flat, r, needed_dev, c = self._dispatch(
                 self._pre_prefill, p, spec, x, positions)
             caches.append(c)
@@ -729,13 +747,13 @@ class SlotBufferEngine:
             act = np.asarray(state.active, bool)
             if act.any():
                 assert int(np.asarray(state.pos)[act].max()) < self.max_seq, (
-                    f"decode past max_seq={self.max_seq} would silently wrap "
-                    "the KV ring buffer")
+                    f"decode past max_seq={self.max_seq} would wrap the KV "
+                    "ring buffer or overflow the positional latent cache")
             active_dev = torch.from_numpy(act).to(self.device)
         else:
             assert state.pos < self.max_seq, (
-                f"decode past max_seq={self.max_seq} would silently wrap the "
-                "KV ring buffer")
+                f"decode past max_seq={self.max_seq} would wrap the KV ring "
+                "buffer or overflow the positional latent cache")
             active_dev = None
         if self.use_superkernel:
             return self._decode_step_superkernel(tok, state, active_dev)
@@ -811,6 +829,13 @@ class SlotBufferEngine:
                 break
             spec = self.specs[i]
             p = self._p[i]
+            if not spec.is_moe:
+                if pending:
+                    ckpt[i] = (x, caches[i])
+                x, caches[i] = self._dispatch(layer_decode, p, self.cfg,
+                                              spec, x, caches[i], clen)
+                i += 1
+                continue
             x_in, old_c = x, caches[i]
             x2, flat, r, needed_dev, c2 = self._dispatch(
                 self._pre_decode, p, spec, x_in, old_c, clen, active_dev)
@@ -888,9 +913,11 @@ class SlotBufferEngine:
     def _sk_seg(self, seg: List[int], ps, seg_caches, x, clen, slot_weights,
                 slot_map, routers_next, bias, active=None, *,
                 first: bool = False, with_logits: bool = False):
-        """One decode segment: (embed the tokens if first) -> its layers'
-        attention through `fused_decode_attention` -> ffn-norm -> routing,
-        top-k and the expert FFN through `fused_moe_entry` -> residual, and
+        """One decode segment: (embed the tokens if first) -> its dense
+        layers -> the MoE layer's attention, each attention through
+        `fused_decode_attention` (GQA) or `fused_mla_decode_attention` (MLA)
+        -> ffn-norm -> routing, top-k and the expert FFN through
+        `fused_moe_entry` -> residual, and
         the (1 + s, E) mask block (row 0 the experts routed to over `active`
         rows, rows 1.. the top-(k + margin) pre-gate of the next s routers).
         `with_logits`: the last segment of an all-MoE stack also computes
@@ -1079,6 +1106,11 @@ class SlotBufferEngine:
         li = 0
         for i, spec in enumerate(self.specs):
             p = self._p[i]
+            if not spec.is_moe:
+                x, c = layer_prefill(p, self.cfg, spec, x, positions,
+                                     self.max_seq)
+                caches.append(c)
+                continue
             x, flat, r, _, c = self._pre_prefill(p, spec, x, positions)
             caches.append(c)
             x = self._ffn(p, self._full_experts(li), self._ident_map, x, flat,
@@ -1093,14 +1125,18 @@ class SlotBufferEngine:
         states only). The slot path must match it bitwise."""
         assert not state.batched, "reference_decode_step is single-stream"
         assert state.pos < self.max_seq, (
-            f"decode past max_seq={self.max_seq} would silently wrap the KV "
-            "ring buffer")
+            f"decode past max_seq={self.max_seq} would wrap the KV ring "
+            "buffer or overflow the positional latent cache")
         tok = torch.as_tensor(tok, device=self.device)
         caches, clen = list(state.caches), state.cache_len
         x = self._embed_decode(tok)
         li = 0
         for i, spec in enumerate(self.specs):
             p = self._p[i]
+            if not spec.is_moe:
+                x, caches[i] = layer_decode(p, self.cfg, spec, x, caches[i],
+                                            clen)
+                continue
             x2, flat, r, _, caches[i] = self._pre_decode(p, spec, x,
                                                          caches[i], clen)
             x = self._ffn(p, self._full_experts(li), self._ident_map, x2,

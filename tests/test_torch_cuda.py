@@ -16,6 +16,7 @@ from repro_torch.configs import get_config, get_smoke_config, reduce_config
 from repro_torch.kernels import decode_superkernel as dsk
 from repro_torch.kernels import slot_gather
 from repro_torch.kernels.ref import (fused_decode_attention_ref,
+                                     fused_mla_decode_attention_ref,
                                      fused_moe_entry_ref, slot_ffn_ref)
 from repro_torch.models.transformer import Model
 from repro_torch.runtime.engine import DecodeState, SlotBufferEngine
@@ -228,4 +229,102 @@ def test_superkernel_slot_path_bitwise_vs_oracle_on_the_card(gen):
             tok = lr.argmax(-1)
     eng.synchronize()
     assert dsk.fused_moe_entry.launches > n0
+    assert eng.stats.replays > 0 and eng.stats.evictions > 0
+
+
+# ---------------------------------------------------------------------------
+# MLA decode attention (DeepSeek-V2-Lite)
+# ---------------------------------------------------------------------------
+
+def _mla_args(g, clens, S, H, R, P):
+    dev = "cuda"
+    B = len(clens)
+    f = lambda *s: torch.randn(s, generator=g, device=dev)  # noqa: E731
+    return (f(B, H, R) * 0.3, f(B, H, P) * 0.3, f(B, R).bfloat16(),
+            f(B, P).bfloat16(), f(B, S, R).bfloat16(), f(B, S, P).bfloat16(),
+            torch.tensor(clens, device=dev))
+
+
+@pytest.mark.parametrize("case", [([0, 63, 128, 255], 256, 16, 512, 64),
+                                  ([255], 256, 16, 512, 64),
+                                  ([3, 0, 31], 32, 4, 32, 8),
+                                  ([100, 7], 130, 3, 40, 16)],
+                         ids=["deepseek_decode", "deepseek_S-1", "reduced",
+                              "off_tile"])
+def test_fused_mla_decode_attention_kernel_matches_plain_version(gen, case):
+    """Caches bitwise equal, ctx within 2e-4 (fp32 throughout; only the
+    summation order differs)."""
+    clens, S, H, R, P = case
+    args = _mla_args(gen, clens, S, H, R, P)
+    scale = 192 ** -0.5
+    old = [a.clone() for a in args[4:6]]
+    before = dsk.fused_mla_decode_attention.launches
+    ctx, lat, pe = dsk.fused_mla_decode_attention(*args, scale=scale)
+    ctx2, _, _ = dsk.fused_mla_decode_attention(*args, scale=scale)
+    cr, lr, pr = fused_mla_decode_attention_ref(*args, scale=scale)
+    torch.cuda.synchronize()
+    assert dsk.fused_mla_decode_attention.launches == before + 2
+    assert torch.equal(lat, lr) and torch.equal(pe, pr)
+    assert torch.equal(args[4], old[0]) and torch.equal(args[5], old[1])
+    torch.testing.assert_close(ctx, cr, rtol=2e-4, atol=2e-4)
+    assert torch.equal(ctx, ctx2), "the kernel must be deterministic"
+
+
+def test_fused_mla_decode_attention_wrapper_rejects(gen):
+    q, qp, cn, pn, lat, pe, clen = _mla_args(gen, [3, 9], 16, 4, 32, 8)
+    call = dsk.fused_mla_decode_attention
+    with pytest.raises(TypeError):
+        call(q.bfloat16(), qp, cn, pn, lat, pe, clen, scale=0.2)
+    with pytest.raises(TypeError):
+        call(q, qp, cn.float(), pn, lat, pe, clen, scale=0.2)
+    with pytest.raises(TypeError):
+        call(q, qp, cn, pn, lat, pe, clen.int(), scale=0.2)
+    with pytest.raises(ValueError):
+        call(q, qp, cn, pn, lat[:, :8], pe, clen, scale=0.2)
+    with pytest.raises(ValueError):
+        call(q, qp, cn, pn, lat, pe.cpu(), clen, scale=0.2)
+    with pytest.raises(ValueError):
+        call(q.transpose(1, 2).contiguous().transpose(1, 2), qp, cn, pn, lat,
+             pe, clen, scale=0.2)
+    for bad in ([3, 16], [-1, 2]):
+        with pytest.raises(ValueError, match="does not fit"):
+            call(q, qp, cn, pn, lat, pe, torch.tensor(bad, device="cuda"),
+                 scale=0.2)
+    with pytest.raises(ValueError, match="does not fit"):
+        call(q, qp, cn, pn, lat, pe, torch.tensor(16, device="cuda"),
+             scale=0.2)
+
+
+@pytest.mark.parametrize("superkernel", [False, True],
+                         ids=["unfused", "superkernel"])
+def test_deepseek_slot_paths_bitwise_vs_oracle_on_the_card(gen, superkernel):
+    """Reduced DeepSeek-V2-Lite (1 dense + 3 MoE layers, MLA, shared
+    experts) on both decode paths against their fully-resident oracles."""
+    cfg = reduce_config(get_config("deepseek-v2-lite"), layers=4, d_model=64,
+                        heads=4, kv_heads=4, d_ff=128, vocab=512, experts=8,
+                        top_k=2, d_expert=32)
+    model = Model(cfg)
+    params = model.init(gen, device="cuda")
+    eng = SlotBufferEngine(cfg, params, model, n_slots_per_layer=3,
+                           use_kernel=True, use_superkernel=superkernel,
+                           max_seq=64, step_size=1, pregate_margin=0)
+    step_ref = (lambda t, s: sk_reference_decode_step(eng, t, s)) \
+        if superkernel else eng.reference_decode_step
+    rng = np.random.default_rng(0)
+    n0 = dsk.fused_mla_decode_attention.launches
+    for _ in range(2):
+        prompt = rng.integers(0, cfg.vocab_size, (2, 9))
+        lg, st = eng.prefill(prompt)
+        lr, sr = eng.reference_prefill(prompt)
+        assert torch.equal(lg, lr)
+        tok = lr.argmax(-1)
+        for _ in range(8):
+            lg, st = eng.decode_step(tok, st)
+            lr, sr = step_ref(tok, sr)
+            assert torch.equal(lg, lr)
+            for a, b in zip(st.caches, sr.caches):
+                assert torch.equal(a["latent"], b["latent"])
+            tok = lr.argmax(-1)
+    eng.synchronize()
+    assert (dsk.fused_mla_decode_attention.launches > n0) == superkernel
     assert eng.stats.replays > 0 and eng.stats.evictions > 0

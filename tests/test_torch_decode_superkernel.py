@@ -148,9 +148,17 @@ def test_moe_slotbuf_fused_rounds_to_the_input_dtype_and_rejects_shared():
                                   norm_topk=moe.router_norm_topk)
     assert out.dtype == x.dtype and torch.equal(out, y.to(x.dtype))
     assert torch.equal(gates, g) and torch.equal(ids, i)
-    with pytest.raises(NotImplementedError):
-        moe_mod.moe_slotbuf_fused({"router": rw, "shared": {}}, slots, soe,
-                                  x, moe)
+    # shared experts are no longer rejected: their SwiGLU is added outside
+    # the kernel, after the routed experts
+    rng = np.random.default_rng(3)
+    shared = {k: to_tensor(_bf16(rng.standard_normal(s) * 0.1))
+              for k, s in (("w_gate", (64, 48)), ("w_up", (64, 48)),
+                           ("w_down", (48, 64)))}
+    out_s, gates_s, _ = moe_mod.moe_slotbuf_fused(
+        {"router": rw, "shared": shared}, slots, soe, x, moe)
+    assert torch.equal(gates_s, g)
+    assert torch.equal(out_s, y.to(x.dtype) + moe_mod.swiglu(
+        x, shared["w_gate"], shared["w_up"], shared["w_down"]))
 
 
 # ---------------------------------------------------------------------------
