@@ -7,18 +7,18 @@ Phases, each printed on its own lines; any failure exits non-zero before
 the last line:
 
 1. environment: the card's name and power limit (nvidia-smi);
-2. build: every CUDA kernel of the serving paths (`slot_ffn`,
-   `fused_moe_entry`, `fused_decode_attention`,
-   `fused_mla_decode_attention`), from `src/repro_torch/kernels/csrc`, one
-   nvcc per source, all at once;
+2. build: every CUDA kernel of the port (`slot_ffn`, `fused_moe_entry`,
+   `fused_decode_attention`, `fused_mla_decode_attention`, `topk_gating`,
+   `expert_ffn`), from `src/repro_torch/kernels/csrc`, one nvcc per
+   source, all at once;
 3. kernels: each kernel against its plain PyTorch version on the card at
-   the serving paths' shapes, with CUDA-event medians of the kernel, the
-   plain version and a library yardstick (timed only; the port never calls
-   it), and the kernel's bound (the larger of needed bytes / 3.35 TB/s and
+   its paths' shapes, with CUDA-event medians of the kernel, the plain
+   version and a library yardstick (timed only; the port never calls it),
+   and the kernel's bound (the larger of needed bytes / 3.35 TB/s and
    needed operations over the H100 SXM peak for their type):
-   - `slot_ffn` at olmoe-1b-7b decode (batch 4), prefill (128 tokens) and a
-     ragged shape, and at DeepSeek-V2-Lite decode and prefill, tolerance
-     2e-2;
+   - `slot_ffn` at olmoe-1b-7b decode (batch 4), prefill (128 tokens), one
+     32-token prefill chunk and a ragged shape, and at DeepSeek-V2-Lite
+     decode, prefill and chunk, tolerance 2e-2;
    - `fused_moe_entry` at olmoe-1b-7b decode (T=4, 256 slots) with every
      routed expert resident and with 16 resident experts per layer (some
      routed ones absent), bias zeros and nonzero, and at DeepSeek-V2-Lite
@@ -32,46 +32,63 @@ the last line:
      row at S - 1: new caches bitwise equal, ctx within 2e-4; its time is
      the kernel's, and the wrapper's (which also reads the lengths back to
      check them) is printed beside it;
-4. serving, unfused path: olmoe-1b-7b at its published widths (16 layers,
+   - `topk_gating` at (T, E, k) = (4, 64, 8), (512, 64, 8), (512, 64, 6),
+     (33, 128, 8), (256, 256, 8), (7, 8, 8) and with exactly tied logits:
+     ids equal, gates within 1e-6 abs / 1e-5 rel;
+   - `expert_ffn` at (E, C, D, F) = (64, 128, 2048, 1024), (64, 128, 2048,
+     1408) and (3, 40, 64, 48), within 2e-2, with `slot_ffn` under the
+     identity table bitwise equal to it;
+4. the kernel API, the only path of the reference that runs `topk_gating`
+   and `expert_ffn`: one MoE layer's routed experts (512 tokens, olmoe and
+   DeepSeek widths) through `ops.topk` and `ops.expert_ffn`, counts zeroed
+   before and read after, the output within 2e-2 of the same chain through
+   the plain versions;
+5. serving, unfused path: olmoe-1b-7b at its published widths (16 layers,
    weights drawn from a seed on the card), 16 expert slots per layer,
    `slot_ffn` on, 8 greedy requests of 64-128 prompt tokens and 16 new
-   tokens at batch 4 through `ServingEngine`. Every kernel's launch count is
-   zeroed just before and read just after; every prefill and decode step
-   must launch `slot_ffn` once per MoE layer at least, and experts must be
-   swapped in and evicted. Oracle: one prompt decoded single-stream through
-   the slot path gives logits bitwise equal to the fully-resident reference
-   path; every served request's tokens match those of the request decoded
-   alone through the reference path, teacher-forced, both in a state of
-   the serving batch's width (request in row 0, the other rows idle: the
-   same shapes, so the same bits) and single-stream, unless the
-   reference's top two logits are within 5e-2 (a near-tie);
-5. serving, superkernel path: the same model (same seed), requests and
-   batch through `ServingEngine(SlotBufferEngine(use_kernel=True,
-   use_superkernel=True))`. Every decode step must launch `fused_moe_entry`
-   once per MoE layer and `fused_decode_attention` once per layer at least,
-   `fused_mla_decode_attention` and `slot_ffn` never (prefill still launches
-   `slot_ffn`, once per MoE layer at least); experts must be swapped in and
-   evicted. Oracle: one prompt decoded single-stream through the
-   superkernel slot path gives logits bitwise equal to the same segment
-   functions run over every expert with the identity slot table; the
-   served streams match those segment functions at the batch's width and
-   the fully-resident reference single-stream, under the near-tie rule;
-6. phases 4 and 5 again on DeepSeek-V2-Lite at its published widths (27
+   tokens at batch 4 through `ServingEngine`, twice: with monolithic
+   admission (`prefill_chunk=0`) and with chunked prefill
+   (`prefill_chunk=32`, the serving default). Every kernel's launch count is
+   zeroed just before and read just after each run; every prefill (or
+   prefill chunk) and decode step must launch `slot_ffn` once per MoE
+   layer at least, `topk_gating` and `expert_ffn` never, and experts must
+   be swapped in and evicted. Oracle: one prompt prefilled (whole or in
+   chunks, as the run admits) and decoded single-stream through the slot
+   path gives logits bitwise equal to the same functions over every
+   expert; every served request's tokens match those of the request
+   decoded alone through the fully-resident path, teacher-forced, both in a
+   state of the serving batch's width (request in row 0, the other rows
+   idle: the same shapes, so the same bits) and single-stream, unless the
+   reference's top two logits are within 5e-2 (a near-tie). The chunked run
+   also prints max |chunked - whole-prompt| prefill logits of one prompt
+   (their greedy tokens must agree unless the top two are within 5e-2; the
+   chunk's GEMMs and attention have other shapes, so the bits differ) and
+   how many served streams differ from the monolithic run's;
+6. serving, superkernel path: the same model (same seed), requests, batch
+   and two admissions through `ServingEngine(SlotBufferEngine(
+   use_kernel=True, use_superkernel=True))`. Every decode step must launch
+   `fused_moe_entry` once per MoE layer and `fused_decode_attention` once
+   per layer at least, `fused_mla_decode_attention` and `slot_ffn` never
+   (prefill still launches `slot_ffn`, once per MoE layer at least per
+   prompt or chunk); the same oracles, with the decode steps held against
+   the segment functions over every expert with the identity slot table;
+7. phases 5 and 6 again on DeepSeek-V2-Lite at its published widths (27
    layers: a dense first layer and 26 MoE layers with MLA attention, 64
    routed experts top-6 and 2 shared experts), 16 expert slots per layer,
    the same requests recipe and checks, with MLA's kernel in place of GQA's:
-   unfused, `slot_ffn` once per MoE layer at least per prefill and decode
-   step; superkernel, per decode step `fused_mla_decode_attention` once per
-   layer and `fused_moe_entry` once per MoE layer at least, `slot_ffn` and
-   `fused_decode_attention` never. The served streams are checked against
-   the request decoded alone at the batch's width; their partings from
-   single-stream decoding are reported, not checked (batch-1 products round
-   differently, and across 26 routers that flips an expert choice and
-   moves logits past a near-tie);
-7. a `{"kernels": [...]}` line (per kernel: `launches` summed over the
-   serving runs whose path runs it, `launches_by_path` per run; times at
-   the shape its entry names, every measured shape under `shapes`), the
-   total time, then the last line `{"ok": true, "device": {...}}`.
+   unfused, `slot_ffn` once per MoE layer at least per prefill (chunk) and
+   decode step; superkernel, per decode step `fused_mla_decode_attention`
+   once per layer and `fused_moe_entry` once per MoE layer at least,
+   `slot_ffn` and `fused_decode_attention` never. The served streams are
+   checked against the request decoded alone at the batch's width; their
+   partings from single-stream decoding are reported, not checked (batch-1
+   products round differently, and across 26 routers that flips an expert
+   choice and moves logits past a near-tie);
+8. a `{"kernels": [...]}` line (per kernel: `launches` summed over the runs
+   whose path runs it, the kernel API's for `topk_gating` and
+   `expert_ffn`, `launches_by_path` per run; times at the shape its entry
+   names, every measured shape under `shapes`), the total time, then the
+   last line `{"ok": true, "device": {...}}`. No depth is cut.
 
 Exits with code 2 and prints no result without a CUDA device or outside a
 checkout of the repository.
@@ -94,7 +111,9 @@ TOL_GATES = 1e-6
 NEAR_TIE = 5e-2
 SEED = 0
 KERNELS = ("slot_ffn", "fused_moe_entry", "fused_decode_attention",
-           "fused_mla_decode_attention")
+           "fused_mla_decode_attention", "topk_gating", "expert_ffn")
+TOL_TOPK_ABS, TOL_TOPK_REL = 1e-6, 1e-5   # topk_gating's gates (fp32)
+CHUNK = 32        # the chunked runs' prefill chunk (the serving default)
 TOL_CTX = 2e-4     # fused_mla_decode_attention's ctx: fp32, summation order
 ARCHS = ("olmoe-1b-7b", "deepseek-v2-lite")
 
@@ -179,6 +198,11 @@ def slot_ffn_phase(torch, moe_mod, slot_gather, ref, g):
                                 resident_frac=0.25),
         "deepseek_prefill": dict(B=1, T=128, k=6, E=64, D=2048, F=1408,
                                  S=416, resident_frac=0.25),
+        # one prefill chunk of the chunked serving runs
+        "chunk": dict(B=1, T=CHUNK, k=8, E=64, D=2048, F=1024, S=256,
+                      resident_frac=0.25),
+        "deepseek_chunk": dict(B=1, T=CHUNK, k=6, E=64, D=2048, F=1408,
+                               S=416, resident_frac=0.25),
     }
     results = {}
     for name, sh in shapes.items():
@@ -456,7 +480,169 @@ def mla_phase(torch, dsk, ref, g):
     return results
 
 
-# --------------------------------------------------------------- phase 4-6
+def topk_phase(torch, ops, ref, g):
+    """`topk_gating` through `ops.topk` at the router shapes: olmoe-1b-7b
+    decode (T=4) and a batch of prompts (T=512), DeepSeek-V2-Lite (k=6),
+    the reference's own test shapes (33, 128, 8) and (7, 8, 8: k = E), the
+    largest E it takes (256), and exactly tied logits. ids equal, gates
+    within 1e-6 abs / 1e-5 rel."""
+    dev = "cuda"
+
+    def library(x, k):
+        # yardstick only: softmax + torch.topk + normalise
+        gates, ids = torch.softmax(x.float(), dim=-1).topk(k)
+        return gates / gates.sum(-1, keepdim=True).clamp(min=1e-9), ids
+
+    cases = {"olmoe_decode": (4, 64, 8), "olmoe_batch": (512, 64, 8),
+             "deepseek_batch": (512, 64, 6), "wide_e": (33, 128, 8),
+             "e256": (256, 256, 8), "k_equals_e": (7, 8, 8),
+             "tied": (64, 64, 8)}
+    results = {}
+    for name, (T, E, k) in cases.items():
+        if name == "tied":          # pairs of equal logits and a tied row
+            x = torch.randn((T, E // 2), generator=g,
+                            device=dev).repeat_interleave(2, dim=1)
+            x[0] = 0.0
+        else:
+            x = torch.randn((T, E), generator=g, device=dev)
+        gates, ids = ops.topk(x, k)
+        gates2, ids2 = ops.topk(x, k)
+        gr, ir = ref.topk_gating_ref(x, k)
+        torch.cuda.synchronize()
+        check(torch.equal(ids, ir), f"topk_gating ids differ at {name}")
+        err = float((gates - gr).abs().max())
+        check(torch.allclose(gates, gr, rtol=TOL_TOPK_REL,
+                             atol=TOL_TOPK_ABS),
+              f"topk_gating gates disagree at {name}: max |err| {err}")
+        check(torch.equal(gates, gates2) and torch.equal(ids, ids2),
+              "topk_gating not deterministic")
+        if name == "tied":
+            check(ids[0].tolist() == list(range(k)),
+                  f"tied row did not pick the lowest ids: {ids[0].tolist()}")
+        nbytes = T * E * 4 + T * k * 8
+        b_ms, b_by = bound(nbytes, [(T * E * (k + 6),
+                                     H100_FP32_FLOP_PER_S)])
+        r = {"shape": {"T": T, "E": E, "k": k}, "max_abs_err": err,
+             "ms": time_ms(torch, lambda: ops.topk(x, k)),
+             "plain_ms": time_ms(torch, lambda: ref.topk_gating_ref(x, k)),
+             "library_ms": time_ms(torch, lambda: library(x, k)),
+             "bound_ms": b_ms, "bound_by": b_by}
+        results[name] = r
+        log(f"kernel topk_gating {name} {r['shape']}: max|err| {err:.3g}, "
+            f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"softmax+topk {r['library_ms']:.4f} ms, bound "
+            f"{b_ms:.6f} ms ({b_by})")
+    return results
+
+
+def expert_ffn_phase(torch, ops, ref, g):
+    """`expert_ffn` through `ops.expert_ffn` at olmoe-1b-7b's and
+    DeepSeek-V2-Lite's expert widths (64 experts, 128 rows each) and a
+    ragged shape, within 2e-2; and `slot_ffn` under the identity table
+    equal to it bitwise."""
+    import torch.nn.functional as Fn
+    dev = "cuda"
+
+    def library(x, wg, wu, wd):
+        # yardstick only: three torch.bmm + SiLU, h rounded to bf16
+        h = (Fn.silu(torch.bmm(x, wg).float())
+             * torch.bmm(x, wu).float()).to(x.dtype)
+        return torch.bmm(h, wd).float()
+
+    cases = {"olmoe": (64, 128, 2048, 1024), "deepseek": (64, 128, 2048, 1408),
+             "ragged": (3, 40, 64, 48)}
+    results = {}
+    for name, (E, C, D, F) in cases.items():
+        x = torch.randn((E, C, D), generator=g, device=dev).bfloat16()
+        w = lambda *s: (torch.randn(s, generator=g, device=dev)  # noqa: E731
+                        * s[-2] ** -0.5).bfloat16()
+        args = (x, w(E, D, F), w(E, D, F), w(E, F, D))
+        got = ops.expert_ffn(*args)
+        again = ops.expert_ffn(*args)
+        want = ref.expert_ffn_ref(*args)
+        ident = torch.arange(E, dtype=torch.int32, device=dev)
+        via_slots = ops.slot_ffn(args[0], ident, *args[1:])
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(torch.allclose(got, want, rtol=TOL, atol=TOL),
+              f"expert_ffn disagrees at {name}: max |err| {err}")
+        check(torch.equal(got, again), "expert_ffn not deterministic")
+        check(torch.equal(got, via_slots),
+              f"slot_ffn under the identity table differs from expert_ffn "
+              f"at {name}")
+        nbytes = E * C * D * 2 + 3 * E * D * F * 2 + E * C * D * 4
+        b_ms, b_by = bound(nbytes, [(6 * E * C * D * F,
+                                     H100_BF16_FLOP_PER_S)])
+        heavy = E * C * D > 2 ** 23
+        r = {"shape": {"E": E, "C": C, "D": D, "F": F}, "max_abs_err": err,
+             "slot_ffn_identity_bitwise": True,
+             "ms": time_ms(torch, lambda: ops.expert_ffn(*args)),
+             "plain_ms": time_ms(torch, lambda: ref.expert_ffn_ref(*args),
+                                 reps=3, inner=2 if heavy else 5),
+             "library_ms": time_ms(torch, lambda: library(*args)),
+             "bound_ms": b_ms, "bound_by": b_by}
+        results[name] = r
+        log(f"kernel expert_ffn {name} {r['shape']}: max|err| {err:.3g}, "
+            f"slot_ffn(identity) bitwise equal, kernel {r['ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.4f} ms, 3x bmm {r['library_ms']:.4f} ms,"
+            f" bound {b_ms:.4f} ms ({b_by})")
+        del args, got, again, want, via_slots
+        torch.cuda.empty_cache()
+    return results
+
+
+def kernel_api_phase(torch, ops, ref, moe_mod, g):
+    """The path that runs `topk_gating` and `expert_ffn`: the kernel API
+    (no serving, training or model path of the reference calls them). One
+    MoE layer's routed experts at full width, as a user of `ops` would run
+    it: 512 tokens of router logits through `ops.topk`, dispatched into 128
+    rows per expert, `ops.expert_ffn`, gate-weighted combine; olmoe-1b-7b
+    (64 experts top-8, F=1024) and DeepSeek-V2-Lite (top-6, F=1408). The
+    counts are zeroed just before and read just after; the layer's output
+    is held against the same chain through the plain versions."""
+    dev = "cuda"
+    T, D, E, C = 512, 2048, 64, 128
+    inputs = []
+    for k, F in ((8, 1024), (6, 1408)):
+        w = lambda *s: (torch.randn(s, generator=g, device=dev)  # noqa: E731
+                        * s[-2] ** -0.5).bfloat16()
+        x = torch.randn((T, D), generator=g, device=dev).bfloat16()
+        router = torch.randn((D, E), generator=g, device=dev) * D ** -0.5
+        inputs.append((k, x, router, w(E, D, F), w(E, D, F), w(E, F, D)))
+
+    def layer(topk, ffn, k, x, router, wg, wu, wd):
+        gates, ids = topk(x.float() @ router, k)
+        buf, _, _, keep, order, flat_slot = moe_mod._dispatch_gather(
+            x, ids.long(), E, C)
+        y = ffn(buf.contiguous(), wg, wu, wd)
+        weight = gates.reshape(-1)[order] * keep.float()
+        out = moe_mod._combine_gather(y.reshape(E * C, D), flat_slot, order,
+                                      weight, T, k, valid=keep)
+        return out, ids, keep
+
+    ops.topk.launches = ops.expert_ffn.launches = 0
+    outs = [layer(ops.topk, ops.expert_ffn, *a) for a in inputs]
+    torch.cuda.synchronize()
+    launches = {"topk_gating": ops.topk.launches,
+                "expert_ffn": ops.expert_ffn.launches}
+    check(launches == {"topk_gating": len(inputs), "expert_ffn": len(inputs)},
+          f"kernel API path launches {launches}")
+    errs = []
+    for (out, ids, keep), a in zip(outs, inputs):
+        want, want_ids, _ = layer(ref.topk_gating_ref, ref.expert_ffn_ref,
+                                  *a)
+        check(torch.equal(ids, want_ids), "kernel API path: ids differ")
+        check(bool(keep.all()), "kernel API path: an assignment overflowed "
+                                "its expert's 128 rows")
+        errs.append(float((out - want).abs().max()))
+        check(errs[-1] <= TOL, f"kernel API path output disagrees: max "
+                               f"|err| {errs[-1]}")
+    log(f"kernel API path (512 tokens, one MoE layer, olmoe and deepseek "
+        f"widths): launches {launches}, max |out - plain| {errs}")
+    return launches, errs
+
+
+# --------------------------------------------------------------- phase 5-7
 
 def sk_reference_decode_step(eng, tok, state, DecodeState):
     """The fully-resident oracle of the superkernel path: the engine's own
@@ -480,9 +666,14 @@ def counters(mods):
     return {n: getattr(mods[n], "launches") for n in KERNELS}
 
 
-def serving_phase(torch, np, mods, *, arch: str, superkernel: bool):
+def serving_phase(torch, np, mods, *, arch: str, superkernel: bool,
+                  chunk: int, mono_outputs=None):
+    """One serving run: `chunk` = 0 admits monolithically, > 0 through
+    chunked prefill (then `mono_outputs`, the monolithic run's served
+    tokens on the same path, are compared with this run's)."""
     path = "superkernel" if superkernel else "unfused"
-    tag = f"{arch} {path}"
+    admission = f"chunked {chunk}" if chunk else "monolithic"
+    tag = f"{arch} {path} {admission}"
     cfg = mods["get_config"](arch)
     Model, SlotBufferEngine = mods["Model"], mods["SlotBufferEngine"]
     model = Model(cfg)
@@ -515,11 +706,13 @@ def serving_phase(torch, np, mods, *, arch: str, superkernel: bool):
     Request = mods["Request"]
     reqs = [Request(p, max_new_tokens=16) for p in prompts]
     srv = mods["ServingEngine"](eng, mods["EngineServingConfig"](
-        max_batch=4, admission_cap=False))
+        max_batch=4, admission_cap=False, prefill_chunk=chunk))
 
     # per-call launch counts and engine counters through shims
+    # ("prefill" is one whole prompt, or one chunk on the chunked runs)
     per = {"prefill": [], "decode": []}
-    orig_prefill, orig_step = eng.prefill, eng.decode_step
+    pf_name = "prefill_chunk" if chunk else "prefill"
+    orig_prefill, orig_step = getattr(eng, pf_name), eng.decode_step
     st = eng.stats
 
     def snap():
@@ -529,9 +722,9 @@ def serving_phase(torch, np, mods, *, arch: str, superkernel: bool):
     def delta(a, b):
         return {k: b[k] - a[k] for k in a}
 
-    def prefill(tokens):
+    def prefill(arg):
         s0 = snap()
-        out = orig_prefill(tokens)
+        out = orig_prefill(arg)
         per["prefill"].append(delta(s0, snap()))
         return out
 
@@ -541,7 +734,8 @@ def serving_phase(torch, np, mods, *, arch: str, superkernel: bool):
         per["decode"].append(delta(s0, snap()))
         return out
 
-    eng.prefill, eng.decode_step = prefill, decode_step
+    setattr(eng, pf_name, prefill)
+    eng.decode_step = decode_step
     eng.stats.reset()
     for n in KERNELS:                          # this path's counts
         mods[n].launches = 0
@@ -550,7 +744,8 @@ def serving_phase(torch, np, mods, *, arch: str, superkernel: bool):
     eng.synchronize()
     wall = time.perf_counter() - t0
     launches = counters(mods)
-    eng.prefill, eng.decode_step = orig_prefill, orig_step
+    setattr(eng, pf_name, orig_prefill)
+    eng.decode_step = orig_step
 
     summ = report.summary()
     n_layers = len(eng.specs)
@@ -567,7 +762,7 @@ def serving_phase(torch, np, mods, *, arch: str, superkernel: bool):
         return [c[name] for c in per[kind]]
 
     check(min(per_call("prefill", "slot_ffn")) >= n_moe,
-          f"[{tag}] slot_ffn launches per prefill "
+          f"[{tag}] slot_ffn launches per {pf_name} "
           f"{per_call('prefill', 'slot_ffn')} fall below {n_moe}")
     if superkernel:
         for name, least in (("fused_moe_entry", n_moe),
@@ -594,14 +789,16 @@ def serving_phase(torch, np, mods, *, arch: str, superkernel: bool):
     gbps = st.swap_bytes / st.copy_s / 1e9 if st.copy_s > 0 else float("nan")
     mean = lambda xs: float(np.mean(xs))  # noqa: E731
     serving = {
-        "arch": arch, "path": path, "layers": n_layers, "moe_layers": n_moe,
+        "arch": arch, "path": path, "prefill_chunk": chunk,
+        "layers": n_layers, "moe_layers": n_moe,
         "requests": len(reqs), "batch": 4,
         "prompt_tokens": [int(len(p)) for p in prompts],
         "new_tokens": 16, "wall_s": wall,
         "ttft_p50_s": summ["ttft_p50_s"], "tpot_p50_s": summ["tpot_p50_s"],
         "throughput_tok_s": summ["throughput_tok_s"],
         "launches": launches,
-        "launches_per_prefill": {n: per_call("prefill", n) for n in KERNELS},
+        f"launches_per_{pf_name}": {n: per_call("prefill", n)
+                                    for n in KERNELS},
         "launches_per_decode_step_mean": {
             n: mean(per_call("decode", n)) for n in KERNELS},
         "decode_steps": len(per["decode"]),
@@ -616,6 +813,7 @@ def serving_phase(torch, np, mods, *, arch: str, superkernel: bool):
         "h2d_GBps": gbps,
         "peak_device_GB": torch.cuda.max_memory_allocated() / 1e9,
         "controller_s_history": list(eng.controller.s_history),
+        "outputs": [list(r.output) for r in reqs],
     }
     log(f"serving [{tag}]: {len(reqs)} requests done in {wall:.2f} s; TTFT "
         f"p50 {serving['ttft_p50_s'] * 1e3:.1f} ms, TPOT p50 "
@@ -642,8 +840,14 @@ def serving_phase(torch, np, mods, *, arch: str, superkernel: bool):
         step_ref = eng.reference_decode_step
         what = "the fully-resident reference"
     prompt = prompts[0][None, :]
-    lg, s_slot = eng.prefill(prompt)
-    lr, s_ref = eng.reference_prefill(prompt)
+    if chunk:
+        prefill_ref = lambda p: eng.reference_prefill_chunked(  # noqa: E731
+            p, chunk)
+        lg, s_slot = eng.prefill_chunked(prompt, chunk)
+    else:
+        prefill_ref = eng.reference_prefill
+        lg, s_slot = eng.prefill(prompt)
+    lr, s_ref = prefill_ref(prompt)
     worst = float((lg - lr).abs().max())
     toks_slot, toks_ref = [], []
     for _ in range(16):
@@ -658,6 +862,26 @@ def serving_phase(torch, np, mods, *, arch: str, superkernel: bool):
           f"tokens {toks_slot} vs {toks_ref}")
     log(f"oracle [{tag}]: single-stream slot path bitwise equal to {what} "
         f"over prefill + 16 decode steps (tokens {toks_slot[:8]}...)")
+    if chunk:
+        # chunked against whole-prompt ingestion, both fully resident: the
+        # chunk's GEMMs and attention have other shapes than the prompt's
+        lm, _ = eng.reference_prefill(prompt)
+        lc, _ = eng.reference_prefill_chunked(prompt, chunk)
+        d = float((lm - lc).abs().max())
+        same = int(lm.argmax(-1)[0]) == int(lc.argmax(-1)[0])
+        top2 = lm[0].float().topk(2).values
+        check(same or float(top2[0] - top2[1]) <= NEAR_TIE,
+              f"[{tag}] chunked and whole-prompt prefill pick different "
+              f"tokens past a near-tie (max |dlogit| {d})")
+        parted = [r.request_id for r, o in zip(reqs, mono_outputs)
+                  if list(r.output) != o]
+        serving["chunked_vs_monolithic_prefill_max_abs"] = d
+        serving["chunked_vs_monolithic_same_greedy"] = same
+        serving["streams_parting_from_monolithic_run"] = parted
+        log(f"oracle [{tag}]: prefill of request {reqs[0].request_id} "
+            f"chunked vs whole, both fully resident: max |dlogit| {d:.4g}, "
+            f"same greedy token {same}; {len(parted)} of {len(reqs)} served "
+            f"streams differ from the monolithic run's {parted}")
     # served streams against single-request decoding, teacher-forced on
     # the served tokens:
     # - at the serving batch's width (the request alone in row 0 of a
@@ -675,8 +899,8 @@ def serving_phase(torch, np, mods, *, arch: str, superkernel: bool):
             (4, step_ref, what, True),
             (1, eng.reference_decode_step, "the fully-resident reference",
              checked_b1)):
-        parts = stream_partings(torch, np, eng, reqs, prompts, step_fn,
-                                width, mods["DecodeState"])
+        parts = stream_partings(torch, np, eng, reqs, prompts, prefill_ref,
+                                step_fn, width, mods["DecodeState"])
         if checked:
             for rid, step, t, want, gap in parts:
                 check(gap <= NEAR_TIE,
@@ -696,18 +920,19 @@ def serving_phase(torch, np, mods, *, arch: str, superkernel: bool):
     return serving, launches
 
 
-def stream_partings(torch, np, eng, reqs, prompts, step_fn, width,
-                    DecodeState):
+def stream_partings(torch, np, eng, reqs, prompts, prefill_fn, step_fn,
+                    width, DecodeState):
     """Each served request's tokens against greedy decoding of its prompt
     alone, teacher-forced on the served tokens: prefilled through
-    `reference_prefill`, then stepped through `step_fn` in a state of
+    `prefill_fn` (the fully-resident oracle of the run's admission), then
+    stepped through `step_fn` in a state of
     `width` rows with the request in row 0 (the others empty; width 1 is
     the plain single-stream state). Returns [(request id, step, served
     token, reference token, the reference's top-2 logit gap)] for every
     stream that parts, at the step where it first does."""
     parts = []
     for r, p in zip(reqs, prompts):
-        lr, st = eng.reference_prefill(p[None, :])
+        lr, st = prefill_fn(p[None, :])
         if width > 1:
             wide = eng.alloc_decode_state(width)
             eng._commit_prefill_row(wide, 0, st.caches, st.pos)
@@ -762,7 +987,7 @@ def main() -> int:
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import decode_superkernel as dsk
-    from repro_torch.kernels import ref, slot_gather
+    from repro_torch.kernels import ops, ref, slot_gather
     from repro_torch.models import moe as moe_mod
     from repro_torch.models.transformer import Model
     from repro_torch.runtime.engine import DecodeState, SlotBufferEngine
@@ -774,10 +999,17 @@ def main() -> int:
     kres = {"slot_ffn": slot_ffn_phase(torch, moe_mod, slot_gather, ref, g),
             "fused_moe_entry": moe_entry_phase(torch, dsk, ref, g),
             "fused_decode_attention": attention_phase(torch, dsk, ref, g),
-            "fused_mla_decode_attention": mla_phase(torch, dsk, ref, g)}
+            "fused_mla_decode_attention": mla_phase(torch, dsk, ref, g),
+            "topk_gating": topk_phase(torch, ops, ref, g),
+            "expert_ffn": expert_ffn_phase(torch, ops, ref, g)}
     log(f"kernels done at {time.perf_counter() - t_start:.1f} s")
 
-    # ---- phases 4-6: serving at published widths, oracles -----------------
+    # ---- phase 4: the kernel API, the path of topk_gating and expert_ffn ----
+    launches = {"kernel API": dict.fromkeys(KERNELS, 0)}
+    api_launches, api_errs = kernel_api_phase(torch, ops, ref, moe_mod, g)
+    launches["kernel API"].update(api_launches)
+
+    # ---- phases 5-7: serving at published widths, oracles -----------------
     mods = dict(get_config=get_config, Model=Model,
                 SlotBufferEngine=SlotBufferEngine, DecodeState=DecodeState,
                 Request=Request, ServingEngine=ServingEngine,
@@ -785,35 +1017,45 @@ def main() -> int:
                 slot_ffn=slot_gather.slot_ffn,
                 fused_moe_entry=dsk.fused_moe_entry,
                 fused_decode_attention=dsk.fused_decode_attention,
-                fused_mla_decode_attention=dsk.fused_mla_decode_attention)
+                fused_mla_decode_attention=dsk.fused_mla_decode_attention,
+                topk_gating=ops.topk, expert_ffn=ops.expert_ffn)
     serving = {}
-    launches = {}
     for arch in ARCHS:
         for superkernel in (False, True):
-            tag = f"{arch} {'superkernel' if superkernel else 'unfused'}"
-            serving[tag], launches[tag] = serving_phase(
-                torch, np, mods, arch=arch, superkernel=superkernel)
-            gc.collect()
-            torch.cuda.empty_cache()
-            if hasattr(torch._C, "_host_emptyCache"):
-                torch._C._host_emptyCache()     # release cached pinned memory
-            log(f"[{tag}] done at {time.perf_counter() - t_start:.1f} s")
+            mono = None
+            for chunk in (0, CHUNK):
+                serving_run, launches_run = serving_phase(
+                    torch, np, mods, arch=arch, superkernel=superkernel,
+                    chunk=chunk, mono_outputs=mono)
+                tag = (f"{arch} {serving_run['path']} "
+                       f"{'chunked' if chunk else 'monolithic'}")
+                serving[tag], launches[tag] = serving_run, launches_run
+                mono = serving_run["outputs"]
+                gc.collect()
+                torch.cuda.empty_cache()
+                if hasattr(torch._C, "_host_emptyCache"):
+                    torch._C._host_emptyCache()   # release cached pinned memory
+                log(f"[{tag}] done at {time.perf_counter() - t_start:.1f} s")
 
     src = "src/repro_torch/kernels/csrc/"
-    # (kernel, source, TPU kernel it replaces, the serving runs whose path
-    # runs it, the shape whose times head its entry)
-    olmoe_sk, ds_sk = "olmoe-1b-7b superkernel", "deepseek-v2-lite superkernel"
+    # (kernel, source, TPU kernel it replaces, the runs whose path runs it,
+    # the shape whose times head its entry)
+    sk_runs = [t for t in launches if "superkernel" in t]
     rows = [("slot_ffn", "slot_ffn.cu", "src/repro/kernels/slot_gather.py:72",
-             list(launches), "decode"),
+             [t for t in launches if t != "kernel API"], "decode"),
             ("fused_moe_entry", "fused_moe_entry.cu",
-             "src/repro/kernels/decode_superkernel.py:141",
-             [olmoe_sk, ds_sk], "decode"),
+             "src/repro/kernels/decode_superkernel.py:141", sk_runs, "decode"),
             ("fused_decode_attention", "fused_decode_attention.cu",
-             "src/repro/kernels/decode_superkernel.py:259", [olmoe_sk],
-             "decode"),
+             "src/repro/kernels/decode_superkernel.py:259",
+             [t for t in sk_runs if t.startswith("olmoe")], "decode"),
             ("fused_mla_decode_attention", "fused_mla_decode_attention.cu",
-             "src/repro/kernels/decode_superkernel.py:344", [ds_sk],
-             "decode")]
+             "src/repro/kernels/decode_superkernel.py:344",
+             [t for t in sk_runs if t.startswith("deepseek")], "decode"),
+            ("topk_gating", "topk_gating.cu",
+             "src/repro/kernels/topk_gating.py:56", ["kernel API"],
+             "olmoe_batch"),
+            ("expert_ffn", "expert_ffn.cu", "src/repro/kernels/moe_gemm.py:50",
+             ["kernel API"], "olmoe")]
     kernels = {"kernels": []}
     for name, file, replaces, main_paths, shape in rows:
         r = kres[name][shape]
@@ -830,6 +1072,7 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"gpu": smi[0], "kernels": kernels["kernels"], "serving": serving,
+         "kernel_api_max_abs_err": api_errs,
          "total_s": time.perf_counter() - t_start}, indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(kernels))

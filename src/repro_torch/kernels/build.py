@@ -41,6 +41,10 @@ KERNELS: Dict[str, Tuple[str, Dict[str, list]]] = {
     "fused_mla_decode_attention": ("fused_mla_decode_attention.cu", {
         "fused_mla_decode_attention_launch": [_P] * 7 + [_I] + [_P] * 3
         + [_I] * 5 + [_F, _P]}),
+    "topk_gating": ("topk_gating.cu", {
+        "topk_gating_launch": [_P, _I, _P, _P, _I, _I, _I, _I, _P]}),
+    "expert_ffn": ("expert_ffn.cu", {
+        "expert_ffn_launch": [_P] * 6 + [_I] * 4 + [_P]}),
 }
 
 

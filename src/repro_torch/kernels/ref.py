@@ -10,6 +10,22 @@ import torch
 import torch.nn.functional as F
 
 
+def expert_ffn_ref(x: torch.Tensor, w_gate: torch.Tensor,
+                   w_up: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
+    """Grouped expert SwiGLU FFN with the kernel's rounding points.
+
+    x: (E, C, D); w_gate / w_up: (E, D, F); w_down: (E, F, D). Returns
+    (E, C, D) float32. g and u in fp32, h = silu(g) * u rounded to x's
+    dtype (the TPU kernel's `.astype(x.dtype)`, which the reference's
+    einsum oracle leaves out), then h @ Wd in fp32.
+    """
+    xf = x.float()
+    g = torch.bmm(xf, w_gate.float())
+    u = torch.bmm(xf, w_up.float())
+    h = (F.silu(g) * u).to(x.dtype)
+    return torch.bmm(h.float(), w_down.float())
+
+
 def slot_ffn_ref(x: torch.Tensor, slot_of_expert: torch.Tensor,
                  s_gate: torch.Tensor, s_up: torch.Tensor,
                  s_down: torch.Tensor) -> torch.Tensor:
@@ -17,15 +33,42 @@ def slot_ffn_ref(x: torch.Tensor, slot_of_expert: torch.Tensor,
 
     x: (E, C, D) per-expert dispatch buffer; slot_of_expert: (E,) integer
     slots in [0, S); slot buffers (S, D, F) / (S, F, D). Returns (E, C, D)
-    float32. g and u in fp32, h = silu(g) * u rounded to x's dtype, then
-    h @ Wd in fp32 — the rounding points of the slot-indirect kernel.
+    float32: `expert_ffn_ref` over the gathered weights, the rounding points
+    of the slot-indirect kernel.
     """
     idx = slot_of_expert.long()
-    xf = x.float()
-    g = torch.bmm(xf, s_gate[idx].float())
-    u = torch.bmm(xf, s_up[idx].float())
-    h = (F.silu(g) * u).to(x.dtype)
-    return torch.bmm(h.float(), s_down[idx].float())
+    return expert_ffn_ref(x, s_gate[idx], s_up[idx], s_down[idx])
+
+
+TOPK_MASK = -1e30   # top-k masking value, as the reference kernel's
+
+
+def topk_gating_ref(logits: torch.Tensor, k: int, norm: bool = True):
+    """Softmax + top-k router gating with the kernel's selection rule.
+
+    logits: (T, E), any float dtype. Returns (gates (T, k) float32,
+    ids (T, k) int32). Softmax in fp32; then k rounds of max with the
+    first (lowest-index) argmax, the chosen entry masked to -1e30. With
+    `norm`, gates are divided by max(sum, 1e-9), the sum taken in rank
+    order.
+    """
+    work = torch.softmax(logits.float(), dim=-1)
+    T, E = work.shape
+    iota = torch.arange(E, device=work.device).expand(T, E)
+    vals, idxs = [], []
+    total = torch.zeros((T, 1), dtype=torch.float32, device=work.device)
+    for _ in range(k):
+        v = work.amax(dim=-1, keepdim=True)
+        idx = torch.where(work == v, iota, E).amin(dim=-1, keepdim=True)
+        work = torch.where(iota == idx, torch.full_like(work, TOPK_MASK),
+                           work)
+        vals.append(v)
+        idxs.append(idx)
+        total = total + v
+    gates = torch.cat(vals, dim=-1)
+    if norm:
+        gates = gates / torch.clamp(total, min=1e-9)
+    return gates, torch.cat(idxs, dim=-1).to(torch.int32)
 
 
 NEG_INF = -2.0 ** 30   # attention masking (the reference's large-finite)

@@ -4,8 +4,10 @@ each with a chunked online-softmax prefill and a one-token decode.
 `flash_attention` is plain PyTorch: it walks query and key/value blocks with
 an online softmax, so the (T x S) score matrix is never materialised, and it
 skips key blocks that causality masks out entirely. Layouts follow the
-reference: q (B, T, Hq, D), k/v (B, S, Hkv, D). Sliding windows, logit
-soft-capping and prefill continuation (`q_offset`) are not ported yet.
+reference: q (B, T, Hq, D), k/v (B, S, Hkv, D). `q_offset` resumes a
+prefill at an absolute position (chunked prefill: `gqa_prefill_chunk`,
+`mla_prefill_chunk`). Sliding windows and logit soft-capping are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -18,8 +20,10 @@ NEG_INF = -2.0 ** 30  # large-finite: avoids NaN from (-inf) - (-inf)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    q_chunk: int = 512, kv_chunk: int = 1024) -> torch.Tensor:
-    """Causal online-softmax attention from position 0.
+                    q_offset: int = 0, q_chunk: int = 512,
+                    kv_chunk: int = 1024) -> torch.Tensor:
+    """Causal online-softmax attention; q[:, 0] sits at absolute position
+    `q_offset` and k/v rows at positions 0..S-1.
 
     q: (B, Tq, Hq, D); k, v: (B, S, Hkv, D); returns (B, Tq, Hq, D).
     Hq must be a multiple of Hkv (GQA).
@@ -39,13 +43,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         qc = q1 - q0
         # (B, qc, Hkv, G, D) fp32, pre-scaled
         qblk = q[:, q0:q1].reshape(B, qc, Hkv, G, D).float() * D ** -0.5
-        q_pos = torch.arange(q0, q1, device=dev)
+        q_pos = torch.arange(q_offset + q0, q_offset + q1, device=dev)
         acc = torch.zeros((B, Hkv, G, qc, Dv), dtype=torch.float32, device=dev)
         m = torch.full((B, Hkv, G, qc), NEG_INF, dtype=torch.float32,
                        device=dev)
         l = torch.zeros((B, Hkv, G, qc), dtype=torch.float32, device=dev)
         # key blocks entirely in this query block's future are skipped
-        for k0 in range(0, min(S, q1), kv_chunk):
+        for k0 in range(0, min(S, q_offset + q1), kv_chunk):
             k1 = min(k0 + kv_chunk, S)
             k_pos = torch.arange(k0, k1, device=dev)
             s = torch.einsum("bqhgd,bkhd->bhgqk", qblk, kf[:, k0:k1])
@@ -115,6 +119,31 @@ def gqa_project_kv(params, x: torch.Tensor, positions: torch.Tensor,
 def gqa_out(params, mix: torch.Tensor) -> torch.Tensor:
     """Output projection (B, T, Hq, D) -> (B, T, d)."""
     return torch.einsum("bthk,hkd->btd", mix, params["wo"])
+
+
+def gqa_prefill_chunk(params, h: torch.Tensor, positions: torch.Tensor,
+                      k_cache: torch.Tensor, v_cache: torch.Tensor,
+                      cache_len: int, n_valid: int, *, rope_theta: float,
+                      norm_eps: float = 1e-6):
+    """One padded prompt chunk of GQA attention, resuming at `cache_len`.
+
+    h: (B, C, d) normed hidden states whose first `n_valid` rows are real
+    tokens; positions: (B, C) absolute positions cache_len .. cache_len +
+    C - 1; caches (B, S, Hkv, D) addressed by absolute position (no ring
+    reuse while a prompt is ingested). The real rows' K/V are written IN
+    PLACE at positions cache_len .. cache_len + n_valid - 1 (the caches
+    belong to one prefill cursor; padding rows write nothing), then the
+    chunk's queries attend causally over the ingested prefix through
+    `flash_attention(q_offset=cache_len)`, the monolithic prefill's
+    function. Returns (mix (B, C, d), k_cache, v_cache)."""
+    q = gqa_project_q(params, h, positions, rope_theta, norm_eps)
+    k, v = gqa_project_kv(params, h, positions, rope_theta, norm_eps)
+    end = cache_len + n_valid
+    k_cache[:, cache_len:end] = k[:, :n_valid]
+    v_cache[:, cache_len:end] = v[:, :n_valid]
+    out = flash_attention(q, k_cache[:, :end], v_cache[:, :end],
+                          q_offset=cache_len)
+    return gqa_out(params, out), k_cache, v_cache
 
 
 # ---------------------------------------------------------------------------
@@ -198,6 +227,37 @@ def mla_attention(params, x: torch.Tensor, *, positions: torch.Tensor, mla,
     (nope + rope) ** -0.5, and takes v narrower than q/k."""
     q, k, v, _ = _mla_qkv(params, x, positions, mla, rope_theta, norm_eps)
     return gqa_out(params, flash_attention(q, k, v))
+
+
+def mla_prefill_chunk(params, h: torch.Tensor, positions: torch.Tensor,
+                      latent_cache: torch.Tensor, pe_cache: torch.Tensor,
+                      cache_len: int, n_valid: int, *, mla, rope_theta: float,
+                      norm_eps: float = 1e-6):
+    """One padded prompt chunk of MLA attention, resuming at `cache_len`.
+
+    h: (B, C, d) normed hidden states (first `n_valid` rows real);
+    latent_cache: (B, S, R); pe_cache: (B, S, 1, P). The real rows' latent
+    and rope key are written IN PLACE at their absolute positions (the
+    caches belong to one prefill cursor; padding rows write nothing), K/V
+    are re-expanded from the latent cache over the ingested prefix (the
+    prefill-side expansion, not decode's absorption), and the chunk's
+    queries attend with `flash_attention(q_offset=cache_len)`. Returns
+    (mix (B, C, d), latent_cache, pe_cache)."""
+    B = h.shape[0]
+    nope, rope_d = mla.qk_nope_head_dim, mla.qk_rope_head_dim
+    q = _mla_q(params, h, positions, mla, rope_theta, norm_eps)
+    c_kv, k_pe = _mla_latent(params, h, positions, mla, rope_theta, norm_eps)
+    end = cache_len + n_valid
+    latent_cache[:, cache_len:end] = c_kv[:, :n_valid]
+    pe_cache[:, cache_len:end] = k_pe[:, :n_valid]
+    kv = torch.einsum("bsr,rhk->bshk", latent_cache[:, :end],
+                      params["wkv_b"])
+    k_nope, v = kv[..., :nope], kv[..., nope:]
+    H = k_nope.shape[2]
+    k = torch.cat([k_nope, pe_cache[:, :end].expand(B, end, H, rope_d)],
+                  dim=-1)
+    out = flash_attention(q, k, v, q_offset=cache_len)
+    return gqa_out(params, out), latent_cache, pe_cache
 
 
 def mla_decode(params, x: torch.Tensor, latent_cache: torch.Tensor,

@@ -9,10 +9,12 @@ The port's parameter tree is flat: ``{"embed", "final_norm", "lm_head",
 `Model.init`. Per-layer dicts keep the reference's keys and layouts.
 
 Entry points used by `runtime.engine`: `layer_forward`, `layer_prefill`,
-`layer_decode` (each also works on FFN-stripped params from
+`layer_prefill_chunk`, `layer_decode` (each also works on FFN-stripped params from
 `split_ffn_params`), `init_layer_cache` and `Model.embed` / `Model.logits`.
-Caches are never written in place: each step returns new cache tensors, so
-a saved state stays valid (decode rollback and branching rely on it).
+Decode never writes a cache in place: each step returns new cache tensors,
+so a saved state stays valid (decode rollback and branching rely on it).
+`layer_prefill_chunk` does write in place, into caches that belong to one
+prefill cursor and are copied when the prompt is committed to a batch row.
 """
 from __future__ import annotations
 
@@ -212,6 +214,40 @@ def layer_prefill(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
     for name, r in rows.items():    # T <= max_seq: no ring wrap yet
         cache[name][:, :T] = r
     return _ffn_part(p, cfg, x), cache
+
+
+def layer_prefill_chunk(p, cfg: ModelConfig, spec: LayerSpec,
+                        x: torch.Tensor, positions: torch.Tensor, cache,
+                        cache_len: int, n_valid: int):
+    """One padded prompt chunk through a layer, resuming at `cache_len`.
+
+    x: (B, C, d) chunk whose first `n_valid` rows are real tokens (the rest
+    padding: their K/V are not written and their outputs are garbage the
+    caller ignores); positions: (B, C) absolute; cache: this layer's cache
+    (from `init_layer_cache`, holding the earlier chunks), which the real
+    rows are written into IN PLACE — it belongs to one prefill cursor.
+    Returns (x, cache). Chunks address the cache by absolute position, so
+    only global attention layers take them: other mixers and sliding
+    windows raise."""
+    if spec.kind != "attn":
+        raise NotImplementedError(
+            f"chunked prefill supports attention layers only, got {spec.kind}")
+    if spec.window:
+        raise NotImplementedError(
+            "chunked prefill requires global attention (ring-wrapped sliding-"
+            "window caches lose the absolute positions chunks address)")
+    _check_supported(cfg, spec)
+    h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
+    if cfg.attention == "mla":
+        mix, _, _ = attn_mod.mla_prefill_chunk(
+            p["attn"], h, positions, cache["latent"], cache["pe"], cache_len,
+            n_valid, mla=cfg.mla, rope_theta=cfg.rope_theta,
+            norm_eps=cfg.norm_eps)
+    else:
+        mix, _, _ = attn_mod.gqa_prefill_chunk(
+            p["attn"], h, positions, cache["k"], cache["v"], cache_len,
+            n_valid, rope_theta=cfg.rope_theta, norm_eps=cfg.norm_eps)
+    return _ffn_part(p, cfg, x + mix), cache
 
 
 def layer_decode(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,

@@ -24,6 +24,12 @@ Outputs are bitwise equal to the fully-resident oracle
 functions over the full expert weights with the identity slot table,
 whenever residency is guaranteed (or replayed) before each FFN.
 
+Prompts are ingested whole (`prefill`) or in fixed-width chunks
+(`start_prefill` / `prefill_chunk` / `finish_prefill_into`, the serving
+loop's default admission): each chunk runs the same per-MoE-layer sync
+sequence as a whole prompt, with the chunk's padding rows masked out of
+routing demand and the pre-gate.
+
 Dense (non-MoE) layers, such as DeepSeek-V2's first, take one plain
 dispatch each on every path: they route nothing and have no slot map, and
 the MoE layer index `li` counts MoE layers only.
@@ -60,6 +66,7 @@ from repro_torch.models.layers import rms_norm
 from repro_torch.models.transformer import (LayerSpec, Model,
                                             init_layer_cache, layer_decode,
                                             layer_forward, layer_prefill,
+                                            layer_prefill_chunk,
                                             split_ffn_params)
 from repro_torch.runtime.instrument import Dispatcher
 from repro_torch.runtime.sampler import sample
@@ -123,6 +130,36 @@ class SlotPathStats:
     def reset(self) -> None:
         for f in dataclasses.fields(self):
             setattr(self, f.name, type(getattr(self, f.name))())
+
+
+# chunked prefill: prompt-chunk width (the reference's default)
+DEFAULT_PREFILL_CHUNK = 32
+
+
+@dataclass
+class PrefillCursor:
+    """Resumable chunked prefill of ONE prompt (`start_prefill`).
+
+    Each `prefill_chunk` call ingests the next `chunk`-wide padded slice of
+    `tokens` into the single-row `caches`, which belong to this cursor
+    alone and are written in place (KV at absolute positions
+    `offset..offset+t`). When the cursor is done, `logits` holds the
+    prompt's last-token logits (1, V). `skipped` is the serving
+    scheduler's aging count."""
+    tokens: np.ndarray           # (T,) int64 prompt
+    chunk: int                   # chunk width C
+    caches: List[Any]            # per-layer batch-1 caches, filled so far
+    offset: int = 0              # tokens already ingested
+    logits: Optional[torch.Tensor] = None   # set when done
+    skipped: int = 0             # consecutive iterations passed over
+
+    @property
+    def done(self) -> bool:
+        return self.offset >= len(self.tokens)
+
+    @property
+    def remaining(self) -> int:
+        return len(self.tokens) - self.offset
 
 
 @dataclass
@@ -264,6 +301,29 @@ class SlotBufferEngine:
                                  self.max_seq)
         flat, r, needed = _route_ffn_entry(p, self.cfg, x)
         return x, flat, r, needed, cache
+
+    def _embed_chunk(self, tokens: torch.Tensor, offset: int, n_valid: int):
+        """Embed one padded (1, C) prompt chunk starting at `offset`.
+        Returns (x, positions (1, C) absolute, active (C,) real-row mask)."""
+        C = tokens.shape[1]
+        x = self.model.embed(self.params, tokens)
+        ar = torch.arange(C, device=self.device)
+        return x, (offset + ar)[None, :], ar < n_valid
+
+    def _pre_prefill_chunk(self, p, spec, x, positions, cache, offset: int,
+                           n_valid: int, active: torch.Tensor):
+        """Chunk half of a MoE layer before its FFN: chunk attention
+        resuming at `offset` (K/V written into the cursor's cache) + norm +
+        on-device routing, with padding rows out of the needed mask."""
+        stripped, spec_nf = split_ffn_params(p, spec)
+        x, cache = layer_prefill_chunk(stripped, self.cfg, spec_nf, x,
+                                       positions, cache, offset, n_valid)
+        flat, r, needed = _route_ffn_entry(p, self.cfg, x, active)
+        return x, flat, r, needed, cache
+
+    def _logits_at(self, x: torch.Tensor, idx: int) -> torch.Tensor:
+        """Logits of row `idx` (a final chunk's last real row)."""
+        return self.model.logits(self.params, x[:, idx])
 
     def _pre_decode(self, p, spec, x, cache, clen, active=None):
         """Decode half before the FFN: O(1) attention against the KV cache
@@ -638,12 +698,17 @@ class SlotBufferEngine:
             self.prefetch_window(
                 [(lj, sorted(es)) for lj, es in sorted(predicted.items())])
 
-    def _prefill_moe_sync(self, li: int, flat, needed_dev) -> np.ndarray:
-        """Prefill's per-MoE-layer sync: pull the (S+1, E) mask block,
-        advance the link clock, settle/tier/ensure residency and fan out
-        the speculative window. Returns the layer's slot map."""
+    def _prefill_moe_sync(self, li: int, flat, needed_dev,
+                          active_dev=None) -> np.ndarray:
+        """The per-MoE-layer sync that monolithic `prefill` and
+        `prefill_chunk` share: pull the (S+1, E) mask block (pre-gated over
+        `active_dev` rows only, when given: a chunk's padding rows never
+        demand, evict or pre-gate experts), advance the link clock,
+        settle/tier/ensure residency and fan out the speculative window.
+        Returns the layer's slot map."""
         s = self._horizon(li)
-        masks_h = self._pull(self._sync_masks_dev(li, s, flat, needed_dev))
+        masks_h = self._pull(self._sync_masks_dev(li, s, flat, needed_dev,
+                                                  active_dev))
         self._advance_clock()
         needed, predicted = self._decode_sync_rows(li, s, masks_h)
         self._sync_moe_layer(li, needed, predicted)
@@ -678,6 +743,115 @@ class SlotBufferEngine:
         return logits, DecodeState(
             caches, torch.tensor(T, device=self.device), pos=int(T))
 
+    # -- chunked prefill -------------------------------------------------------
+    @property
+    def chunked_prefill_supported(self) -> bool:
+        """Chunks address caches by absolute position: every layer must be
+        a global-attention layer (true of every model the port runs)."""
+        return all(s.kind == "attn" and s.window == 0 for s in self.specs)
+
+    def start_prefill(self, tokens,
+                      chunk_size: int = DEFAULT_PREFILL_CHUNK
+                      ) -> PrefillCursor:
+        """Open a resumable chunked prefill for ONE prompt, (T,) or (1, T).
+        Drive it with `prefill_chunk`; commit it with
+        `finish_prefill_into`, or let `prefill_chunked` run it through."""
+        if isinstance(tokens, torch.Tensor):
+            tokens = tokens.cpu()
+        toks = np.asarray(tokens, np.int64)
+        if not (toks.ndim == 1 or (toks.ndim == 2 and toks.shape[0] == 1)):
+            raise ValueError(f"start_prefill ingests one prompt, (T,) or "
+                             f"(1, T); got shape {toks.shape}")
+        toks = toks.reshape(-1)
+        if not 1 <= toks.size <= self.max_seq:
+            raise ValueError(f"prompt of {toks.size} tokens; the engine "
+                             f"takes 1..{self.max_seq}")
+        if chunk_size < 1:
+            raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
+        caches = [init_layer_cache(self.cfg, spec, 1, self.max_seq,
+                                   self.model.dtype, self.device)
+                  for spec in self.specs]
+        return PrefillCursor(tokens=toks,
+                             chunk=int(min(chunk_size, self.max_seq)),
+                             caches=caches)
+
+    def _next_chunk(self, cursor: PrefillCursor):
+        """(offset, real rows t, padded (1, C) token tensor) of the cursor's
+        next chunk."""
+        if cursor.done:
+            raise ValueError("the cursor has already ingested its prompt")
+        o, C = cursor.offset, cursor.chunk
+        t = min(C, len(cursor.tokens) - o)
+        buf = np.zeros((1, C), np.int64)
+        buf[0, :t] = cursor.tokens[o:o + t]
+        return o, t, torch.from_numpy(buf).to(self.device)
+
+    def prefill_chunk(self, cursor: PrefillCursor) -> bool:
+        """Ingest ONE padded (1, C) chunk of the cursor's prompt through the
+        slot path: K/V written at absolute positions offset..offset+t, the
+        chunk's queries attending over everything ingested so far, and per
+        MoE layer the sync sequence of `prefill` with the padding rows
+        masked out of routing demand. Returns `cursor.done`.
+
+        Attention runs over exactly the ingested prefix. The reference
+        pads it to a power-of-two bucket so that its jit compiles a
+        bounded number of shapes; eager PyTorch compiles nothing, so the
+        port reads no cache row that has not been written."""
+        o, t, buf = self._next_chunk(cursor)
+        self.stats.steps += 1
+        x, positions, active = self._dispatch(self._embed_chunk, buf, o, t)
+        li = 0
+        for i, spec in enumerate(self.specs):
+            p = self._p[i]
+            if not spec.is_moe:
+                x, cursor.caches[i] = self._dispatch(
+                    layer_prefill_chunk, p, self.cfg, spec, x, positions,
+                    cursor.caches[i], o, t)
+                continue
+            x, flat, r, needed_dev, cursor.caches[i] = self._dispatch(
+                self._pre_prefill_chunk, p, spec, x, positions,
+                cursor.caches[i], o, t, active)
+            slot_map = self._prefill_moe_sync(li, flat, needed_dev, active)
+            x = self._slot_ffn(p, slot_map, x, flat, r)
+            li += 1
+        self.cache.protect_early_layers(
+            max(1, min(self._s_eff(), len(self.moe_layer_ids))))
+        cursor.offset = o + t
+        if cursor.done:
+            cursor.logits = self._dispatch(self._logits_at, x, t - 1)
+        return cursor.done
+
+    def _run_prefill_cursor(self, tokens, chunk_size: int) -> PrefillCursor:
+        """Open a cursor and drive it to completion."""
+        cursor = self.start_prefill(tokens, chunk_size)
+        while not self.prefill_chunk(cursor):
+            pass
+        return cursor
+
+    def prefill_chunked(self, tokens,
+                        chunk_size: int = DEFAULT_PREFILL_CHUNK
+                        ) -> Tuple[torch.Tensor, DecodeState]:
+        """Chunked counterpart of `prefill` for one prompt: the same
+        (logits (1, V), DecodeState) contract, one chunk at a time."""
+        cursor = self._run_prefill_cursor(tokens, chunk_size)
+        T = len(cursor.tokens)
+        return cursor.logits, DecodeState(
+            cursor.caches, torch.tensor(T, device=self.device), pos=T)
+
+    def finish_prefill_into(self, state: DecodeState, slot: int,
+                            cursor: PrefillCursor) -> torch.Tensor:
+        """Commit a completed cursor into batch row `slot` of a batched
+        state (copying its caches into new tensors, as `prefill_into`
+        does). Returns the prompt's last-token logits (1, V)."""
+        if not (state.batched and cursor.done):
+            raise ValueError("finish_prefill_into needs a batched state and "
+                             "a cursor that has ingested its prompt")
+        if state.active[slot]:
+            raise ValueError(f"slot {slot} is still occupied")
+        self._commit_prefill_row(state, slot, cursor.caches,
+                                 len(cursor.tokens))
+        return cursor.logits
+
     # -- batched serving state (continuous batching over one engine) --------
     def alloc_decode_state(self, batch: int) -> DecodeState:
         """Empty batched DecodeState with `batch` request rows."""
@@ -707,13 +881,18 @@ class SlotBufferEngine:
         state.pos[slot] = T
         state.active[slot] = True
 
-    def prefill_into(self, state: DecodeState, slot: int,
-                     tokens) -> torch.Tensor:
+    def prefill_into(self, state: DecodeState, slot: int, tokens,
+                     chunk_size: Optional[int] = None) -> torch.Tensor:
         """Admit a request: run its (1, T) prompt through the slot path and
         write the caches into row `slot` of `state`. Returns the prompt's
-        last-token logits (1, V)."""
+        last-token logits (1, V). `chunk_size`: ingest it chunk by chunk
+        (run to completion here; the serving loop interleaves chunks with
+        decode through `start_prefill` / `prefill_chunk` instead)."""
         assert state.batched, "prefill_into requires an alloc_decode_state"
         assert not state.active[slot], f"slot {slot} is still occupied"
+        if chunk_size:
+            cursor = self._run_prefill_cursor(tokens, chunk_size)
+            return self.finish_prefill_into(state, slot, cursor)
         tokens = torch.as_tensor(tokens, device=self.device)
         assert tokens.dim() == 2 and tokens.shape[0] == 1
         logits, st1 = self.prefill(tokens)
@@ -1118,6 +1297,34 @@ class SlotBufferEngine:
             li += 1
         return self._logits(x), DecodeState(
             caches, torch.tensor(T, device=self.device), pos=int(T))
+
+    def reference_prefill_chunked(self, tokens,
+                                  chunk_size: int = DEFAULT_PREFILL_CHUNK
+                                  ) -> Tuple[torch.Tensor, DecodeState]:
+        """Chunked prefill of one prompt through the SAME chunk functions
+        with the identity slot table over the full expert weights — no
+        buffer, no swaps. `prefill_chunked` must match it bitwise."""
+        cursor = self.start_prefill(tokens, chunk_size)
+        while not cursor.done:
+            o, t, buf = self._next_chunk(cursor)
+            x, positions, active = self._embed_chunk(buf, o, t)
+            li = 0
+            for i, spec in enumerate(self.specs):
+                p = self._p[i]
+                if not spec.is_moe:
+                    x, _ = layer_prefill_chunk(p, self.cfg, spec, x,
+                                               positions, cursor.caches[i],
+                                               o, t)
+                    continue
+                x, flat, r, _, _ = self._pre_prefill_chunk(
+                    p, spec, x, positions, cursor.caches[i], o, t, active)
+                x = self._ffn(p, self._full_experts(li), self._ident_map, x,
+                              flat, r)
+                li += 1
+            cursor.offset = o + t
+        T = len(cursor.tokens)
+        return self._logits_at(x, t - 1), DecodeState(
+            cursor.caches, torch.tensor(T, device=self.device), pos=T)
 
     def reference_decode_step(self, tok, state: DecodeState
                               ) -> Tuple[torch.Tensor, DecodeState]:

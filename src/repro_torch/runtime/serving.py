@@ -3,20 +3,27 @@
 
 Same `Request` objects, `ContinuousBatcher` (with the working-set admission
 cap fed by the engine's `StepSizeController`) and `ServingReport` as the
-reference. Loop shape:
+reference. Loop shape, with chunked admission (`prefill_chunk` > 0, the
+default, 32 tokens):
 
-    admit   -> whole-prompt prefill into a free batch row (monolithic
-               admission), then the first token
-    decode  -> ONE batched `decode_step` over every occupied row
+    admit   -> open a prefill cursor for the request in a free batch row
+    prefill -> ONE chunk of ONE cursor (shortest remaining first, with
+               aging); a finished cursor is committed into its row and
+               samples the first token
+    decode  -> ONE batched `decode_step` over every fully-prefilled row
+               (rows mid-prefill hold their slot but sit out)
     sample  -> per-request temperature and generator (`sample_rows`)
     retire  -> finished rows free their slot for the next waiting request
+
+With `prefill_chunk = 0` admission is monolithic instead: the whole prompt
+is prefilled into its row, and its first token sampled, inside the
+admitting iteration (the head-of-line baseline chunked serving beats).
 
 Timing is wall-clock on the host; every decode iteration ends in a host
 pull of its sampled tokens, so a step's time includes its device work.
 Serving through the decode superkernel is
 `ServingEngine(SlotBufferEngine(..., use_superkernel=True))`: the loop is
 the same, the engine's `decode_step` takes the segment-fused path.
-Chunked prefill is not ported yet: `prefill_chunk > 0` raises.
 """
 from __future__ import annotations
 
@@ -43,8 +50,12 @@ class EngineServingConfig:
     # working-set admission cap fed by the engine's controller
     admission_cap: bool = True
     max_iterations: int = 100_000
-    # chunked prefill width; only 0 (monolithic admission) is ported so far
-    prefill_chunk: int = 0
+    # chunked prefill: prompt-chunk width interleaved with decode; 0 =
+    # monolithic whole-prompt prefill at admission
+    prefill_chunk: int = 32
+    # aging bound of the shortest-remaining-first chunk scheduler: a cursor
+    # passed over this many consecutive iterations is advanced regardless
+    prefill_starve_limit: int = 4
     # brownout admission: admissions pause while the single-replica
     # StragglerPolicy drains (decode-step EWMA past threshold x baseline)
     brownout_admission: bool = False
@@ -60,9 +71,6 @@ class ServingEngine:
                  cfg: Optional[EngineServingConfig] = None, seed: int = 17):
         self.engine = engine
         self.cfg = cfg or EngineServingConfig()
-        if self.cfg.prefill_chunk > 0:
-            raise NotImplementedError(
-                "chunked prefill is not ported yet; use prefill_chunk=0")
         admission = None
         if self.cfg.admission_cap:
             L = max(len(engine.moe_layer_ids), 1)
@@ -83,6 +91,10 @@ class ServingEngine:
         self._row_gen: List[Optional[torch.Generator]] = \
             [None] * self.cfg.max_batch
         self._row_temp = np.zeros(self.cfg.max_batch, np.float32)
+        # in-flight chunked prefills: [(Request, PrefillCursor)]
+        self._prefills: List = []
+        self._chunked = (self.cfg.prefill_chunk > 0
+                         and engine.chunked_prefill_supported)
 
     # -- admission-control working-set estimate -----------------------------
     def predict_working_set(self, req: Request) -> float:
@@ -127,6 +139,39 @@ class ServingEngine:
         report.run.add(StepMetrics(step=it,
                                    compute_s=req.first_token_s - t_start,
                                    step_size=eng.controller.s))
+
+    def _advance_prefill(self, state, report: ServingReport, it: int,
+                         finish) -> None:
+        """One chunk of ONE in-flight prefill cursor per serving iteration,
+        shortest remaining first: a short prompt admitted behind a long one
+        overtakes it chunk by chunk. A cursor passed over
+        `prefill_starve_limit` consecutive iterations is advanced
+        regardless, so a stream of shorter arrivals cannot starve a long
+        prompt."""
+        eng = self.engine
+        t0 = time.perf_counter() - self._t0
+        self._prefills.sort(key=lambda rc: rc[1].remaining)
+        pick = max(range(len(self._prefills)),
+                   key=lambda i: self._prefills[i][1].skipped)
+        if self._prefills[pick][1].skipped < self.cfg.prefill_starve_limit:
+            pick = 0                       # nobody starving: pure SRF
+        req, cursor = self._prefills[pick]
+        for _, other in self._prefills:
+            other.skipped += 1
+        cursor.skipped = 0
+        eng.prefill_chunk(cursor)
+        if not cursor.done:
+            report.run.add(StepMetrics(
+                step=it, compute_s=(time.perf_counter() - self._t0) - t0,
+                step_size=eng.controller.s))
+            return
+        self._prefills.pop(pick)
+        logits = eng.finish_prefill_into(state, req.slot, cursor)
+        req.prefill_done_s = time.perf_counter() - self._t0
+        self._emit_first_token(req, req.slot, logits, t0, report, it)
+        if req.done:                 # 1-token request: done at prefill
+            finish(req)
+            self.batcher.release(req)
 
     # -- the serving loop ----------------------------------------------------
     def serve(self, requests: List[Request]) -> ServingReport:
@@ -178,12 +223,25 @@ class ServingEngine:
                 continue
 
             for req in self.batcher.admit(now=tnow):
+                if self._chunked:
+                    # admission only opens the cursor; chunks are
+                    # scheduled one per iteration below
+                    req.admitted_s = now()
+                    self._prefills.append((req, eng.start_prefill(
+                        np.asarray(req.prompt, np.int64),
+                        cfg.prefill_chunk)))
+                    continue
                 self._admit_one(req, req.slot, state, now(), report, it)
                 it += 1
                 if req.done:          # 1-token request: done at prefill
                     finish(req)
                     self.batcher.release(req)
 
+            if self._prefills:
+                self._advance_prefill(state, report, it, finish)
+                it += 1
+
+            # decode advances fully-prefilled rows only (state.active)
             active_slots = [s for s in self.batcher.active_slots()
                             if state.active[s]]
             if not active_slots:

@@ -1,7 +1,7 @@
 """Card-only tests of the port: each CUDA kernel against its plain version
 (and against itself, for determinism), the wrappers' checks, and the slot
-paths (unfused and superkernel) against their fully-resident oracles with
-asynchronous swap-ins. They skip without a CUDA device; on a machine
+paths (unfused and superkernel, whole-prompt and chunked prefill) against
+their fully-resident oracles with asynchronous swap-ins. They skip without a CUDA device; on a machine
 with one (and the CUDA toolkit), run them with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -14,10 +14,12 @@ import torch
 
 from repro_torch.configs import get_config, get_smoke_config, reduce_config
 from repro_torch.kernels import decode_superkernel as dsk
-from repro_torch.kernels import slot_gather
-from repro_torch.kernels.ref import (fused_decode_attention_ref,
+from repro_torch.kernels import ops, slot_gather
+from repro_torch.kernels.ref import (expert_ffn_ref,
+                                     fused_decode_attention_ref,
                                      fused_mla_decode_attention_ref,
-                                     fused_moe_entry_ref, slot_ffn_ref)
+                                     fused_moe_entry_ref, slot_ffn_ref,
+                                     topk_gating_ref)
 from repro_torch.models.transformer import Model
 from repro_torch.runtime.engine import DecodeState, SlotBufferEngine
 
@@ -328,3 +330,118 @@ def test_deepseek_slot_paths_bitwise_vs_oracle_on_the_card(gen, superkernel):
     eng.synchronize()
     assert (dsk.fused_mla_decode_attention.launches > n0) == superkernel
     assert eng.stats.replays > 0 and eng.stats.evictions > 0
+
+
+# ---------------------------------------------------------------------------
+# the kernel API: topk_gating and expert_ffn
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,E,k", [(4, 64, 8), (100, 16, 4), (33, 128, 8),
+                                   (256, 256, 8), (7, 8, 8), (5, 256, 256)])
+def test_topk_kernel_matches_plain_version(gen, T, E, k, dtype):
+    logits = torch.randn((T, E), generator=gen, device="cuda").to(dtype)
+    for norm in (True, False):
+        before = ops.topk.launches
+        g, i = ops.topk(logits, k, norm=norm)
+        gr, ir = topk_gating_ref(logits, k, norm)
+        torch.cuda.synchronize()
+        assert ops.topk.launches == before + 1
+        assert torch.equal(i, ir)
+        torch.testing.assert_close(g, gr, rtol=1e-5, atol=1e-6)
+    if k == E:                   # every index once; the mask never wins
+        assert torch.equal(i.sort(-1).values,
+                           torch.arange(E, device="cuda",
+                                        dtype=torch.int32).expand(T, E))
+
+
+def test_topk_kernel_ties_go_to_the_lowest_index(gen):
+    tied = torch.zeros((4, 64), device="cuda")
+    g, i = ops.topk(tied, 8)
+    assert torch.equal(i, torch.arange(8, device="cuda",
+                                       dtype=torch.int32).expand(4, 8))
+    torch.testing.assert_close(g, torch.full_like(g, 1 / 8), rtol=1e-6,
+                               atol=0)
+    pairs = torch.randn((9, 32), generator=gen, device="cuda")
+    pairs = pairs.repeat_interleave(2, dim=1)            # E = 64, tied pairs
+    g, i = ops.topk(pairs, 6)
+    gr, ir = topk_gating_ref(pairs, 6)
+    assert torch.equal(i, ir) and bool((i[:, 0::2] % 2 == 0).all())
+    torch.testing.assert_close(g, gr, rtol=1e-5, atol=1e-6)
+
+
+def test_topk_wrapper_rejects_what_the_kernel_does_not_take(gen):
+    with pytest.raises(TypeError):
+        ops.topk(torch.zeros((4, 8), device="cuda", dtype=torch.float16), 2)
+    with pytest.raises(ValueError):
+        ops.topk(torch.zeros((4, 257), device="cuda"), 2)
+    with pytest.raises(ValueError):
+        ops.topk(torch.zeros((4, 8), device="cuda"), 9)
+    with pytest.raises(ValueError):
+        ops.topk(torch.zeros((8, 4), device="cuda").t(), 2)
+
+
+def _ffn_inputs(g, E, C, D, F):
+    x = torch.randn((E, C, D), generator=g, device="cuda").bfloat16()
+    w = lambda *s: (torch.randn(s, generator=g, device="cuda")  # noqa: E731
+                    * s[-2] ** -0.5).bfloat16()
+    return x, w(E, D, F), w(E, D, F), w(E, F, D)
+
+
+@pytest.mark.parametrize("shape", [(8, 128, 256, 128), (3, 40, 64, 48),
+                                   (2, 1, 136, 72), (64, 128, 2048, 1024)])
+def test_expert_ffn_kernel_matches_plain_version(gen, shape):
+    args = _ffn_inputs(gen, *shape)
+    before = ops.expert_ffn.launches
+    got = ops.expert_ffn(*args)
+    again = ops.expert_ffn(*args)
+    want = expert_ffn_ref(*args)
+    torch.cuda.synchronize()
+    assert ops.expert_ffn.launches == before + 2
+    torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+    assert torch.equal(got, again), "the kernel must be deterministic"
+
+
+def test_slot_ffn_identity_table_equals_expert_ffn_bitwise(gen):
+    x, wg, wu, wd = _ffn_inputs(gen, 4, 128, 64, 128)
+    ident = torch.arange(4, dtype=torch.int32, device="cuda")
+    assert torch.equal(ops.slot_ffn(x, ident, wg, wu, wd),
+                       ops.expert_ffn(x, wg, wu, wd))
+
+
+def test_expert_ffn_wrapper_rejects_what_the_kernel_does_not_take(gen):
+    x, wg, wu, wd = _ffn_inputs(gen, 2, 4, 64, 32)
+    with pytest.raises(TypeError):
+        ops.expert_ffn(x.float(), wg.float(), wu.float(), wd.float())
+    with pytest.raises(ValueError):
+        ops.expert_ffn(x, wg.transpose(1, 2), wu, wd)
+    x2, wg2, wu2, wd2 = _ffn_inputs(gen, 2, 4, 60, 32)
+    with pytest.raises(ValueError):
+        ops.expert_ffn(x2, wg2, wu2, wd2)
+
+
+# ---------------------------------------------------------------------------
+# chunked prefill on the card
+# ---------------------------------------------------------------------------
+
+def test_chunked_prefill_bitwise_vs_oracle_on_the_card(gen):
+    cfg = get_smoke_config("olmoe-1b-7b")
+    model = Model(cfg)
+    params = model.init(gen, device="cuda")
+    eng = SlotBufferEngine(cfg, params, model, n_slots_per_layer=4,
+                           use_kernel=True, step_size=1)
+    rng = np.random.default_rng(1)
+    before = slot_gather.slot_ffn.launches
+    n_chunks = 0
+    for T, C in ((23, 8), (9, 32), (40, 16)):
+        prompt = rng.integers(0, cfg.vocab_size, (1, T))
+        lc, _ = eng.prefill_chunked(prompt, chunk_size=C)
+        n_chunks += -(-T // C)
+        lr, _ = eng.reference_prefill_chunked(prompt, chunk_size=C)
+        assert torch.equal(lc, lr), f"T={T} C={C}"
+    eng.synchronize()
+    assert eng.stats.evictions > 0 and eng.stats.copy_s > 0
+    # every chunk launched the kernel once per MoE layer (and the oracle
+    # once more)
+    assert slot_gather.slot_ffn.launches - before == \
+        2 * n_chunks * len(eng.moe_layer_ids)

@@ -71,11 +71,29 @@ def test_serving_matches_reference_single_request_generate():
                 break
 
 
-def test_chunked_prefill_is_not_ported_yet():
+def test_chunked_serving_is_the_default_and_opens_cursors():
+    """Chunked admission (32-token chunks) is the default, as in the
+    reference: each admitted request opens a prefill cursor, every chunk
+    goes through `prefill_chunk`, and every request is served in full."""
+    assert EngineServingConfig().prefill_chunk == 32
     te = SlotBufferEngine(CFG, Model(CFG).init(device="cpu"), Model(CFG),
                           n_slots_per_layer=4, device="cpu")
-    with pytest.raises(NotImplementedError):
-        ServingEngine(te, EngineServingConfig(prefill_chunk=32))
+    srv = ServingEngine(te, EngineServingConfig(max_batch=2,
+                                                prefill_chunk=32))
+    assert srv._chunked
+    opened, chunks = [], []
+    start, step = te.start_prefill, te.prefill_chunk
+    te.start_prefill = lambda *a: opened.append(start(*a)) or opened[-1]
+    te.prefill_chunk = lambda c: chunks.append(c.offset) or step(c)
+    lens = (40, 8, 70)
+    reqs = [Request(np.arange(n) % CFG.vocab_size, max_new_tokens=3)
+            for n in lens]
+    srv.serve(reqs)
+    assert all(len(r.output) == 3 for r in reqs)
+    assert [len(c.tokens) for c in opened] == list(lens)
+    assert all(c.done and c.chunk == 32 for c in opened)
+    assert len(chunks) == sum(-(-n // 32) for n in lens)
+    assert not srv._prefills
 
 
 def test_sampled_requests_follow_their_own_generator():
