@@ -10,15 +10,23 @@ the last line:
 2. build: every CUDA kernel of the port (`slot_ffn`, `fused_moe_entry`,
    `fused_decode_attention`, `fused_mla_decode_attention`, `topk_gating`,
    `expert_ffn`), from `src/repro_torch/kernels/csrc`, one nvcc per
-   source, all at once;
+   source, all at once; each entry function's registers, static shared
+   memory and spills as ptxas reports them, and how many HGMMA (wgmma) and
+   UTMALDG (TMA load) instructions the `slot_ffn` and `expert_ffn`
+   libraries' SASS holds (`cuobjdump -sass`; "not checked" without it);
 3. kernels: each kernel against its plain PyTorch version on the card at
    its paths' shapes, with CUDA-event medians of the kernel, the plain
    version and a library yardstick (timed only; the port never calls it),
    and the kernel's bound (the larger of needed bytes / 3.35 TB/s and
    needed operations over the H100 SXM peak for their type):
    - `slot_ffn` at olmoe-1b-7b decode (batch 4), prefill (128 tokens), one
-     32-token prefill chunk and a ragged shape, and at DeepSeek-V2-Lite
-     decode, prefill and chunk, tolerance 2e-2;
+     32-token prefill chunk (every routed expert resident, and 16 of 64
+     experts resident as serving meets it) and a ragged shape, and at
+     DeepSeek-V2-Lite decode, prefill and chunk, tolerance 2e-2: with the
+     per-expert row counts `moe_slotbuf` passes (rows < counts checked,
+     deterministic and equal to the all-rows call's; bound from the rows
+     that hold tokens, the bound of reading and writing every row beside
+     it) and without counts (every row);
    - `fused_moe_entry` at olmoe-1b-7b decode (T=4, 256 slots) with every
      routed expert resident and with 16 resident experts per layer (some
      routed ones absent), bias zeros and nonzero, and at DeepSeek-V2-Lite
@@ -153,29 +161,92 @@ def bound(nbytes, ops):
                                  else "operations")
 
 
+def kernel_name(mangled):
+    """The `...kernel` identifier of a mangled entry-function name, with its
+    first template argument (`swiglu_gemm_kernel<1>`)."""
+    import re
+    i = 3 if mangled.startswith("_ZN") else 2
+    while i < len(mangled):
+        m = re.match(r"\d+", mangled[i:])
+        if not m:
+            break
+        j = i + len(m.group(0))
+        ident, i = mangled[j:j + int(m.group(0))], j + int(m.group(0))
+        if "kernel" in ident:
+            t = re.match(r"IL[a-z](\d+)E", mangled[i:])
+            return ident + (f"<{t.group(1)}>" if t else "")
+    return mangled
+
+
+def build_report(build):
+    """Per kernel library: each entry function's registers, static shared
+    memory and spills as ptxas reported them, and, for the two SwiGLU GEMM
+    libraries, how many HGMMA (wgmma) and UTMALDG (TMA load) instructions
+    their SASS holds (`cuobjdump -sass`, where the toolkit has it)."""
+    import os
+    import re
+    import shutil
+    info = {}
+    for name, out in build.LIBS.build_log.items():
+        fn, entries = None, []
+        for line in out.splitlines():
+            m = re.search(r"entry function '(\w+)'", line)
+            if m:
+                fn = kernel_name(m.group(1))
+            elif "registers" in line or "spill" in line:
+                entries.append(f"{fn}: {line.split(':', 1)[-1].strip()}")
+        info[name] = {"ptxas": entries}
+        for e in entries:
+            log(f"build {name}: {e}")
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    for name in ("slot_ffn", "expert_ffn"):
+        info.setdefault(name, {"ptxas": []})
+        if not os.path.exists(cuobjdump):
+            info[name]["sass"] = "not checked"
+            log(f"build {name}: SASS not checked (no cuobjdump)")
+            continue
+        sass = subprocess.run([cuobjdump, "-sass", str(build._lib_path(name))],
+                              capture_output=True, text=True).stdout
+        info[name]["sass"] = {op: sass.count(op) for op in ("HGMMA",
+                                                            "UTMALDG")}
+        log(f"build {name}: SASS holds {info[name]['sass']}")
+    return info
+
+
 # --------------------------------------------------------------- phase 3
 
-def slot_ffn_inputs(torch, moe_mod, g, *, B, T, k, E, D, F, S, resident_frac):
-    """A dispatch buffer and slot table shaped as the serving path builds
-    them: T*B tokens route to k distinct experts each, the buffer holds
-    capacity B*T*k rows per expert (the rest zero padding), routed experts
-    sit in distinct slots, and a share of the others is resident too (the
-    rest point at slot 0, as `moe_slotbuf` clamps non-resident entries)."""
+def slot_ffn_inputs(torch, moe_mod, g, *, B, T, k, E, D, F, S, resident_frac,
+                    n_resident=None):
+    """A dispatch buffer, slot table and row counts shaped as the serving
+    path builds them: T*B tokens route to k distinct experts each, the
+    buffer holds capacity B*T*k rows per expert (the rest zero padding),
+    routed experts sit in distinct slots, and a share of the others is
+    resident too (the rest point at slot 0, as `moe_slotbuf` clamps
+    non-resident entries); with `n_resident`, that many experts drawn at
+    random are resident instead, as in serving when a layer's working set
+    overflows its slots. The counts are `moe_slotbuf`'s (the dispatch's
+    rows per expert, 0 where not resident)."""
     dev = "cuda"
     n = B * T
     x_tok = torch.randn((n, D), generator=g, device=dev).to(torch.bfloat16)
     logits = torch.randn((n, E), generator=g, device=dev)
     _, ids = moe_mod.top_k_first_max(logits, k)
-    buf = moe_mod._dispatch_gather(x_tok, ids, E, n * k)[0].contiguous()
+    buf, *_, counts = moe_mod._dispatch_gather(x_tok, ids, E, n * k)
     routed = torch.zeros(E, dtype=torch.bool, device=dev)
     routed[ids.reshape(-1)] = True
     keep = routed | (torch.rand(E, generator=g, device=dev) < resident_frac)
+    if n_resident is not None:
+        keep = torch.zeros_like(keep)
+        keep[torch.randperm(E, generator=g, device=dev)[:n_resident]] = True
     perm = torch.randperm(S, generator=g, device=dev)[:E].to(torch.int32)
-    slot = torch.where(keep, perm, torch.zeros_like(perm)).contiguous()
+    table = torch.where(keep, perm, torch.full_like(perm, -1))
+    counts = moe_mod.slot_ffn_row_counts(counts, table, n * k)
+    slot = torch.clamp(table, min=0).contiguous()
     w = lambda *s: (torch.randn(s, generator=g, device=dev)  # noqa: E731
                     * s[-2] ** -0.5).to(torch.bfloat16)
     wg, wu, wd = w(S, D, F), w(S, D, F), w(S, F, D)
-    return (buf, slot, wg, wu, wd), slot[routed]
+    return (buf.contiguous(), slot, wg, wu, wd), counts, slot[routed & keep]
 
 
 def slot_ffn_phase(torch, moe_mod, slot_gather, ref, g):
@@ -203,47 +274,77 @@ def slot_ffn_phase(torch, moe_mod, slot_gather, ref, g):
                       resident_frac=0.25),
         "deepseek_chunk": dict(B=1, T=CHUNK, k=6, E=64, D=2048, F=1408,
                                S=416, resident_frac=0.25),
+        # a chunk as serving meets it: 16 of the 64 experts resident
+        "chunk_16_resident": dict(B=1, T=CHUNK, k=8, E=64, D=2048, F=1024,
+                                  S=256, resident_frac=0.0, n_resident=16),
     }
     results = {}
     for name, sh in shapes.items():
-        args, routed_slots = slot_ffn_inputs(torch, moe_mod, g, **sh)
+        args, counts, routed_slots = slot_ffn_inputs(torch, moe_mod, g, **sh)
         x = args[0]
         E, C, D = x.shape
         F = args[2].shape[-1]
-        got = slot_gather.slot_ffn(*args)
-        want = ref.slot_ffn_ref(*args)
+        # with counts (the serving path's call): rows < counts[e] only
+        got = slot_gather.slot_ffn(*args, counts=counts)
+        again = slot_gather.slot_ffn(*args, counts=counts)
+        want = ref.slot_ffn_ref(*args, counts=counts)
+        # without counts: every row, the reference's function
+        got_all = slot_gather.slot_ffn(*args)
+        want_all = ref.slot_ffn_ref(*args)
         torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        ok = torch.allclose(got, want, rtol=TOL, atol=TOL)
-        check(ok, f"slot_ffn disagrees with its plain version at {name}: "
-                  f"max |err| {err}")
-        rows = sh["B"] * sh["T"] * sh["k"]           # rows holding tokens
+        live = (torch.arange(C, device="cuda")[None, :]
+                < counts.long()[:, None])[..., None]
+        counted = lambda y: torch.where(live, y, 0)  # noqa: E731
+        err = float((counted(got) - want).abs().max())
+        err_all = float((got_all - want_all).abs().max())
+        check(torch.allclose(counted(got), want, rtol=TOL, atol=TOL),
+              f"slot_ffn with counts disagrees with its plain version at "
+              f"{name}: max |err| {err}")
+        check(torch.allclose(got_all, want_all, rtol=TOL, atol=TOL),
+              f"slot_ffn disagrees with its plain version at {name}: "
+              f"max |err| {err_all}")
+        check(torch.equal(counted(got), counted(again))
+              and torch.equal(counted(got), counted(got_all)),
+              f"slot_ffn rows < counts differ between runs or from the "
+              f"all-rows call at {name}")
+        rows = int(counts.sum())                      # rows holding tokens
         distinct = int(torch.unique(routed_slots).numel())
-        nbytes = (x.numel() * 2 + E * C * D * 4 + E * 4
-                  + distinct * 3 * D * F * 2)
-        b_ms, b_by = bound(nbytes, [(2 * 3 * D * F * rows,
-                                     H100_BF16_FLOP_PER_S)])
+        w_bytes = distinct * 3 * D * F * 2
+        b_ms, b_by = bound(rows * D * (2 + 4) + E * 8 + w_bytes,
+                           [(2 * 3 * D * F * rows, H100_BF16_FLOP_PER_S)])
+        # the all-rows figure: every row of the buffer read and written
+        b_all_ms, _ = bound(x.numel() * 2 + E * C * D * 4 + E * 4 + w_bytes,
+                            [(2 * 3 * D * F * rows, H100_BF16_FLOP_PER_S)])
         dense_ms = 2 * 3 * D * F * E * C / H100_BF16_FLOP_PER_S * 1e3
         heavy = E * C * D > 2 ** 26
         r = {
             "shape": {"E": E, "C": C, "D": D, "F": F,
                       "S": args[2].shape[0]},
-            "max_abs_err": err,
-            "ms": time_ms(torch, lambda: slot_gather.slot_ffn(*args)),
-            "plain_ms": time_ms(torch, lambda: ref.slot_ffn_ref(*args),
-                                reps=3, inner=2 if heavy else 5),
+            "max_abs_err": max(err, err_all),
+            "max_abs_err_counted_rows": err,
+            "max_abs_err_all_rows": err_all,
+            "ms": time_ms(torch, lambda: slot_gather.slot_ffn(
+                *args, counts=counts)),
+            "ms_all_rows": time_ms(torch, lambda: slot_gather.slot_ffn(*args)),
+            "plain_ms": time_ms(torch, lambda: ref.slot_ffn_ref(
+                *args, counts=counts), reps=3, inner=2 if heavy else 5),
             "library_ms": time_ms(torch, lambda: library(*args)),
             "bound_ms": b_ms, "bound_by": b_by,
-            "needed_rows": rows, "distinct_routed_slots": distinct,
+            "bound_all_rows_ms": b_all_ms,
+            "needed_rows": rows, "computed_experts": int((counts > 0).sum()),
+            "distinct_routed_slots": distinct,
             "dense_rows_flop_ms": dense_ms,
         }
         results[name] = r
-        log(f"kernel slot_ffn {name} {r['shape']}: max|err| {err:.3g}, "
-            f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-            f"gather+bmm {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f}"
-            f" ms ({r['bound_by']}; all {E * C} rows dense: "
+        log(f"kernel slot_ffn {name} {r['shape']}: {rows} rows over "
+            f"{r['computed_experts']} experts; max|err| {err:.3g} (counted "
+            f"rows), {err_all:.3g} (all rows); kernel {r['ms']:.4f} ms with "
+            f"counts, {r['ms_all_rows']:.4f} ms all rows; plain "
+            f"{r['plain_ms']:.4f} ms, gather+bmm {r['library_ms']:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}; reading and writing all {E * C} "
+            f"rows: {b_all_ms:.4f} ms; all rows dense FLOPs: "
             f"{dense_ms:.4f} ms)")
-        del args, got, want
+        del args, got, again, want, got_all, want_all
         torch.cuda.empty_cache()
     return results
 
@@ -612,7 +713,7 @@ def kernel_api_phase(torch, ops, ref, moe_mod, g):
 
     def layer(topk, ffn, k, x, router, wg, wu, wd):
         gates, ids = topk(x.float() @ router, k)
-        buf, _, _, keep, order, flat_slot = moe_mod._dispatch_gather(
+        buf, _, _, keep, order, flat_slot, _ = moe_mod._dispatch_gather(
             x, ids.long(), E, C)
         y = ffn(buf.contiguous(), wg, wu, wd)
         weight = gates.reshape(-1)[order] * keep.float()
@@ -980,10 +1081,7 @@ def main() -> int:
     t0 = time.perf_counter()
     secs = build.build_all()
     log(f"build: {json.dumps(secs)} ({time.perf_counter() - t0:.1f} s wall)")
-    for name, out in build.LIBS.build_log.items():
-        for line in out.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"build {name}: {line.strip()}")
+    build_info = build_report(build)
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import decode_superkernel as dsk
@@ -1067,7 +1165,8 @@ def main() -> int:
             "max_abs_err": max(v["max_abs_err"] for v in kres[name].values()),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "shapes": kres[name]})
+            "library_ms": r["library_ms"], "build": build_info.get(name),
+            "shapes": kres[name]})
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(

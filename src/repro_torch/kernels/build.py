@@ -31,8 +31,7 @@ _F = ctypes.c_float
 # kernel name -> (source file, {C symbol: argtypes})
 KERNELS: Dict[str, Tuple[str, Dict[str, list]]] = {
     "slot_ffn": ("slot_ffn.cu", {
-        "slot_ffn_launch": [_P, _P, _P, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _I, _P]}),
+        "slot_ffn_launch": [_P] * 8 + [_I] * 5 + [_P]}),
     "fused_moe_entry": ("fused_moe_entry.cu", {
         "fused_moe_entry_launch": [_P] * 13 + [_I] * 7 + [_P]}),
     "fused_decode_attention": ("fused_decode_attention.cu", {
@@ -51,8 +50,9 @@ KERNELS: Dict[str, Tuple[str, Dict[str, list]]] = {
 class KernelLibraries:
     """Built-and-loaded kernel libraries, keyed by kernel name. One instance
     per process (`LIBS`) so a library loads once; `build_log` keeps the
-    compiler's report (registers, spills) and `build_seconds` the time each
-    build took (0 when loaded from an earlier build)."""
+    compiler's report (registers, spills; saved beside the library, so a
+    library loaded from an earlier build has it too) and `build_seconds`
+    the time each build took (0 when loaded from an earlier build)."""
 
     def __init__(self):
         self._libs: Dict[str, ctypes.CDLL] = {}
@@ -74,6 +74,9 @@ class KernelLibraries:
         for n, path in todo.items():
             if path.exists():
                 self.build_seconds[n] = 0.0
+                log = path.with_suffix(".log")
+                if log.exists():
+                    self.build_log[n] = log.read_text()
                 continue
             procs[n] = _start_nvcc(n, path)
         failed = []
@@ -85,6 +88,7 @@ class KernelLibraries:
                 os.remove(tmp)
                 failed.append(f"nvcc failed for {n}:\n{out}")
             else:
+                path.with_suffix(".log").write_text(out)
                 os.replace(tmp, path)
         if failed:
             raise RuntimeError("\n".join(failed))

@@ -6,48 +6,47 @@
 //     h = bf16(silu(g) * u)
 //     out[e] = h @ Wd[slot[e]]                                (fp32 sums)
 // with the weights read straight out of the bounded slot buffer through the
-// expert -> slot table.
+// expert -> slot table, over the first counts[e] rows of x[e] (all C rows
+// without counts).
 //
-// Design.
-// - The TPU version hands the table to its BlockSpec index maps as a
-//   scalar-prefetch operand. Here every block chases the pointer itself:
-//   it reads slot_of_expert[e] from device memory and offsets its weight
-//   loads by it. No gathered copy of the weights is ever made.
-// - The TPU reduces h @ Wd over F tiles in a sequential grid, carrying the
-//   sum in its output block. Blocks on the card run in no order, and a
-//   (rows x D) fp32 sum does not fit a block, so the FFN runs as two
-//   launches on one stream: (1) g/u GEMMs over D with the SwiGLU epilogue,
-//   writing h in bf16 (the same rounding point as the TPU kernel); (2) the
-//   h @ Wd GEMM, one block per output tile, looping over all of F. No
-//   atomics and no split-F: every output element is summed by one thread
-//   in one fixed order, so the result is deterministic from run to run.
-// - Both launches are the tiled mma.sync GEMM of `swiglu_gemm.cuh`, which
-//   `expert_ffn.cu` shares (so the two give the same bits for the same
-//   weights).
+// What bounds it. The dispatch buffer holds C = T*k rows per expert, of
+// which T*k in all hold tokens, and only the routed, resident experts'
+// weights are needed. On an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense)
+// at olmoe-1b-7b widths (D = 2048, F = 1024; one expert = 12.6 MB) the
+// needed bytes dominate at every serving shape: decode (32 rows over <= 32
+// experts) reads <= 403 MB, 0.12 ms; a 128-token prefill (1,024 rows over
+// ~64 experts, 6.4 GFLOP) ~805 MB, 0.24 ms.
 //
-// Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense), olmoe-1b-7b
-// (D = 2048, F = 1024, E = 64; one expert = 12.6 MB):
-// - decode, batch 4: C = B*k = 32, E*C = 2048 rows, 25.8 GFLOP. Memory
-//   bound: it reads the weights of every distinct slot the table names (at
-//   most B*k = 32 routed experts, 403 MB; 805 MB if all 64 are distinct),
-//   so the floor is distinct bytes / 3.35 TB/s, 0.12-0.24 ms.
-// - prefill, a 128-token prompt: C = T*k = 1024, E*C = 65536 rows,
-//   0.82 TFLOP per layer, so 0.83 ms at 989 TFLOP/s.
-// Only T*k of the E*C dispatch rows hold tokens; the rest are zero padding
-// that this kernel multiplies like any other row (E*C / (T*k) = 64x the
-// needed work at both shapes). Skipping empty rows is left to a later
-// change; the caller's capacity choice, not the kernel, sets the padding.
+// Design (the GEMM is `swiglu_gemm.cuh`, shared with `expert_ffn.cu`).
+// - The TPU version computes every (expert, C tile) of the buffer and hands
+//   the table to its BlockSpec index maps. Here the caller passes counts
+//   (rows holding tokens per expert; 0 for an expert that is not resident)
+//   and the kernel builds its tile list from them on the device: an expert
+//   with no rows (empty, or not resident) reads neither rows nor weights,
+//   and an expert with r rows takes ceil(r / 128) row tiles instead of
+//   ceil(C / 128): up to the 64-row boxes of x it loads, the bytes it
+//   moves are those of the bound above.
+// - The slot chase is the third coordinate of the weights' TMA tensor map:
+//   slot_of_expert[e] (clamped into [0, S)) picks the slot, and no gathered
+//   copy of the weights is made.
+// - The TPU reduces h @ Wd over F tiles in a sequential grid. Here the FFN
+//   is two launches on one stream (g/u with the SwiGLU epilogue writing h
+//   in bf16, the TPU kernel's rounding point; then h @ Wd over all of F),
+//   with no atomics and no split-K, so it is deterministic.
 //
 // C interface (bound with ctypes): slot_ffn_launch returns cudaGetLastError()
-// after enqueueing both launches on `stream`. It allocates nothing: the
-// caller passes the bf16 (E, C, F) scratch `h` and the fp32 output.
+// after enqueueing both launches on `stream` (cudaErrorInvalidValue if a
+// tensor map cannot be encoded). It allocates nothing: the caller passes the
+// bf16 (E, C, F) scratch `h` and the fp32 output. `counts` may be null.
 
 #include "swiglu_gemm.cuh"
 
 extern "C" int slot_ffn_launch(const void* x, const void* slot_of_expert,
-                               const void* s_gate, const void* s_up,
-                               const void* s_down, void* h, void* out, int E,
-                               int C, int D, int F, int S, void* stream) {
-  return swiglu_ffn_launch(x, static_cast<const int*>(slot_of_expert), s_gate,
-                           s_up, s_down, h, out, E, C, D, F, S, stream);
+                               const void* counts, const void* s_gate,
+                               const void* s_up, const void* s_down, void* h,
+                               void* out, int E, int C, int D, int F, int S,
+                               void* stream) {
+  return swiglu_ffn_launch(x, static_cast<const int*>(slot_of_expert),
+                           static_cast<const int*>(counts), s_gate, s_up,
+                           s_down, h, out, E, C, D, F, S, stream);
 }

@@ -38,7 +38,7 @@ def _check(x, w_gate, w_up, w_down):
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
     if D % 8 or F % 8:
         raise ValueError(f"D={D} and F={F} must be multiples of 8 "
-                         "(16-byte loads)")
+                         "(16-byte TMA strides)")
 
 
 def expert_ffn(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,

@@ -6,6 +6,8 @@ the card's smoke check holds the kernel against it on the same inputs.
 """
 from __future__ import annotations
 
+from typing import List, Optional, Tuple
+
 import torch
 import torch.nn.functional as F
 
@@ -28,16 +30,66 @@ def expert_ffn_ref(x: torch.Tensor, w_gate: torch.Tensor,
 
 def slot_ffn_ref(x: torch.Tensor, slot_of_expert: torch.Tensor,
                  s_gate: torch.Tensor, s_up: torch.Tensor,
-                 s_down: torch.Tensor) -> torch.Tensor:
+                 s_down: torch.Tensor,
+                 counts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Expert SwiGLU FFN with weights read through the expert -> slot table.
 
     x: (E, C, D) per-expert dispatch buffer; slot_of_expert: (E,) integer
     slots in [0, S); slot buffers (S, D, F) / (S, F, D). Returns (E, C, D)
     float32: `expert_ffn_ref` over the gathered weights, the rounding points
-    of the slot-indirect kernel.
+    of the slot-indirect kernel. With `counts` (E,), the rows of x[e] at or
+    past counts[e] are zeros in the output, whatever x or the weights hold
+    (the kernel leaves them unwritten).
     """
     idx = slot_of_expert.long()
-    return expert_ffn_ref(x, s_gate[idx], s_up[idx], s_down[idx])
+    out = expert_ffn_ref(x, s_gate[idx], s_up[idx], s_down[idx])
+    if counts is None:
+        return out
+    rows = torch.arange(x.shape[1], device=x.device)
+    live = rows[None, :] < counts.to(x.device).long()[:, None]    # (E, C)
+    return torch.where(live[..., None], out, out.new_zeros(()))
+
+
+FFN_BLOCK_M = 128   # rows per tile of the SwiGLU GEMM (csrc/swiglu_gemm.cuh)
+
+
+def _expert_rows(counts, E: int, C: int) -> List[int]:
+    if counts is None:
+        return [C] * E
+    return [min(max(int(c), 0), C) for c in counts]
+
+
+def ffn_tile_schedule(counts, C: int, block_m: int = FFN_BLOCK_M
+                      ) -> List[Tuple[int, int]]:
+    """The (expert, m0) row tiles the SwiGLU GEMM computes for per-expert
+    row counts (each clamped to [0, C]): experts in order, ceil(rows /
+    block_m) tiles each, none for an expert with no rows. Each tile is
+    computed once per column panel."""
+    rows = _expert_rows(counts, len(counts), C)
+    return [(e, m * block_m) for e, r in enumerate(rows)
+            for m in range(-(-r // block_m))]
+
+
+def ffn_block_tiles(counts, E: int, C: int, n_panels: int, block: int,
+                    grid: int, block_m: int = FFN_BLOCK_M
+                    ) -> List[Tuple[int, int, int]]:
+    """Python twin of the SwiGLU GEMM's tile walk (`TileWalker` in
+    csrc/swiglu_gemm.cuh): the (expert, panel, m0) output tiles that block
+    `block` of a persistent grid of `grid` blocks computes, in order. The
+    tile list runs expert by expert, panel by panel, m-tile fastest; block
+    b takes tiles b, b + grid, ... `counts` None means C rows an expert."""
+    m_tiles = [-(-r // block_m) for r in _expert_rows(counts, E, C)]
+    out: List[Tuple[int, int, int]] = []
+    e, start, t = 0, 0, block        # expert e's tiles start at `start`
+    while e < E:
+        if t >= start + m_tiles[e] * n_panels:
+            start += m_tiles[e] * n_panels
+            e += 1
+            continue
+        panel, m = divmod(t - start, m_tiles[e])
+        out.append((e, panel, m * block_m))
+        t += grid
+    return out
 
 
 TOPK_MASK = -1e30   # top-k masking value, as the reference kernel's

@@ -5,9 +5,13 @@ The expert weights live in a bounded slot buffer (S < E slots); an
 tensor `slot_ffn` launches the hand-written Hopper kernel
 (`csrc/slot_ffn.cu`), which chases the table inside the kernel; on a CPU
 tensor it runs the plain version (`kernels.ref.slot_ffn_ref`) with the same
-arithmetic. Any other device raises.
+arithmetic. Any other device raises. With per-expert row counts the kernel
+computes only the rows that hold tokens, and an expert whose count is 0
+(empty, or not resident) reads neither its rows nor its weights.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -15,7 +19,7 @@ from repro_torch.kernels.build import LIBS
 from repro_torch.kernels.ref import slot_ffn_ref
 
 
-def _check(x, slot_of_expert, s_gate, s_up, s_down):
+def _check(x, slot_of_expert, s_gate, s_up, s_down, counts):
     E, C, D = x.shape
     S, D2, F = s_gate.shape
     if D2 != D or tuple(s_up.shape) != (S, D, F) \
@@ -38,24 +42,36 @@ def _check(x, slot_of_expert, s_gate, s_up, s_down):
             or slot_of_expert.device != x.device:
         raise TypeError("slot_of_expert must be a contiguous int32 tensor on "
                         "x's device")
+    if counts is not None and (
+            counts.dtype != torch.int32 or not counts.is_contiguous()
+            or counts.device != x.device or tuple(counts.shape) != (E,)):
+        raise TypeError(f"counts must be a contiguous int32 ({E},) tensor on "
+                        "x's device")
     if D % 8 or F % 8:
         raise ValueError(f"D={D} and F={F} must be multiples of 8 "
-                         "(16-byte loads)")
+                         "(16-byte TMA strides)")
 
 
 def slot_ffn(x: torch.Tensor, slot_of_expert: torch.Tensor,
-             s_gate: torch.Tensor, s_up: torch.Tensor,
-             s_down: torch.Tensor) -> torch.Tensor:
+             s_gate: torch.Tensor, s_up: torch.Tensor, s_down: torch.Tensor,
+             counts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x: (E, C, D) bf16 dispatch buffer; slot_of_expert: (E,) int32 slots in
     [0, S); slot buffers (S, D, F) / (S, F, D) bf16. Returns (E, C, D) fp32.
+
+    `counts`: optional (E,) int32 tensor on x's device, the rows of x[e]
+    that hold tokens (its first counts[e] rows). None computes all C rows,
+    the reference's function exactly. With counts, rows at or past
+    counts[e] are neither read nor written and their output is
+    unspecified (the plain version writes zeros there); an expert with
+    count 0 reads no weights, so its slot entry may point anywhere.
 
     Launches on the current CUDA stream and counts each launch in
     `slot_ffn.launches`."""
     if x.device.type == "cpu":
-        return slot_ffn_ref(x, slot_of_expert, s_gate, s_up, s_down)
+        return slot_ffn_ref(x, slot_of_expert, s_gate, s_up, s_down, counts)
     if x.device.type != "cuda":
         raise ValueError(f"slot_ffn runs on cuda or cpu, not {x.device}")
-    _check(x, slot_of_expert, s_gate, s_up, s_down)
+    _check(x, slot_of_expert, s_gate, s_up, s_down, counts)
     E, C, D = x.shape
     S, _, F = s_gate.shape
     out = torch.empty((E, C, D), dtype=torch.float32, device=x.device)
@@ -65,7 +81,8 @@ def slot_ffn(x: torch.Tensor, slot_of_expert: torch.Tensor,
     lib = LIBS.get("slot_ffn")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.slot_ffn_launch(
-        x.data_ptr(), slot_of_expert.data_ptr(), s_gate.data_ptr(),
+        x.data_ptr(), slot_of_expert.data_ptr(),
+        None if counts is None else counts.data_ptr(), s_gate.data_ptr(),
         s_up.data_ptr(), s_down.data_ptr(), h.data_ptr(), out.data_ptr(),
         E, C, D, F, S, stream)
     if err != 0:

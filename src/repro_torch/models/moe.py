@@ -105,6 +105,13 @@ def compute_dispatch(expert_ids: torch.Tensor, num_experts: int,
     Returns (sorted_token, sorted_expert, position_in_expert, keep_mask,
     order) — all (T*k,). Assignments beyond `capacity` per expert drop.
     """
+    return _dispatch_plan(expert_ids, num_experts, capacity)[:5]
+
+
+def _dispatch_plan(expert_ids: torch.Tensor, num_experts: int,
+                   capacity: int):
+    """`compute_dispatch` plus its (num_experts,) bincount of assignments
+    per expert (before the capacity cut)."""
     T, k = expert_ids.shape
     flat_e = expert_ids.reshape(-1)
     order = torch.argsort(flat_e, stable=True)
@@ -114,7 +121,7 @@ def compute_dispatch(expert_ids: torch.Tensor, num_experts: int,
     starts = torch.cumsum(counts, 0) - counts              # exclusive cumsum
     pos = torch.arange(T * k, device=expert_ids.device) - starts[sorted_e]
     keep = pos < capacity
-    return sorted_tok, sorted_e, pos, keep, order
+    return sorted_tok, sorted_e, pos, keep, order, counts
 
 
 def _dispatch_gather(x: torch.Tensor, group_ids: torch.Tensor, n_groups: int,
@@ -126,13 +133,15 @@ def _dispatch_gather(x: torch.Tensor, group_ids: torch.Tensor, n_groups: int,
     n_groups (the sentinel group): those assignments, like over-capacity
     ones, write to an extra sentinel row that is sliced off.
 
-    Returns (buf, tok, gid, keep, order, flat_slot) where flat_slot indexes
-    rows of buf.reshape(n_groups*capacity, d), valid only where
-    `keep & (gid < n_groups)`.
+    Returns (buf, tok, gid, keep, order, flat_slot, counts) where flat_slot
+    indexes rows of buf.reshape(n_groups*capacity, d), valid only where
+    `keep & (gid < n_groups)`, and counts (n_groups,) are the assignments
+    per group before the capacity cut (group g's rows of buf that hold
+    tokens are its first min(counts[g], capacity)).
     """
     T, d = x.shape
-    tok, gid, pos, keep, order = compute_dispatch(group_ids, n_groups + 1,
-                                                  capacity)
+    tok, gid, pos, keep, order, counts = _dispatch_plan(
+        group_ids, n_groups + 1, capacity)
     pos_c = torch.where(keep, pos, torch.full_like(pos, capacity - 1))
     flat_slot = gid * capacity + pos_c                       # (T*k,)
     rows = n_groups * capacity
@@ -142,7 +151,7 @@ def _dispatch_gather(x: torch.Tensor, group_ids: torch.Tensor, n_groups: int,
     slot_tok[write_idx] = tok
     x_pad = torch.cat([x, x.new_zeros((1, d))], dim=0)
     buf = x_pad[slot_tok[:rows]].reshape(n_groups, capacity, d)
-    return buf, tok, gid, keep, order, flat_slot
+    return buf, tok, gid, keep, order, flat_slot, counts[:n_groups]
 
 
 def _combine_gather(y_flat: torch.Tensor, flat_slot: torch.Tensor,
@@ -168,6 +177,16 @@ def _combine_gather(y_flat: torch.Tensor, flat_slot: torch.Tensor,
     return out
 
 
+def slot_ffn_row_counts(counts: torch.Tensor, slot_of_expert: torch.Tensor,
+                        capacity: int) -> torch.Tensor:
+    """The rows of each expert's dispatch buffer that `slot_ffn` computes:
+    its assignments (`_dispatch_gather`'s counts) cut to `capacity`, and 0
+    where the expert is not resident (slot < 0). (E,) int32 on the device;
+    no host read."""
+    return torch.where(slot_of_expert >= 0, torch.clamp(counts, max=capacity),
+                       0).to(torch.int32)
+
+
 def moe_slotbuf(params, slot_weights, slot_of_expert: torch.Tensor,
                 x: torch.Tensor, moe, capacity: int,
                 router_out: Optional[RouterOutput] = None,
@@ -184,7 +203,11 @@ def moe_slotbuf(params, slot_weights, slot_of_expert: torch.Tensor,
     - bf16 einsum over the slot-grouped buffer (dispatch groups by slot);
     - ``use_kernel=True``: dispatch groups by expert and `slot_ffn` reads
       each expert's weights from its slot (the Hopper kernel on CUDA, its
-      plain version on the CPU).
+      plain version on the CPU). It is given each expert's rows that hold
+      tokens, built on the device (no host read), with 0 for a
+      non-resident expert: the kernel computes only those rows, and a
+      non-resident expert's rows are never written, so the combine reads
+      a row only where the assignment is kept and resident.
     """
     T, d = x.shape
     E, k = moe.num_experts, moe.top_k
@@ -196,18 +219,22 @@ def moe_slotbuf(params, slot_weights, slot_of_expert: torch.Tensor,
     gates = r.gates * resident.float()
 
     if use_kernel:
-        buf, tok, eid, keep, order, flat_slot = _dispatch_gather(
+        buf, tok, eid, keep, order, flat_slot, counts = _dispatch_gather(
             x, r.expert_ids, E, capacity)
+        counts = slot_ffn_row_counts(counts, slot_of_expert, capacity)
+        # clamped, so no entry reads outside the buffer
         slot_valid = torch.clamp(slot_of_expert, min=0).to(torch.int32)
         y = slot_ffn(buf, slot_valid, slot_weights["w_gate"],
-                     slot_weights["w_up"], slot_weights["w_down"])  # (E,C,d)
+                     slot_weights["w_up"], slot_weights["w_down"],
+                     counts=counts)                                 # (E,C,d)
         weight = gates.reshape(-1)[order] * keep.float()
+        valid = keep & resident.reshape(-1)[order]
         out = _combine_gather(y.reshape(E * capacity, d), flat_slot, order,
-                              weight, T, k, valid=keep).to(x.dtype)
+                              weight, T, k, valid=valid).to(x.dtype)
     else:
         slot_ids = torch.where(resident, slot_raw,
                                torch.full_like(slot_raw, n_slots))
-        buf, tok, sid, keep, order, flat_slot = _dispatch_gather(
+        buf, tok, sid, keep, order, flat_slot, _ = _dispatch_gather(
             x, slot_ids, n_slots, capacity)
         g = torch.bmm(buf, slot_weights["w_gate"])
         u = torch.bmm(buf, slot_weights["w_up"])

@@ -381,17 +381,16 @@ class SlotBufferEngine:
     # -- asynchronous swap-ins -------------------------------------------------
     def _wait_slots(self, slot_map: np.ndarray, fused: bool = False) -> None:
         """Make the compute stream wait for pending copies into the slots
-        the next FFN reads: the layer's resident slots, slot 0 (where the
-        `slot_ffn` path points non-resident experts) and, on the einsum
-        path, every slot. `fused_moe_entry` (`fused=True`) routes on the
-        device, so it may read any resident slot of the layer, and never
-        reads an absent expert's."""
+        the next FFN reads: the layer's resident slots and, on the einsum
+        path, every slot. `slot_ffn` is given a row count of 0 for a
+        non-resident expert, so it never reads the slot its table entry is
+        clamped to; `fused_moe_entry` (`fused=True`) routes on the device,
+        so it may read any resident slot of the layer, and never reads an
+        absent expert's."""
         if not self._slot_ready:
             return
         if fused or self.use_kernel:
             read = {int(s) for s in slot_map if s >= 0}
-            if not fused and (slot_map < 0).any():
-                read.add(0)
         else:
             read = set(self._slot_ready)
         stream = torch.cuda.current_stream(self.device)

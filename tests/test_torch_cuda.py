@@ -20,6 +20,7 @@ from repro_torch.kernels.ref import (expert_ffn_ref,
                                      fused_mla_decode_attention_ref,
                                      fused_moe_entry_ref, slot_ffn_ref,
                                      topk_gating_ref)
+from repro_torch.models import moe
 from repro_torch.models.transformer import Model
 from repro_torch.runtime.engine import DecodeState, SlotBufferEngine
 
@@ -69,6 +70,85 @@ def test_slot_ffn_wrapper_rejects_what_the_kernel_does_not_take(gen):
     x2, slot2, wg2, wu2, wd2 = _inputs(gen, 2, 4, 60, 32, 3)
     with pytest.raises(ValueError):
         slot_gather.slot_ffn(x2, slot2, wg2, wu2, wd2)
+
+
+def _routed_inputs(g, B, T, k, E, D, F, S):
+    """A dispatch buffer, clamped slot table and row counts as
+    `moe_slotbuf(use_kernel=True)` builds them, with half the experts
+    resident (routed ones among the absent)."""
+    n = B * T
+    x = torch.randn((n, D), generator=g, device="cuda").bfloat16()
+    _, ids = moe.top_k_first_max(
+        torch.randn((n, E), generator=g, device="cuda"), k)
+    buf, *_, counts = moe._dispatch_gather(x, ids, E, n * k)
+    perm = torch.randperm(S, generator=g, device="cuda")[:E].int()
+    resident = torch.rand(E, generator=g, device="cuda") < 0.5
+    table = torch.where(resident, perm, -1)
+    counts = moe.slot_ffn_row_counts(counts, table, n * k)
+    w = lambda *s: (torch.randn(s, generator=g, device="cuda")  # noqa: E731
+                    * s[-2] ** -0.5).bfloat16()
+    slot = torch.clamp(table, min=0).int()
+    return (buf.contiguous(), slot, w(S, D, F), w(S, D, F), w(S, F, D)), counts
+
+
+@pytest.mark.parametrize("shape", [(4, 1, 8, 64, 2048, 1024, 256),
+                                   (1, 128, 8, 64, 2048, 1024, 256),
+                                   (1, 32, 8, 64, 2048, 1024, 256),
+                                   (1, 5, 2, 3, 96, 40, 4),
+                                   (1, 128, 6, 64, 2048, 1408, 416)],
+                         ids=["decode", "prefill", "chunk", "ragged",
+                              "deepseek_prefill"])
+def test_slot_ffn_kernel_with_counts_matches_plain_version(gen, shape):
+    args, counts = _routed_inputs(gen, *shape)
+    before = slot_gather.slot_ffn.launches
+    got = slot_gather.slot_ffn(*args, counts=counts)
+    again = slot_gather.slot_ffn(*args, counts=counts)
+    every_row = slot_gather.slot_ffn(*args)
+    want = slot_ffn_ref(*args, counts=counts)
+    torch.cuda.synchronize()
+    assert slot_gather.slot_ffn.launches == before + 3
+    live = (torch.arange(args[0].shape[1], device="cuda")[None, :]
+            < counts.long()[:, None])[..., None]
+    assert int(counts.sum()) > 0
+    counted = lambda y: torch.where(live, y, 0)  # noqa: E731
+    torch.testing.assert_close(counted(got), want, rtol=TOL, atol=TOL)
+    assert torch.equal(counted(got), counted(again)), "not deterministic"
+    assert torch.equal(counted(got), counted(every_row)), \
+        "a counted row must not depend on whether the others are computed"
+
+
+def test_moe_slotbuf_kernel_finite_over_nan_filled_memory(gen):
+    """With counts, rows of absent experts and rows past a count are never
+    written: after the caching allocator has been filled with NaN and
+    freed, the kernel path's output is still finite and agrees with the
+    einsum path."""
+    from repro_torch.models.moe import init_moe_params
+    cfg = get_config("olmoe-1b-7b")
+    M, d, T, S = cfg.moe, cfg.d_model, 48, 17
+    p = init_moe_params(d, M, generator=gen, device="cuda")
+    table = torch.full((M.num_experts,), -1, dtype=torch.int32,
+                       device="cuda")
+    live = torch.randperm(M.num_experts, generator=gen,
+                          device="cuda")[:S - 1]
+    table[live] = torch.arange(1, S, dtype=torch.int32, device="cuda")
+    slots = {k: torch.full((S,) + p[k].shape[1:], float("nan"),
+                           dtype=p[k].dtype, device="cuda")
+             for k in ("w_gate", "w_up", "w_down")}
+    for k in slots:
+        slots[k][table[live].long()] = p[k][live]
+    x = torch.randn((T, d), generator=gen, device="cuda").bfloat16()
+    junk = [torch.full((1 << n,), float("nan"), device="cuda")
+            for n in range(10, 27) for _ in range(4)]
+    del junk
+    got, r = moe.moe_slotbuf(p, slots, table, x, M, capacity=T * M.top_k,
+                             use_kernel=True)
+    want, _ = moe.moe_slotbuf(p, slots, table, x, M, capacity=T * M.top_k,
+                              use_kernel=False)
+    torch.cuda.synchronize()
+    assert (table[r.expert_ids] < 0).any(), "no routed expert is absent"
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=5e-2,
+                               atol=5e-2)
 
 
 def test_slot_path_bitwise_vs_oracle_on_the_card(gen):
