@@ -18,7 +18,10 @@ the last line:
    its paths' shapes, with CUDA-event medians of the kernel, the plain
    version and a library yardstick (timed only; the port never calls it),
    and the kernel's bound (the larger of needed bytes / 3.35 TB/s and
-   needed operations over the H100 SXM peak for their type):
+   needed operations over the H100 SXM peak for their type). The five
+   kernels the reference also runs in f32 (all but `topk_gating`, which
+   takes fp32 logits anyway) are checked in f32 too (`f32_*` shapes), to
+   the reference's f32 tolerance, 2e-5:
    - `slot_ffn` at olmoe-1b-7b decode (batch 4), prefill (128 tokens), one
      32-token prefill chunk (every routed expert resident, and 16 of 64
      experts resident as serving meets it) and a ragged shape, and at
@@ -29,17 +32,20 @@ the last line:
      it) and without counts (every row);
    - `fused_moe_entry` at olmoe-1b-7b decode (T=4, 256 slots) with every
      routed expert resident and with 16 resident experts per layer (some
-     routed ones absent), bias zeros and nonzero, and at DeepSeek-V2-Lite
-     decode (T=4, top-6, 416 slots): ids equal, gates within 1e-6, y within
-     2e-2;
+     routed ones absent), bias zeros and nonzero, at DeepSeek-V2-Lite
+     decode (T=4, top-6, 416 slots) and at T=64 (up to 64 rows an expert,
+     each weight panel still read once an expert): ids equal, gates within
+     1e-6, y within 2e-2, with each of its three launches' device time
+     from a `torch.profiler` trace (`launch_split`);
    - `fused_decode_attention` at B=4, Hq=Hkv=16, D=128, S=256 with cache
      lengths 0, 63, 128, 255, a wrapped ring (lengths >= S) and a GQA shape
      (G=4), softcap 0 and 30: new caches bitwise equal, out within 2e-2;
    - `fused_mla_decode_attention` at DeepSeek-V2-Lite decode (B=4, H=16,
      R=512, P=64, S=256) with cache lengths 0, 63, 128, 255 and with every
      row at S - 1: new caches bitwise equal, ctx within 2e-4; its time is
-     the kernel's, and the wrapper's (which also reads the lengths back to
-     check them) is printed beside it;
+     the kernel's, printed beside the wrapper's with the host bound the
+     serving path passes (`max_len`, no device read) and without it
+     (reading the lengths back), and the kernel's device time (profiler);
    - `topk_gating` at (T, E, k) = (4, 64, 8), (512, 64, 8), (512, 64, 6),
      (33, 128, 8), (256, 256, 8), (7, 8, 8) and with exactly tied logits:
      ids equal, gates within 1e-6 abs / 1e-5 rel;
@@ -100,6 +106,12 @@ the last line:
 
 Exits with code 2 and prints no result without a CUDA device or outside a
 checkout of the repository.
+
+    python3 chip_smoke.py --kernels[=name,name]
+
+runs phases 1-3 only (all six kernels, or the named ones), writes
+`chiprun_out/chip_smoke_kernels.json` and prints no result: the quick call
+for kernel work.
 """
 import gc
 import json
@@ -115,6 +127,7 @@ H100_BYTES_PER_S = 3.35e12        # HBM3, H100 SXM data sheet
 H100_BF16_FLOP_PER_S = 989e12     # dense bf16 tensor cores, H100 SXM
 H100_FP32_FLOP_PER_S = 67e12      # fp32 outside the tensor cores, H100 SXM
 TOL = 2e-2
+TOL_F32 = 2e-5     # the f32 paths: the reference's own f32 tolerance
 TOL_GATES = 1e-6
 NEAR_TIE = 5e-2
 SEED = 0
@@ -151,6 +164,31 @@ def time_ms(torch, fn, reps=5, inner=5):
         e.synchronize()
         out.append(s.elapsed_time(e) / inner)
     return statistics.median(out)
+
+
+def launch_split(torch, fn, reps=20):
+    """Device time of each CUDA kernel that one call of `fn` launches, ms
+    per call, from a `torch.profiler` trace of `reps` calls after a
+    warm-up: {kernel: ms}, in launch order; {} where the profiler saw no
+    device time."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for ev in sorted(prof.events(), key=lambda e: e.time_range.start):
+        t = (ev.device_time_total
+             if ev.device_type == torch.autograd.DeviceType.CUDA else 0)
+        m = re.search(r"(\w+_kernel)(<[^>(]*>)?", ev.name)
+        if t <= 0 or not m:
+            continue
+        name = m.group(1) + (m.group(2) or "").replace(" ", "")
+        split[name] = split.get(name, 0.0) + t / reps / 1e3
+    return split
 
 
 def bound(nbytes, ops):
@@ -277,10 +315,22 @@ def slot_ffn_phase(torch, moe_mod, slot_gather, ref, g):
         # a chunk as serving meets it: 16 of the 64 experts resident
         "chunk_16_resident": dict(B=1, T=CHUNK, k=8, E=64, D=2048, F=1024,
                                   S=256, resident_frac=0.0, n_resident=16),
+        # the f32 path (the reference runs slot_ffn in f32 too)
+        "f32_decode": dict(B=4, T=1, k=8, E=64, D=2048, F=1024, S=256,
+                           resident_frac=0.25, f32=True),
+        "f32_ragged": dict(B=1, T=5, k=2, E=3, D=96, F=40, S=4,
+                           resident_frac=1.0, f32=True),
     }
     results = {}
     for name, sh in shapes.items():
+        f32 = sh.pop("f32", False)
         args, counts, routed_slots = slot_ffn_inputs(torch, moe_mod, g, **sh)
+        if f32:
+            args = tuple(a.float() if a.is_floating_point() else a
+                         for a in args)
+        tol = TOL_F32 if f32 else TOL
+        isz = args[0].element_size()
+        peak = H100_FP32_FLOP_PER_S if f32 else H100_BF16_FLOP_PER_S
         x = args[0]
         E, C, D = x.shape
         F = args[2].shape[-1]
@@ -297,10 +347,10 @@ def slot_ffn_phase(torch, moe_mod, slot_gather, ref, g):
         counted = lambda y: torch.where(live, y, 0)  # noqa: E731
         err = float((counted(got) - want).abs().max())
         err_all = float((got_all - want_all).abs().max())
-        check(torch.allclose(counted(got), want, rtol=TOL, atol=TOL),
+        check(torch.allclose(counted(got), want, rtol=tol, atol=tol),
               f"slot_ffn with counts disagrees with its plain version at "
               f"{name}: max |err| {err}")
-        check(torch.allclose(got_all, want_all, rtol=TOL, atol=TOL),
+        check(torch.allclose(got_all, want_all, rtol=tol, atol=tol),
               f"slot_ffn disagrees with its plain version at {name}: "
               f"max |err| {err_all}")
         check(torch.equal(counted(got), counted(again))
@@ -309,17 +359,17 @@ def slot_ffn_phase(torch, moe_mod, slot_gather, ref, g):
               f"all-rows call at {name}")
         rows = int(counts.sum())                      # rows holding tokens
         distinct = int(torch.unique(routed_slots).numel())
-        w_bytes = distinct * 3 * D * F * 2
-        b_ms, b_by = bound(rows * D * (2 + 4) + E * 8 + w_bytes,
-                           [(2 * 3 * D * F * rows, H100_BF16_FLOP_PER_S)])
+        w_bytes = distinct * 3 * D * F * isz
+        b_ms, b_by = bound(rows * D * (isz + 4) + E * 8 + w_bytes,
+                           [(2 * 3 * D * F * rows, peak)])
         # the all-rows figure: every row of the buffer read and written
-        b_all_ms, _ = bound(x.numel() * 2 + E * C * D * 4 + E * 4 + w_bytes,
-                            [(2 * 3 * D * F * rows, H100_BF16_FLOP_PER_S)])
-        dense_ms = 2 * 3 * D * F * E * C / H100_BF16_FLOP_PER_S * 1e3
+        b_all_ms, _ = bound(x.numel() * isz + E * C * D * 4 + E * 4 + w_bytes,
+                            [(2 * 3 * D * F * rows, peak)])
+        dense_ms = 2 * 3 * D * F * E * C / peak * 1e3
         heavy = E * C * D > 2 ** 26
         r = {
             "shape": {"E": E, "C": C, "D": D, "F": F,
-                      "S": args[2].shape[0]},
+                      "S": args[2].shape[0]}, "dtype": str(x.dtype),
             "max_abs_err": max(err, err_all),
             "max_abs_err_counted_rows": err,
             "max_abs_err_all_rows": err_all,
@@ -357,11 +407,19 @@ def moe_entry_phase(torch, dsk, ref, g):
     results.update(moe_entry_cases(torch, dsk, ref, g, T=4, d=2048, E=64,
                                    k=6, f=1408, S=416, prefix="deepseek_",
                                    only_all_routed=True))
+    # 64 tokens: up to 512 rows over the 64 experts
+    results.update(moe_entry_cases(torch, dsk, ref, g, T=64, d=2048, E=64,
+                                   k=8, f=1024, S=256, prefix="t64_",
+                                   only_all_routed=True))
+    # the f32 path (the reference runs fused_moe_entry in f32 too)
+    results.update(moe_entry_cases(torch, dsk, ref, g, T=4, d=2048, E=64,
+                                   k=8, f=1024, S=256, prefix="f32_",
+                                   only_all_routed=True, f32=True))
     return results
 
 
 def moe_entry_cases(torch, dsk, ref, g, *, T, d, E, k, f, S, prefix,
-                    only_all_routed=False):
+                    only_all_routed=False, f32=False):
     import torch.nn.functional as Fn
     dev = "cuda"
 
@@ -377,10 +435,12 @@ def moe_entry_cases(torch, dsk, ref, g, *, T, d, E, k, f, S, prefix,
         part = torch.bmm(h, sd[slot])[:, 0].float().view(T, k, d)
         return (part * gates[..., None]).sum(1)
 
+    dt = torch.float32 if f32 else torch.bfloat16
+    tol = TOL_F32 if f32 else TOL
     w = lambda *s: (torch.randn(s, generator=g, device=dev)  # noqa: E731
-                    * s[-2] ** -0.5).to(torch.bfloat16)
+                    * s[-2] ** -0.5).to(dt)
     sg, su, sd = w(S, d, f), w(S, d, f), w(S, f, d)
-    x = torch.randn((T, d), generator=g, device=dev).to(torch.bfloat16)
+    x = torch.randn((T, d), generator=g, device=dev).to(dt)
     rw = torch.randn((d, E), generator=g, device=dev) * d ** -0.5
     perm = torch.randperm(S, generator=g, device=dev)[:E].to(torch.int32)
     probs = torch.softmax(x.float() @ rw, dim=-1)
@@ -412,19 +472,21 @@ def moe_entry_cases(torch, dsk, ref, g, *, T, d, E, k, f, S, prefix,
         check(torch.equal(ids, ir), f"fused_moe_entry ids differ at {name}")
         check(float((gates - gr).abs().max()) <= TOL_GATES,
               f"fused_moe_entry gates differ at {name}")
-        check(torch.allclose(y, yr, rtol=TOL, atol=TOL),
+        check(torch.allclose(y, yr, rtol=tol, atol=tol),
               f"fused_moe_entry y disagrees at {name}: max |err| {err}")
         check(torch.equal(y, y2), "fused_moe_entry not deterministic")
         live = soe[ids.long()] >= 0
         pairs = int(live.sum())
         distinct = int(torch.unique(ids[live]).numel())
-        nbytes = (x.numel() * 2 + rw.numel() * 4 + E * 4 + E * 4
-                  + distinct * 3 * d * f * 2 + T * d * 4 + T * k * 8)
+        isz = x.element_size()
+        nbytes = (x.numel() * isz + rw.numel() * 4 + E * 4 + E * 4
+                  + distinct * 3 * d * f * isz + T * d * 4 + T * k * 8)
         b_ms, b_by = bound(nbytes, [(2 * 3 * d * f * pairs,
-                                     H100_BF16_FLOP_PER_S),
+                                     H100_FP32_FLOP_PER_S if f32
+                                     else H100_BF16_FLOP_PER_S),
                                     (2 * T * d * E, H100_FP32_FLOP_PER_S)])
         r = {"shape": {"T": T, "d": d, "E": E, "k": k, "f": f, "S": S},
-             "resident": int(resident.sum()), "routed_resident_pairs": pairs,
+             "dtype": str(dt), "resident": int(resident.sum()), "routed_resident_pairs": pairs,
              "distinct_routed_resident": distinct,
              "max_abs_err": err,
              "ms": time_ms(torch, lambda: dsk.fused_moe_entry(*args,
@@ -432,12 +494,15 @@ def moe_entry_cases(torch, dsk, ref, g, *, T, d, E, k, f, S, prefix,
              "plain_ms": time_ms(torch, lambda: ref.fused_moe_entry_ref(
                  *args, top_k=k), reps=3, inner=2),
              "library_ms": time_ms(torch, lambda: library(*args)),
-             "bound_ms": b_ms, "bound_by": b_by}
+             "bound_ms": b_ms, "bound_by": b_by,
+             "launch_split_ms": launch_split(
+                 torch, lambda: dsk.fused_moe_entry(*args, top_k=k))}
         results[name] = r
         log(f"kernel fused_moe_entry {name}: {distinct} distinct routed "
             f"resident experts ({pairs} pairs), max|err| {err:.3g}, kernel "
             f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, route+gather+"
-            f"bmm {r['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+            f"bmm {r['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+            f"per launch (profiler, ms) {r['launch_split_ms']}")
     del sg, su, sd
     torch.cuda.empty_cache()
     return results
@@ -466,11 +531,16 @@ def attention_phase(torch, dsk, ref, g):
 
     cases = {"decode": (16, 16, [0, 63, 128, 255]),
              "wrapped": (16, 16, [256, 300, 511, 1000]),
-             "gqa_G4": (16, 4, [17, 255, 0, 90])}
+             "gqa_G4": (16, 4, [17, 255, 0, 90]),
+             # the f32 path (the reference runs it in f32 too)
+             "f32_decode": (16, 16, [0, 63, 128, 255])}
     results = {}
     for name, (Hq, Hkv, clens) in cases.items():
+        f32 = name.startswith("f32")
+        dt = torch.float32 if f32 else torch.bfloat16
+        tol = TOL_F32 if f32 else TOL
         r16 = lambda *s: torch.randn(s, generator=g,  # noqa: E731
-                                     device=dev).to(torch.bfloat16)
+                                     device=dev).to(dt)
         args = (r16(B, 1, Hq, D), r16(B, 1, Hkv, D), r16(B, 1, Hkv, D),
                 r16(B, S, Hkv, D), r16(B, S, Hkv, D),
                 torch.tensor(clens, device=dev))
@@ -484,18 +554,19 @@ def attention_phase(torch, dsk, ref, g):
             check(torch.equal(k2, kr) and torch.equal(v2, vr),
                   f"fused_decode_attention caches differ at {name}")
             e = float((o.float() - orf.float()).abs().max())
-            check(e <= TOL, f"fused_decode_attention out disagrees at {name}"
+            check(e <= tol, f"fused_decode_attention out disagrees at {name}"
                             f" softcap {cap}: max |err| {e}")
             check(torch.equal(o, o2), "fused_decode_attention not "
                                       "deterministic")
             err = max(err, e)
         valid = sum(min(c + 1, S) for c in clens)
-        nbytes = (4 * B * S * Hkv * D * 2 + B * Hq * D * 2 * 2
-                  + 2 * B * Hkv * D * 2 + B * 8)
+        isz = args[0].element_size()
+        nbytes = (4 * B * S * Hkv * D * isz + B * Hq * D * isz * 2
+                  + 2 * B * Hkv * D * isz + B * 8)
         b_ms, b_by = bound(nbytes, [(4 * Hq * D * valid,
                                      H100_FP32_FLOP_PER_S)])
         r = {"shape": {"B": B, "Hq": Hq, "Hkv": Hkv, "D": D, "S": S,
-                       "cache_len": clens},
+                       "cache_len": clens}, "dtype": str(dt),
              "max_abs_err": err,
              "ms": time_ms(torch, lambda: dsk.fused_decode_attention(*args)),
              "plain_ms": time_ms(torch, lambda:
@@ -535,13 +606,19 @@ def mla_phase(torch, dsk, ref, g):
             attn_mask=mask[:, None, None, :], scale=scale)
         return ctx[:, :, 0], lat2, pe2
 
-    cases = {"decode": [0, 63, 128, 255], "full": [S - 1] * B}
+    cases = {"decode": [0, 63, 128, 255], "full": [S - 1] * B,
+             # the f32 path: f32 caches (the reference runs it in f32 too)
+             "f32_decode": [0, 63, 128, 255]}
     results = {}
     for name, clens in cases.items():
+        f32 = name.startswith("f32")
+        dt = torch.float32 if f32 else torch.bfloat16
+        tol = TOL_F32 if f32 else TOL_CTX
         f = lambda *s: torch.randn(s, generator=g, device=dev)  # noqa: E731
-        args = (f(B, H, R) * 0.05, f(B, H, P) * 0.05, f(B, R).bfloat16(),
-                f(B, P).bfloat16(), f(B, S, R).bfloat16(),
-                f(B, S, P).bfloat16(), torch.tensor(clens, device=dev))
+        args = (f(B, H, R) * 0.05, f(B, H, P) * 0.05, f(B, R).to(dt),
+                f(B, P).to(dt), f(B, S, R).to(dt), f(B, S, P).to(dt),
+                torch.tensor(clens, device=dev))
+        max_len = max(clens)
         ctx, lat, pe = dsk.fused_mla_decode_attention(*args, scale=scale)
         ctx2, _, _ = dsk.fused_mla_decode_attention(*args, scale=scale)
         cr, lr, pr = ref.fused_mla_decode_attention_ref(*args, scale=scale)
@@ -550,32 +627,47 @@ def mla_phase(torch, dsk, ref, g):
         check(torch.equal(lat, lr) and torch.equal(pe, pr),
               f"fused_mla_decode_attention caches differ at {name}")
         err = float((ctx - cr).abs().max())
-        check(err <= TOL_CTX, f"fused_mla_decode_attention ctx disagrees at "
-                              f"{name}: max |err| {err}")
+        check(err <= tol, f"fused_mla_decode_attention ctx disagrees at "
+                          f"{name}: max |err| {err}")
+        # the serving path's call: the host's bound, no device read
+        ctx3, lat3, pe3 = dsk.fused_mla_decode_attention(
+            *args, scale=scale, max_len=max_len)
+        torch.cuda.synchronize()
+        check(torch.equal(ctx3, ctx) and torch.equal(lat3, lat)
+              and torch.equal(pe3, pe), "fused_mla_decode_attention with "
+              "max_len differs from the checked call")
         check(torch.equal(ctx, ctx2), "fused_mla_decode_attention not "
                                       "deterministic")
         lib_err = float((cl - cr).abs().max())
         valid = sum(c + 1 for c in clens)
-        nbytes = (2 * B * S * (R + P) * 2 + B * H * (R + P) * 4
-                  + B * (R + P) * 2 + B * H * R * 4 + B * 8)
+        isz = args[4].element_size()
+        nbytes = (2 * B * S * (R + P) * isz + B * H * (R + P) * 4
+                  + B * (R + P) * isz + B * H * R * 4 + B * 8)
         b_ms, b_by = bound(nbytes, [(2 * H * (2 * R + P) * valid,
                                      H100_FP32_FLOP_PER_S)])
         r = {"shape": {"B": B, "H": H, "R": R, "P": P, "S": S,
-                       "cache_len": clens},
+                       "cache_len": clens}, "dtype": str(dt),
              "max_abs_err": err, "library_max_abs_err": lib_err,
              "ms": time_ms(torch, lambda: dsk._launch_mla(*args, scale)),
              "wrapper_ms": time_ms(torch, lambda: dsk.
                                    fused_mla_decode_attention(
                                        *args, scale=scale)),
+             "wrapper_host_bound_ms": time_ms(
+                 torch, lambda: dsk.fused_mla_decode_attention(
+                     *args, scale=scale, max_len=max_len)),
              "plain_ms": time_ms(torch, lambda:
                                  ref.fused_mla_decode_attention_ref(
                                      *args, scale=scale)),
              "library_ms": time_ms(torch, lambda: library(*args)),
-             "bound_ms": b_ms, "bound_by": b_by}
+             "bound_ms": b_ms, "bound_by": b_by,
+             "launch_split_ms": launch_split(
+                 torch, lambda: dsk._launch_mla(*args, scale))}
         results[name] = r
         log(f"kernel fused_mla_decode_attention {name} {r['shape']}: max|err|"
-            f" {err:.3g}, kernel {r['ms']:.4f} ms (through the wrapper "
-            f"{r['wrapper_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
+            f" {err:.3g}, kernel {r['ms']:.4f} ms (through the wrapper: "
+            f"{r['wrapper_host_bound_ms']:.4f} ms with the host bound, "
+            f"{r['wrapper_ms']:.4f} ms reading the lengths back; profiler "
+            f"{r['launch_split_ms']}), plain {r['plain_ms']:.4f} ms, "
             f"clone+insert+sdpa {r['library_ms']:.4f} ms (max|err| "
             f"{lib_err:.3g}), bound {b_ms:.4f} ms ({b_by})")
     return results
@@ -651,12 +743,17 @@ def expert_ffn_phase(torch, ops, ref, g):
         return torch.bmm(h, wd).float()
 
     cases = {"olmoe": (64, 128, 2048, 1024), "deepseek": (64, 128, 2048, 1408),
-             "ragged": (3, 40, 64, 48)}
+             "ragged": (3, 40, 64, 48),
+             # the f32 path (the reference runs expert_ffn in f32 too)
+             "f32_olmoe": (64, 128, 2048, 1024), "f32_ragged": (3, 40, 64, 48)}
     results = {}
     for name, (E, C, D, F) in cases.items():
-        x = torch.randn((E, C, D), generator=g, device=dev).bfloat16()
+        f32 = name.startswith("f32")
+        dt = torch.float32 if f32 else torch.bfloat16
+        tol = TOL_F32 if f32 else TOL
+        x = torch.randn((E, C, D), generator=g, device=dev).to(dt)
         w = lambda *s: (torch.randn(s, generator=g, device=dev)  # noqa: E731
-                        * s[-2] ** -0.5).bfloat16()
+                        * s[-2] ** -0.5).to(dt)
         args = (x, w(E, D, F), w(E, D, F), w(E, F, D))
         got = ops.expert_ffn(*args)
         again = ops.expert_ffn(*args)
@@ -665,17 +762,20 @@ def expert_ffn_phase(torch, ops, ref, g):
         via_slots = ops.slot_ffn(args[0], ident, *args[1:])
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
-        check(torch.allclose(got, want, rtol=TOL, atol=TOL),
+        check(torch.allclose(got, want, rtol=tol, atol=tol),
               f"expert_ffn disagrees at {name}: max |err| {err}")
         check(torch.equal(got, again), "expert_ffn not deterministic")
         check(torch.equal(got, via_slots),
               f"slot_ffn under the identity table differs from expert_ffn "
               f"at {name}")
-        nbytes = E * C * D * 2 + 3 * E * D * F * 2 + E * C * D * 4
+        isz = x.element_size()
+        nbytes = E * C * D * isz + 3 * E * D * F * isz + E * C * D * 4
         b_ms, b_by = bound(nbytes, [(6 * E * C * D * F,
-                                     H100_BF16_FLOP_PER_S)])
+                                     H100_FP32_FLOP_PER_S if f32
+                                     else H100_BF16_FLOP_PER_S)])
         heavy = E * C * D > 2 ** 23
-        r = {"shape": {"E": E, "C": C, "D": D, "F": F}, "max_abs_err": err,
+        r = {"shape": {"E": E, "C": C, "D": D, "F": F}, "dtype": str(dt),
+             "max_abs_err": err,
              "slot_ffn_identity_bitwise": True,
              "ms": time_ms(torch, lambda: ops.expert_ffn(*args)),
              "plain_ms": time_ms(torch, lambda: ref.expert_ffn_ref(*args),
@@ -1052,7 +1152,19 @@ def stream_partings(torch, np, eng, reqs, prompts, prefill_fn, step_fn,
     return parts
 
 
-def main() -> int:
+def main(argv) -> int:
+    only = None            # --kernels[=a,b]: phases 1-3 only, no result
+    for a in argv:
+        if a == "--kernels" or a.startswith("--kernels="):
+            only = [n for n in a.partition("=")[2].split(",") if n]
+            bad = set(only) - set(KERNELS)
+            if bad:
+                print(f"chip_smoke: unknown kernels {sorted(bad)}",
+                      file=sys.stderr)
+                return 2
+        else:
+            print(f"chip_smoke: unknown argument {a}", file=sys.stderr)
+            return 2
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -1094,13 +1206,23 @@ def main() -> int:
 
     # ---- phase 3: kernels against their plain versions ----------------------
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    kres = {"slot_ffn": slot_ffn_phase(torch, moe_mod, slot_gather, ref, g),
-            "fused_moe_entry": moe_entry_phase(torch, dsk, ref, g),
-            "fused_decode_attention": attention_phase(torch, dsk, ref, g),
-            "fused_mla_decode_attention": mla_phase(torch, dsk, ref, g),
-            "topk_gating": topk_phase(torch, ops, ref, g),
-            "expert_ffn": expert_ffn_phase(torch, ops, ref, g)}
+    phases = {
+        "slot_ffn": lambda: slot_ffn_phase(torch, moe_mod, slot_gather, ref,
+                                           g),
+        "fused_moe_entry": lambda: moe_entry_phase(torch, dsk, ref, g),
+        "fused_decode_attention": lambda: attention_phase(torch, dsk, ref, g),
+        "fused_mla_decode_attention": lambda: mla_phase(torch, dsk, ref, g),
+        "topk_gating": lambda: topk_phase(torch, ops, ref, g),
+        "expert_ffn": lambda: expert_ffn_phase(torch, ops, ref, g)}
+    kres = {n: phases[n]() for n in only or KERNELS}
     log(f"kernels done at {time.perf_counter() - t_start:.1f} s")
+    if only is not None:
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_kernels.json").write_text(json.dumps(
+            {"gpu": smi[0], "kernels": kres, "build": build_info}, indent=1))
+        log("--kernels: phases 4-8 skipped, no result")
+        return 0
 
     # ---- phase 4: the kernel API, the path of topk_gating and expert_ffn ----
     launches = {"kernel API": dict.fromkeys(KERNELS, 0)}
@@ -1182,4 +1304,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

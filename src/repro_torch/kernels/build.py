@@ -31,19 +31,22 @@ _F = ctypes.c_float
 # kernel name -> (source file, {C symbol: argtypes})
 KERNELS: Dict[str, Tuple[str, Dict[str, list]]] = {
     "slot_ffn": ("slot_ffn.cu", {
-        "slot_ffn_launch": [_P] * 8 + [_I] * 5 + [_P]}),
+        "slot_ffn_launch": [_P] * 8 + [_I] * 5 + [_P],
+        "slot_ffn_f32_launch": [_P] * 8 + [_I] * 5 + [_P]}),
     "fused_moe_entry": ("fused_moe_entry.cu", {
-        "fused_moe_entry_launch": [_P] * 13 + [_I] * 7 + [_P]}),
+        "fused_moe_entry_launch": [_P] * 11 + [_I] * 8 + [_P],
+        "fused_moe_entry_scratch_bytes": [_I] * 6}),
     "fused_decode_attention": ("fused_decode_attention.cu", {
         "fused_decode_attention_launch": [_P] * 6 + [_I] + [_P] * 3
-        + [_I] * 5 + [_F, _F, _P]}),
+        + [_I] * 5 + [_F, _F, _I, _P]}),
     "fused_mla_decode_attention": ("fused_mla_decode_attention.cu", {
         "fused_mla_decode_attention_launch": [_P] * 7 + [_I] + [_P] * 3
-        + [_I] * 5 + [_F, _P]}),
+        + [_I] * 5 + [_F, _I, _P]}),
     "topk_gating": ("topk_gating.cu", {
         "topk_gating_launch": [_P, _I, _P, _P, _I, _I, _I, _I, _P]}),
     "expert_ffn": ("expert_ffn.cu", {
-        "expert_ffn_launch": [_P] * 6 + [_I] * 4 + [_P]}),
+        "expert_ffn_launch": [_P] * 6 + [_I] * 4 + [_P],
+        "expert_ffn_f32_launch": [_P] * 6 + [_I] * 4 + [_P]}),
 }
 
 

@@ -1,4 +1,4 @@
-// Grouped expert SwiGLU FFN for Hopper (sm_90a), bf16 in, fp32 out.
+// Grouped expert SwiGLU FFN for Hopper (sm_90a), bf16 or f32 in, fp32 out.
 //
 // Replaces the TPU kernel `repro/kernels/moe_gemm.py::expert_ffn`
 // (`_ffn_kernel`, pallas_call at moe_gemm.py:50): for every expert e
@@ -29,9 +29,9 @@
 // - The TPU kernel asks C to divide by block_c and F by block_f (its VMEM
 //   tiling). Here any C >= 1 works (rows are masked) and D, F need only be
 //   multiples of 8 (16-byte TMA strides); TMA zero-fills the ragged tails.
-// - bf16 only: every path of the port runs bf16 experts. The TPU kernel
-//   also takes f32; on the card the wrapper raises for it (the plain
-//   version serves f32 on the CPU).
+// - f32: the reference kernel also runs in f32 (to 2e-5). TF32 wgmma would
+//   miss that, so f32 takes `swiglu_f32.cuh`, a CUDA-core GEMM over the same
+//   tile walk (`expert_ffn_f32_launch`).
 //
 // C interface (bound with ctypes): expert_ffn_launch returns
 // cudaGetLastError() after enqueueing both launches on `stream`
@@ -39,7 +39,7 @@
 // nothing: the caller passes the bf16 (E, C, F) scratch `h` and the fp32
 // output.
 
-#include "swiglu_gemm.cuh"
+#include "swiglu_f32.cuh"  // includes swiglu_gemm.cuh
 
 extern "C" int expert_ffn_launch(const void* x, const void* w_gate,
                                  const void* w_up, const void* w_down,
@@ -47,4 +47,14 @@ extern "C" int expert_ffn_launch(const void* x, const void* w_gate,
                                  int F, void* stream) {
   return swiglu_ffn_launch(x, nullptr, nullptr, w_gate, w_up, w_down, h, out,
                            E, C, D, F, E, stream);
+}
+
+// The f32 path (`swiglu_f32.cuh`): x and the weights fp32, h the fp32
+// (E, C, F) scratch.
+extern "C" int expert_ffn_f32_launch(const void* x, const void* w_gate,
+                                     const void* w_up, const void* w_down,
+                                     void* h, void* out, int E, int C, int D,
+                                     int F, void* stream) {
+  return swiglu_ffn_f32_launch(x, nullptr, nullptr, w_gate, w_up, w_down, h,
+                               out, E, C, D, F, E, stream);
 }

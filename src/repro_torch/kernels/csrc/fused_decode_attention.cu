@@ -1,5 +1,5 @@
 // One-token GQA decode attention with the KV ring insert, for Hopper
-// (sm_90a), bf16 in and out.
+// (sm_90a), bf16 or f32 in and out (one kernel template for each).
 //
 // Replaces the TPU kernel
 // `repro/kernels/decode_superkernel.py::fused_decode_attention`
@@ -8,7 +8,8 @@
 //     k_out = k_cache with row (c % S) replaced by k_new   (v likewise)
 //     out   = softmax_{pos < min(c + 1, S)}(
 //                 softcap((q * D^-1/2) . k_out[pos])) @ v_out
-// scores, softmax and the weighted sum in fp32; out rounded to bf16.
+// scores, softmax and the weighted sum in fp32; out rounded to the input
+// type (no rounding for f32, which the reference also runs, to 2e-5).
 //
 // Design.
 // - One block per (kv head, row): B * Hkv blocks (64 at olmoe-1b-7b's decode
@@ -39,13 +40,12 @@
 // cudaGetLastError() after enqueueing the kernel on `stream`. cache_len is
 // int64, read at b * clen_stride (stride 0: one length for every row).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "dtype.cuh"
 
-typedef __nv_bfloat16 bf16;
+namespace {
 
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
@@ -55,16 +55,17 @@ constexpr int MAX_D = 256;        // head dim
 constexpr int D_PER_THREAD = MAX_D / THREADS;
 constexpr float NEG_INF = -1073741824.0f;   // -2^30, as the reference
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-    gqa_decode_kernel(const bf16* __restrict__ q,
-                      const bf16* __restrict__ k_new,
-                      const bf16* __restrict__ v_new,
-                      const bf16* __restrict__ k_cache,
-                      const bf16* __restrict__ v_cache,
+    gqa_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
+                      const T* __restrict__ v_new,
+                      const T* __restrict__ k_cache,
+                      const T* __restrict__ v_cache,
                       const int64_t* __restrict__ cache_len, int clen_stride,
-                      bf16* __restrict__ out, bf16* __restrict__ k_out,
-                      bf16* __restrict__ v_out, int S, int Hkv, int G, int D,
+                      T* __restrict__ out, T* __restrict__ k_out,
+                      T* __restrict__ v_out, int S, int Hkv, int G, int D,
                       float scale, float softcap) {
+  constexpr int VEC = Vec<T>::N;
   __shared__ float q_s[MAX_G][MAX_D];
   __shared__ float s_s[MAX_G][BLOCK_S];
 
@@ -81,10 +82,10 @@ __global__ void __launch_bounds__(THREADS)
   const int64_t new_base = (static_cast<int64_t>(b) * Hkv + h) * D;
 
   // ---- 1. new caches = old caches with row `ins` from k_new / v_new -----
-  const int vecs = D / 8;
+  const int vecs = D / VEC;
   for (int i = tid; i < S * vecs; i += THREADS) {
     const int pos = i / vecs;
-    const int c = (i - pos * vecs) * 8;
+    const int c = (i - pos * vecs) * VEC;
     const int64_t off = base + pos * pos_stride + c;
     const bool is_new = pos == ins;
     const uint4 kv = *reinterpret_cast<const uint4*>(
@@ -100,8 +101,7 @@ __global__ void __launch_bounds__(THREADS)
   for (int i = tid; i < G * D; i += THREADS) {
     const int g = i / D;
     const int d = i - g * D;
-    q_s[g][d] = __bfloat162float(
-                    q[(static_cast<int64_t>(b) * Hq + h * G + g) * D + d]) *
+    q_s[g][d] = to_f(q[(static_cast<int64_t>(b) * Hq + h * G + g) * D + d]) *
                 scale;
   }
   float m[MAX_G], l[MAX_G], acc[MAX_G][D_PER_THREAD];
@@ -124,13 +124,13 @@ __global__ void __launch_bounds__(THREADS)
           for (int g = 0; g < G; ++g) s_s[g][j] = NEG_INF;
         continue;
       }
-      const bf16* krow = pos == ins ? k_new + new_base
-                                    : k_cache + base + pos * pos_stride;
+      const T* krow = pos == ins ? k_new + new_base
+                                 : k_cache + base + pos * pos_stride;
       float part[MAX_G];
 #pragma unroll
       for (int g = 0; g < MAX_G; ++g) part[g] = 0.f;
       for (int d = lane; d < D; d += 32) {
-        const float kf = __bfloat162float(krow[d]);
+        const float kf = to_f(krow[d]);
 #pragma unroll
         for (int g = 0; g < MAX_G; ++g)
           if (g < G) part[g] += q_s[g][d] * kf;
@@ -182,9 +182,9 @@ __global__ void __launch_bounds__(THREADS)
       for (int j = 0; j < n; ++j) {
         const int pos = c0 + j;
         if (pos >= valid) break;
-        const bf16* vrow = pos == ins ? v_new + new_base
-                                      : v_cache + base + pos * pos_stride;
-        const float vf = __bfloat162float(vrow[d]);
+        const T* vrow = pos == ins ? v_new + new_base
+                                   : v_cache + base + pos * pos_stride;
+        const float vf = to_f(vrow[d]);
 #pragma unroll
         for (int g = 0; g < MAX_G; ++g)
           if (g < G) pv[g] += s_s[g][j] * vf;
@@ -204,27 +204,41 @@ __global__ void __launch_bounds__(THREADS)
     for (int g = 0; g < MAX_G; ++g) {
       if (g >= G) break;
       out[(static_cast<int64_t>(b) * Hq + h * G + g) * D + d] =
-          __float2bfloat16(acc[g][r] / fmaxf(l[g], 1e-20f));
+          from_f<T>(acc[g][r] / fmaxf(l[g], 1e-20f));
     }
   }
 }
 
+template <typename T>
+int launch(const void* q, const void* k_new, const void* v_new,
+           const void* k_cache, const void* v_cache, const void* cache_len,
+           int clen_stride, void* out, void* k_out, void* v_out, int B, int S,
+           int Hkv, int G, int D, float scale, float softcap,
+           cudaStream_t stream) {
+  gqa_decode_kernel<T><<<dim3(Hkv, B), THREADS, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k_new),
+      static_cast<const T*>(v_new), static_cast<const T*>(k_cache),
+      static_cast<const T*>(v_cache), static_cast<const int64_t*>(cache_len),
+      clen_stride, static_cast<T*>(out), static_cast<T*>(k_out),
+      static_cast<T*>(v_out), S, Hkv, G, D, scale, softcap);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
+// f32: 1 for float tensors, 0 for bf16.
 extern "C" int fused_decode_attention_launch(
     const void* q, const void* k_new, const void* v_new, const void* k_cache,
     const void* v_cache, const void* cache_len, int clen_stride, void* out,
     void* k_out, void* v_out, int B, int S, int Hkv, int G, int D,
-    float scale, float softcap, void* stream) {
+    float scale, float softcap, int f32, void* stream) {
   if (G < 1 || G > MAX_G || D < 8 || D > MAX_D || D % 8 || S < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(Hkv, B);
-  gqa_decode_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k_new),
-      static_cast<const bf16*>(v_new), static_cast<const bf16*>(k_cache),
-      static_cast<const bf16*>(v_cache),
-      static_cast<const int64_t*>(cache_len), clen_stride,
-      static_cast<bf16*>(out), static_cast<bf16*>(k_out),
-      static_cast<bf16*>(v_out), S, Hkv, G, D, scale, softcap);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return f32 ? launch<float>(q, k_new, v_new, k_cache, v_cache, cache_len,
+                             clen_stride, out, k_out, v_out, B, S, Hkv, G, D,
+                             scale, softcap, st)
+             : launch<bf16>(q, k_new, v_new, k_cache, v_cache, cache_len,
+                            clen_stride, out, k_out, v_out, B, S, Hkv, G, D,
+                            scale, softcap, st);
 }

@@ -1,348 +1,475 @@
 // Decode MoE entry for Hopper (sm_90a): route, top-k, slot lookup and the
-// gate-weighted expert SwiGLU, bf16 weights, fp32 output.
+// gate-weighted expert SwiGLU, bf16 or f32 tokens and weights, fp32 output.
 //
 // Replaces the TPU kernel
 // `repro/kernels/decode_superkernel.py::fused_moe_entry`
 // (`_fused_moe_kernel`, pallas_call at decode_superkernel.py:141). For
-// tokens x (T, d), router (d, E) fp32, bias (E,) fp32, slot table (E,)
-// int32 (-1 = not resident) and slot buffers Wg, Wu (S, d, f), Wd (S, f, d):
+// tokens x (T, d) of type X (bf16 or f32), router (d, E) fp32, bias (E,)
+// fp32, slot table (E,) int32 (-1 = not resident) and slot buffers
+// Wg, Wu (S, d, f), Wd (S, f, d) of type X:
 //     probs = softmax(x @ router + bias)                        (fp32)
 //     ids, gates = first-max top-k of probs (ties to the lowest id),
 //                  renormalised over k when asked, zeroed where slot < 0
-//     g = bf16(x @ Wg[slot]), u = bf16(x @ Wu[slot])            (fp32 sums)
-//     h = bf16(bf16(silu(g)) * u)
-//     part = bf16(h @ Wd[slot])
+//     g = X(x @ Wg[slot]), u = X(x @ Wu[slot])                  (fp32 sums)
+//     h = X(X(silu(g)) * u)
+//     part = X(h @ Wd[slot])
 //     y[t] = sum over t's resident experts in ascending id of gate * part
-// The rounding points are the TPU kernel's: its dots of bf16 operands
-// return bf16, and its expert grid adds each expert's gate * part into y
-// in expert order.
+// X(.) rounds to the input type: the TPU kernel's dots of bf16 operands
+// return bf16, and nothing rounds in f32. Its expert grid adds each
+// expert's gate * part into y in expert order.
 //
-// Design.
-// - The TPU grid walks all E experts, reads every expert's weights
-//   (through slot 0 for absent ones) and multiplies every token by every
-//   expert, with a zero gate for the unrouted pairs. On the card only the
-//   (token, expert) pairs that are routed AND resident need work: an
-//   unrouted or absent pair's gate is exactly 0. Four launches on one
-//   stream, no atomics:
-//   1. route: one block per token; fp32 logits (d split over the threads,
-//      partial sums combined in a fixed order), then softmax, k first-max
-//      passes, renormalisation and the sentinel rule on one thread. Writes
-//      gates / ids and each token's k assignments in ascending expert id.
-//   2. gate / up: one block per (expert, 128 columns of f). The block finds
-//      the tokens routed to its expert; if there are none, or the expert is
-//      not resident, it exits before any weight is loaded. Weight rows are
-//      read once per block as 16-byte vectors and multiplied into up to 4
-//      tokens at a time on the CUDA cores (decode has few tokens per
-//      expert: the work is the weight bytes, not the FLOPs). The SwiGLU
-//      epilogue writes h (T * k, f) in bf16.
-//   3. down: the same kernel over Wd, writing part (T * k, d) in bf16.
-//   4. combine: one thread per (token, column) sums gate * part over the
-//      token's resident experts in ascending id, in fp32, with no fused
-//      multiply-add (the plain version rounds the product and the sum).
-//   Every output element is summed by one thread in one fixed order, and
-//   that order depends neither on S nor on which slot holds an expert, so
-//   the slot path and a fully-resident run give the same bits.
+// What bounds it. Decode has a few rows per expert, so the work is the
+// weight bytes of the distinct routed, resident experts, not the FLOPs: at
+// olmoe-1b-7b decode (T = 4, d = 2048, f = 1024, k = 8) about 28 experts x
+// 12.6 MB, ~0.1 ms at 3.35 TB/s (H100 SXM).
 //
-// Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16), olmoe-1b-7b decode at
-// batch 4 (T = 4, d = 2048, f = 1024, E = 64, k = 8): the bytes of the
-// distinct routed, resident experts' weights, 12.6 MB each (about 28 of
-// them, 352 MB), so about 0.105 ms; the FLOPs (2 * 3 * T * k * d * f =
-// 0.4 GFLOP) are far below. The TPU kernel's all-experts read would be
-// 805 MB.
+// Design: three launches on one stream, no atomics in any sum.
+// 1. route: one cluster of 8 blocks. Block r reads rows [r d/8, (r+1) d/8)
+//    of the router once per tile of 8 tokens, as 16-byte vectors, and sums
+//    its slice of every token's logits in a fixed order; block 0 adds the
+//    8 slices in rank order through distributed shared memory. One warp per
+//    token then runs softmax, k warp arg-max passes on (value desc, index
+//    asc), the renormalisation in rank order and the dead-sentinel rule,
+//    all in registers. Last, block 0 builds the work list on the device
+//    (`Work`): each expert's rows (its routed assignments if resident, else
+//    none) grouped by expert in ascending id, each expert's assignments
+//    ascending; the cluster then copies the grouped token rows into one
+//    buffer. No later block rescans the ids.
+// 2. gate/up and 3. down + combine: the SwiGLU GEMM that `slot_ffn` runs
+//    (`swiglu_gemm.cuh`: persistent, one block per SM walking (expert,
+//    column panel, 128-row tile) items over the per-expert row counts, a
+//    TMA ring of 128-byte-swizzled boxes with the slot as a tensor-map
+//    coordinate, wgmma on two warpgroups; f32 takes `swiglu_f32.cuh`, the
+//    same walk on the CUDA cores), in its MOE form: rows grouped by expert,
+//    fused_moe_entry's rounding points in the epilogues, and the combine
+//    folded into the down pass. An expert with up to 128 rows multiplies
+//    each weight panel once, whatever its row count; an unrouted or absent
+//    expert has no rows, so no item, and costs nothing; the grid never
+//    depends on the routing. The block that finishes a 128-column panel's
+//    last down tile (a counter per panel) adds gate * part over each
+//    token's experts in ascending id, with no fused multiply-add. So every
+//    y element is summed by one thread in one order that depends neither on
+//    S nor on which slot holds an expert: the slot path and a
+//    fully-resident run give the same bits.
+// Why not a kernel of its own for 2 and 3: a design that streamed each
+// expert's slab as 32-byte-wide column strips (so that a whole strip stays
+// in shared memory for every row of the expert) and multiplied on the CUDA
+// cores moved only ~15-20 GB/s per SM on an H100, with TMA or cp.async
+// alike, and was compute-bound at 8 rows an expert (see PERF.md).
 //
 // C interface (ctypes): fused_moe_entry_launch returns cudaGetLastError()
-// after enqueueing the four launches on `stream`. It allocates nothing:
-// the caller passes the scratch (order, h, part) and the outputs.
+// after enqueueing the three launches on `stream` (cudaErrorInvalidValue
+// for shapes it does not take or a tensor map it cannot encode). It
+// allocates nothing: the caller passes the outputs and
+// fused_moe_entry_scratch_bytes() of scratch.
 
-#include <cuda_bf16.h>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "dtype.cuh"
+#include "swiglu_f32.cuh"   // the expert passes (and swiglu_gemm.cuh)
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
 constexpr float NEG = -1e30f;       // top-k masking, as the reference
-constexpr int ROUTE_THREADS = 256;
 constexpr int MAX_E = 256;
 constexpr int MAX_K = 16;
 constexpr int MAX_T = 1024;         // tokens per call (a decode batch)
-
-constexpr int GEMV_THREADS = 256;
-constexpr int NT = 128;             // output columns per block
-constexpr int CPT = 8;              // columns per thread (one 16-byte load)
-constexpr int COL_GROUPS = NT / CPT;                 // 16
-constexpr int ROW_GROUPS = GEMV_THREADS / COL_GROUPS;  // 16, 2 per warp
-constexpr int WARPS = GEMV_THREADS / 32;
-constexpr int MT = 4;               // tokens per pass
-constexpr int KC = 1024;            // reduction chunk staged in shared memory
+constexpr int SMEM_MAX = 232448;    // shared memory a block may use
 
 // ---- 1. route ----------------------------------------------------------
-__global__ void __launch_bounds__(ROUTE_THREADS)
-    route_kernel(const bf16* __restrict__ x, const float* __restrict__ rw,
+constexpr int ROUTE_CLUSTER = 8;    // blocks, each a slice of d
+constexpr int ROUTE_THREADS = 256;
+constexpr int TT = ROUTE_THREADS / 32;   // tokens a tile: one warp each
+
+// The work list (int32), built by the route launch:
+//   counts[E]   rows of expert e: its routed assignments if it is resident,
+//               else 0 (the expert passes skip it)
+//   start[E]    expert e's first row in the grouped buffers
+//   rows[T k]   grouped row -> assignment t * k + j (experts in ascending
+//               id, each one's assignments ascending)
+//   grow[T k]   assignment -> grouped row, -1 if its expert is absent
+//   order[T k]  per token, its assignments j in ascending expert id
+//   tiles       the down pass's tiles per 128-column panel
+//   counters[]  per panel, the down tiles finished (zeroed here)
+struct Work {
+  int E, n;                                  // n = T k
+  __host__ __device__ int counts() const { return 0; }
+  __host__ __device__ int start() const { return E; }
+  __host__ __device__ int rows() const { return 2 * E; }
+  __host__ __device__ int grow() const { return 2 * E + n; }
+  __host__ __device__ int order() const { return 2 * E + 2 * n; }
+  __host__ __device__ int tiles() const { return 2 * E + 3 * n; }
+  __host__ __device__ int counters() const { return 2 * E + 3 * n + 1; }
+  __host__ __device__ int size(int panels) const {
+    return counters() + panels;
+  }
+};
+
+inline size_t route_smem(int T, int d, int E, int k) {
+  return (static_cast<size_t>(TT) * (d / ROUTE_CLUSTER)   // x slice
+          + 1024 * TT                                     // slice partials
+          + TT * E) * 4                                   // block logits
+         + static_cast<size_t>(T) * k * 4 + E * 4;        // ids, counts
+}
+
+template <typename X>
+__global__ void __cluster_dims__(ROUTE_CLUSTER, 1, 1)
+    __launch_bounds__(ROUTE_THREADS)
+    route_kernel(const X* __restrict__ x, const float* __restrict__ rw,
                  const float* __restrict__ bias,
-                 const int* __restrict__ slot_of_expert,
+                 const int* __restrict__ slot_of_expert, int n_slots,
                  float* __restrict__ gates, int* __restrict__ ids,
-                 int* __restrict__ order, int d, int E, int k, int norm) {
-  __shared__ float part[ROUTE_THREADS];
-  __shared__ float prob[MAX_E];
-  const int t = blockIdx.x;
+                 int* __restrict__ work, X* __restrict__ x_rows, int T,
+                 int d, int E, int k, int norm, int panels) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
   const int tid = threadIdx.x;
-  const int P = ROUTE_THREADS / E;          // d split into P interleaved parts
-  const bf16* xt = x + static_cast<int64_t>(t) * d;
-  if (tid < P * E) {
-    const int e = tid % E;
-    const int s = tid / E;
-    float acc = 0.f;
-    for (int i = s; i < d; i += P)
-      acc += __bfloat162float(xt[i]) * rw[static_cast<int64_t>(i) * E + e];
-    part[tid] = acc;
-  }
-  __syncthreads();
-  if (tid < E) {
-    float acc = 0.f;
-    for (int s = 0; s < P; ++s) acc += part[s * E + tid];
-    prob[tid] = acc + bias[tid];
-  }
-  __syncthreads();
-  if (tid != 0) return;
-  float mx = prob[0];
-  for (int e = 1; e < E; ++e) mx = fmaxf(mx, prob[e]);
-  float sum = 0.f;
-  for (int e = 0; e < E; ++e) {
-    prob[e] = expf(prob[e] - mx);
-    sum += prob[e];
-  }
-  for (int e = 0; e < E; ++e) prob[e] = prob[e] / sum;
-  int sel[MAX_K];
-  float val[MAX_K];
-  float total = 0.f;
-  for (int j = 0; j < k; ++j) {
-    int best = 0;
-    for (int e = 1; e < E; ++e)
-      if (prob[e] > prob[best]) best = e;   // strict: first max wins
-    sel[j] = best;
-    val[j] = prob[best];
-    total += prob[best];
-    prob[best] = NEG;
-  }
-  const float denom = fmaxf(total, 1e-9f);
-  for (int j = 0; j < k; ++j) {
-    float g = norm ? val[j] / denom : val[j];
-    if (slot_of_expert[sel[j]] < 0) g = 0.f;   // the dead-sentinel rule
-    gates[t * k + j] = g;
-    ids[t * k + j] = sel[j];
-  }
-  // assignment indices in ascending expert id (ids are distinct)
-  for (int j = 0; j < k; ++j) {
-    int rank = 0;
-    for (int i = 0; i < k; ++i) rank += sel[i] < sel[j];
-    order[t * k + rank] = j;
-  }
-}
-
-__device__ __forceinline__ void unpack8(const uint4& v, float (&f)[CPT]) {
-  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 t = __bfloat1622float2(p[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
-  }
-}
-
-// ---- 2 / 3. per-expert rows x weights ---------------------------------
-// out[p, n] for every assignment p = t * k + j routed to this block's expert
-// (blockIdx.y), columns n in this block's tile. A row of p is A[p / k]
-// (GATED: the token) or A[p] (the assignment's h row). GATED: two weight
-// operands and the SwiGLU epilogue; otherwise one operand, bf16 output.
-template <bool GATED>
-__global__ void __launch_bounds__(GEMV_THREADS)
-    expert_rows_kernel(const bf16* __restrict__ A,
-                       const int* __restrict__ ids,
-                       const int* __restrict__ slot_of_expert, int n_slots,
-                       int T, int k, const bf16* __restrict__ W0,
-                       const bf16* __restrict__ W1, bf16* __restrict__ out,
-                       int K, int N) {
-  constexpr int NB = GATED ? 2 : 1;
-  __shared__ int rows[MAX_T];
-  __shared__ int count;
-  __shared__ __align__(16) bf16 As[MT][KC];
-  __shared__ float red[NB][WARPS][MT][NT];
-
-  const int e = blockIdx.y;
-  const int n0 = blockIdx.x * NT;
-  const int tid = threadIdx.x;
-  const int slot = slot_of_expert[e];
-  if (slot < 0 || slot >= n_slots) return;      // absent: no work
-  if (tid == 0) {
-    int c = 0;
-    for (int p = 0; p < T * k; ++p)
-      if (ids[p] == e) rows[c++] = p;
-    count = c;
-  }
-  __syncthreads();
-  const int M = count;
-  if (M == 0) return;                            // not routed: no work
-
-  const int cg = tid % COL_GROUPS;
-  const int rg = tid / COL_GROUPS;
-  const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int col = n0 + cg * CPT;
-  const bool col_ok = col < N;
-  const bf16* w[NB];
-  w[0] = W0 + static_cast<int64_t>(slot) * K * N;
-  if constexpr (GATED) w[NB - 1] = W1 + static_cast<int64_t>(slot) * K * N;
+  const int warp = tid >> 5;
+  const int SL = d / ROUTE_CLUSTER;          // router rows of this block
+  const int r0 = rank * SL;
+  const int TPR = E / 4;                     // threads a router row
+  const int RG = ROUTE_THREADS / TPR;        // rows in parallel
+  const int q = tid % TPR;
+  const int rg = tid / TPR;
+  extern __shared__ __align__(16) float rsm[];
+  float* xs = rsm;                           // [TT][SL]
+  float* red = xs + TT * SL;                 // [RG][TT][E]; logits [TT][E]
+  float* part = red + 1024 * TT;             // [TT][E]
+  int* ids_s = reinterpret_cast<int*>(part + TT * E);   // [T k]
+  int* cnt_s = ids_s + T * k;                           // [E]
 
-  for (int m0 = 0; m0 < M; m0 += MT) {
-    const int mc = min(MT, M - m0);
-    float acc[NB][MT][CPT];
+  for (int t0 = 0; t0 < T; t0 += TT) {
+    const int nt = min(TT, T - t0);
+    for (int i = tid; i < TT * SL; i += ROUTE_THREADS) {
+      const int tt = i / SL;
+      const int c = i - tt * SL;
+      xs[i] = tt < nt ? to_f(x[static_cast<int64_t>(t0 + tt) * d + r0 + c])
+                      : 0.f;
+    }
+    __syncthreads();
+    // this slice's logits: 16-byte router loads, one quad of experts a
+    // thread, rows rg, rg + RG, ... in order
+    if (rg < RG) {
+      float acc[TT][4];
 #pragma unroll
-    for (int b = 0; b < NB; ++b)
+      for (int tt = 0; tt < TT; ++tt)
 #pragma unroll
-      for (int m = 0; m < MT; ++m)
+        for (int j = 0; j < 4; ++j) acc[tt][j] = 0.f;
+      constexpr int U = 8;                   // router loads in flight
+      for (int i0 = rg; i0 < SL; i0 += RG * U) {
+        float4 w[U];
 #pragma unroll
-        for (int c = 0; c < CPT; ++c) acc[b][m][c] = 0.f;
-
-    for (int k0 = 0; k0 < K; k0 += KC) {
-      const int kc = min(KC, K - k0);
-      __syncthreads();                           // As is free again
-      for (int i = tid; i < MT * kc; i += GEMV_THREADS) {
-        const int m = i / kc;
-        const int kk = i - m * kc;
-        bf16 a = __float2bfloat16(0.f);
-        if (m < mc) {
-          const int p = rows[m0 + m];
-          const int64_t r = GATED ? p / k : p;
-          a = A[r * K + k0 + kk];
+        for (int u = 0; u < U; ++u) {
+          const int i = i0 + u * RG;
+          w[u] = i < SL ? *reinterpret_cast<const float4*>(
+                              rw + static_cast<int64_t>(r0 + i) * E + 4 * q)
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
         }
-        As[m][kk] = a;
-      }
-      __syncthreads();
-      if (col_ok) {
-#pragma unroll 4
-        for (int kk = rg; kk < kc; kk += ROW_GROUPS) {
-          const int64_t off = static_cast<int64_t>(k0 + kk) * N + col;
-          float wf[NB][CPT];
 #pragma unroll
-          for (int b = 0; b < NB; ++b)
-            unpack8(*reinterpret_cast<const uint4*>(w[b] + off), wf[b]);
+        for (int u = 0; u < U; ++u) {
+          const int i = i0 + u * RG;
+          if (i >= SL) break;
 #pragma unroll
-          for (int m = 0; m < MT; ++m) {
-            const float a = __bfloat162float(As[m][kk]);
-#pragma unroll
-            for (int b = 0; b < NB; ++b)
-#pragma unroll
-              for (int c = 0; c < CPT; ++c) acc[b][m][c] += a * wf[b][c];
+          for (int tt = 0; tt < TT; ++tt) {
+            const float a = xs[tt * SL + i];
+            acc[tt][0] += a * w[u].x;
+            acc[tt][1] += a * w[u].y;
+            acc[tt][2] += a * w[u].z;
+            acc[tt][3] += a * w[u].w;
           }
         }
       }
-    }
-    // the two row groups of a warp, then the warps, in a fixed order
 #pragma unroll
-    for (int b = 0; b < NB; ++b)
+      for (int tt = 0; tt < TT; ++tt)
 #pragma unroll
-      for (int m = 0; m < MT; ++m)
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) {
-          acc[b][m][c] += __shfl_xor_sync(0xffffffffu, acc[b][m][c], 16);
-        }
-    if (lane < 16) {
-#pragma unroll
-      for (int b = 0; b < NB; ++b)
-#pragma unroll
-        for (int m = 0; m < MT; ++m)
-#pragma unroll
-          for (int c = 0; c < CPT; ++c) red[b][warp][m][cg * CPT + c] = acc[b][m][c];
+        for (int j = 0; j < 4; ++j)
+          red[(rg * TT + tt) * E + 4 * q + j] = acc[tt][j];
     }
     __syncthreads();
-    for (int i = tid; i < mc * NT; i += GEMV_THREADS) {
-      const int m = i / NT;
-      const int nn = i - m * NT;
-      if (n0 + nn >= N) continue;
-      float s[NB];
-#pragma unroll
-      for (int b = 0; b < NB; ++b) {
-        s[b] = 0.f;
-        for (int wi = 0; wi < WARPS; ++wi) s[b] += red[b][wi][m][nn];
-      }
-      const int64_t o = static_cast<int64_t>(rows[m0 + m]) * N + n0 + nn;
-      if constexpr (GATED) {
-        const float g = __bfloat162float(__float2bfloat16(s[0]));
-        const float u = __bfloat162float(__float2bfloat16(s[NB - 1]));
-        const float sg = __bfloat162float(
-            __float2bfloat16(g / (1.0f + expf(-g))));
-        out[o] = __float2bfloat16(__fmul_rn(sg, u));
-      } else {
-        out[o] = __float2bfloat16(s[0]);
+    for (int i = tid; i < TT * E; i += ROUTE_THREADS) {
+      float s = 0.f;
+      for (int g = 0; g < RG; ++g) s += red[g * TT * E + i];
+      part[i] = s;
+    }
+    cluster.sync();                          // every slice is in
+    if (rank == 0) {
+      for (int i = tid; i < TT * E; i += ROUTE_THREADS) {
+        float s = 0.f;
+        for (int r = 0; r < ROUTE_CLUSTER; ++r)
+          s += cluster.map_shared_rank(part, r)[i];
+        red[i] = s + bias[i % E];            // logits [TT][E]
       }
     }
-    __syncthreads();                              // red is free again
+    cluster.sync();                          // the slices may be reused
+    if (rank != 0) continue;
+    if (warp < nt) {
+      // softmax and top-k of token t0 + warp; lane holds experts lane + 32 j
+      const float* lg = red + warp * E;
+      constexpr int PL = MAX_E / 32;
+      float p[PL];
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < PL; ++j) {
+        const int e = lane + 32 * j;
+        p[j] = e < E ? lg[e] : -INFINITY;
+        mx = fmaxf(mx, p[j]);
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < PL; ++j) {
+        p[j] = lane + 32 * j < E ? expf(p[j] - mx) : 0.f;
+        sum += p[j];
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, o);
+#pragma unroll
+      for (int j = 0; j < PL; ++j)
+        p[j] = lane + 32 * j < E ? p[j] / sum : NEG;
+      int my_sel = 0;
+      float my_val = 0.f;
+      float total = 0.f;
+      for (int r = 0; r < k; ++r) {
+        float bv = p[0];
+        int bi = lane;
+#pragma unroll
+        for (int j = 1; j < PL; ++j)
+          if (p[j] > bv) {                   // strict: the lower id wins
+            bv = p[j];
+            bi = lane + 32 * j;
+          }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+          const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
+          const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+          if (ov > bv || (ov == bv && oi < bi)) {
+            bv = ov;
+            bi = oi;
+          }
+        }
+        total += bv;
+        if (lane == r) {
+          my_sel = bi;
+          my_val = bv;
+        }
+#pragma unroll
+        for (int j = 0; j < PL; ++j)
+          if (lane + 32 * j == bi) p[j] = NEG;
+      }
+      // the token's ids are distinct: my_sel's rank among them
+      int rank_id = 0;
+      for (int i = 0; i < k; ++i)
+        rank_id += __shfl_sync(0xffffffffu, my_sel, i) < my_sel;
+      if (lane < k) {
+        const int slot = slot_of_expert[my_sel];
+        float g = norm ? my_val / fmaxf(total, 1e-9f) : my_val;
+        if (slot < 0 || slot >= n_slots) g = 0.f;   // dead-sentinel rule
+        const int a = (t0 + warp) * k + lane;
+        gates[a] = g;
+        ids[a] = my_sel;
+        ids_s[a] = my_sel;
+        work[Work{E, T * k}.order() + (t0 + warp) * k + rank_id] = lane;
+      }
+    }
+  }
+  // ---- the work list: routed, resident experts in ascending id ----------
+  const int n = T * k;
+  const Work W{E, n};
+  int* counts = work + W.counts();
+  int* start = work + W.start();
+  int* rows = work + W.rows();
+  int* grow = work + W.grow();
+  if (rank == 0) {
+    __syncthreads();
+    for (int e = warp; e < E; e += TT) {
+      const int slot = slot_of_expert[e];
+      int c = 0;
+      if (slot >= 0 && slot < n_slots)
+        for (int i0 = 0; i0 < n; i0 += 32) {
+          const int i = i0 + lane;
+          c += __popc(__ballot_sync(0xffffffffu, i < n && ids_s[i] == e));
+        }
+      if (lane == 0) cnt_s[e] = c;
+    }
+    for (int i = tid; i < n; i += ROUTE_THREADS) grow[i] = -1;
+    for (int i = tid; i < panels; i += ROUTE_THREADS)
+      work[W.counters() + i] = 0;
+    __syncthreads();
+    if (tid == 0) {
+      int at = 0, tiles = 0;
+      for (int e = 0; e < E; ++e) {
+        const int c = cnt_s[e];
+        counts[e] = c;
+        start[e] = at;
+        cnt_s[e] = at;                       // now each expert's first row
+        at += c;
+        tiles += (c + BM - 1) / BM;
+      }
+      work[W.tiles()] = tiles;
+    }
+    __syncthreads();
+    for (int e = warp; e < E; e += TT) {
+      const int slot = slot_of_expert[e];
+      if (slot < 0 || slot >= n_slots) continue;
+      int at = cnt_s[e];
+      for (int i0 = 0; i0 < n; i0 += 32) {
+        const int i = i0 + lane;
+        const bool hit = i < n && ids_s[i] == e;
+        const unsigned b = __ballot_sync(0xffffffffu, hit);
+        if (hit) {
+          const int row = at + __popc(b & ((1u << lane) - 1u));
+          rows[row] = i;
+          grow[i] = row;
+        }
+        at += __popc(b);
+      }
+    }
+    __threadfence();
+  }
+  cluster.sync();                            // the list is out
+  // the grouped token rows the gate/up pass multiplies, x[rows[g] / k],
+  // copied by the whole cluster
+  const int total = start[E - 1] + counts[E - 1];
+  const int dv = d * static_cast<int>(sizeof(X)) / 16;
+  for (int i = rank * ROUTE_THREADS + tid; i < total * dv;
+       i += ROUTE_CLUSTER * ROUTE_THREADS) {
+    const int g = i / dv;
+    const int a = rows[g];
+    const int v = i - g * dv;
+    reinterpret_cast<uint4*>(x_rows)[static_cast<int64_t>(g) * dv + v] =
+        reinterpret_cast<const uint4*>(x)[static_cast<int64_t>(a / k) * dv +
+                                          v];
   }
 }
 
-// ---- 4. combine --------------------------------------------------------
-__global__ void combine_kernel(const bf16* __restrict__ part,
-                               const float* __restrict__ gates,
-                               const int* __restrict__ ids,
-                               const int* __restrict__ order,
-                               const int* __restrict__ slot_of_expert,
-                               int n_slots, float* __restrict__ y, int T,
-                               int k, int d) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= static_cast<int64_t>(T) * d) return;
-  const int t = static_cast<int>(i / d);
-  const int c = static_cast<int>(i - static_cast<int64_t>(t) * d);
-  float acc = 0.f;
-  for (int r = 0; r < k; ++r) {
-    const int p = t * k + order[t * k + r];
-    const int slot = slot_of_expert[ids[p]];
-    if (slot < 0 || slot >= n_slots) continue;
-    const float v = __bfloat162float(part[static_cast<int64_t>(p) * d + c]);
-    acc = __fadd_rn(acc, __fmul_rn(gates[p], v));
+// Byte offsets of the scratch the caller allocates: the work list, the
+// grouped token rows (n, d) and h (n, f) of type X, and part (n, d) fp32.
+struct Scratch {
+  size_t work, x_rows, h, part, total;
+  Scratch(int T, int d, int E, int k, int f, int isz) {
+    const size_t n = static_cast<size_t>(T) * k;
+    auto up = [](size_t b) { return (b + 1023) & ~size_t(1023); };
+    work = 0;
+    x_rows = up(static_cast<size_t>(Work{E, static_cast<int>(n)}.size(
+                    (d + 2 * PANEL - 1) / (2 * PANEL))) * 4);
+    h = x_rows + up(n * d * isz);
+    part = h + up(n * f * isz);
+    total = part + up(n * d * 4);
   }
-  y[i] = acc;
+};
+
+template <typename X>
+int launch(const void* x, const void* router_w, const void* logit_bias,
+           const void* slot_of_expert, const void* s_gate, const void* s_up,
+           const void* s_down, void* gates, void* ids, void* scratch, void* y,
+           int T, int d, int E, int k, int f, int S, int norm,
+           cudaStream_t st) {
+  const int n = T * k;
+  const int panels = (d + 2 * PANEL - 1) / (2 * PANEL);   // down panels
+  const Scratch sc(T, d, E, k, f, sizeof(X));
+  uint8_t* base = static_cast<uint8_t*>(scratch);
+  int* work = reinterpret_cast<int*>(base + sc.work);
+  X* x_rows = reinterpret_cast<X*>(base + sc.x_rows);
+  X* h = reinterpret_cast<X*>(base + sc.h);
+  float* part = reinterpret_cast<float*>(base + sc.part);
+  const Work W{E, n};
+  const int* soe = static_cast<const int*>(slot_of_expert);
+  const MoeArgs moe{work + W.start(), work + W.tiles(),
+                    work + W.counters(), static_cast<const float*>(gates),
+                    work + W.order(), work + W.grow(), static_cast<float*>(y),
+                    T, k};
+  const size_t rs = route_smem(T, d, E, k);
+  if (rs > SMEM_MAX - 2048) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
+  // the opt-in above 48 KB of dynamic shared memory, once per device
+  static bool opted_in[64] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= 64 || !opted_in[dev]) {
+    if ((err = cudaFuncSetAttribute(
+             route_kernel<X>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+             SMEM_MAX - 2048)) != cudaSuccess)
+      return static_cast<int>(err);
+    if (sizeof(X) == 2 &&
+        ((err = cudaFuncSetAttribute(
+              swiglu_gemm_kernel<true, true>,
+              cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES)) !=
+             cudaSuccess ||
+         (err = cudaFuncSetAttribute(
+              swiglu_gemm_kernel<false, true>,
+              cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES)) !=
+             cudaSuccess))
+      return static_cast<int>(err);
+    if (dev < 64) opted_in[dev] = true;
+  }
+  route_kernel<X><<<ROUTE_CLUSTER, ROUTE_THREADS, rs, st>>>(
+      static_cast<const X*>(x), static_cast<const float*>(router_w),
+      static_cast<const float*>(logit_bias), soe, S,
+      static_cast<float*>(gates), static_cast<int*>(ids), work, x_rows, T, d,
+      E, k, norm, panels);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  const int* counts = work + W.counts();
+  const int grid_g = grid_for(dev, E, T, (f + PANEL - 1) / PANEL);
+  const int grid_d = grid_for(dev, E, T, panels);
+  if constexpr (sizeof(X) == 2) {
+    // the TMA + wgmma GEMM: rows grouped by expert, T rows an expert at most
+    CUtensorMap tx, tg, tu, th, td;
+    if (!encode_3d(&tx, x_rows, d, n, 1) || !encode_3d(&tg, s_gate, f, d, S) ||
+        !encode_3d(&tu, s_up, f, d, S) || !encode_3d(&th, h, f, n, 1) ||
+        !encode_3d(&td, s_down, d, f, S))
+      return static_cast<int>(cudaErrorInvalidValue);
+    swiglu_gemm_kernel<true, true><<<grid_g, THREADS, SMEM_BYTES, st>>>(
+        tx, tg, tu, soe, counts, S, h, E, T, f, d, moe);
+    if ((err = cudaGetLastError()) != cudaSuccess)
+      return static_cast<int>(err);
+    swiglu_gemm_kernel<false, true><<<grid_d, THREADS, SMEM_BYTES, st>>>(
+        th, td, td, soe, counts, S, part, E, T, d, f, moe);
+  } else {
+    // f32: the CUDA-core GEMM over the same tiles
+    swiglu_f32_kernel<true, true><<<grid_g, F32_THREADS, 0, st>>>(
+        reinterpret_cast<const float*>(x_rows),
+        static_cast<const float*>(s_gate), static_cast<const float*>(s_up),
+        soe, counts, S, reinterpret_cast<float*>(h), E, T, f, d, moe);
+    if ((err = cudaGetLastError()) != cudaSuccess)
+      return static_cast<int>(err);
+    swiglu_f32_kernel<false, true><<<grid_d, F32_THREADS, 0, st>>>(
+        reinterpret_cast<const float*>(h), static_cast<const float*>(s_down),
+        nullptr, soe, counts, S, part, E, T, d, f, moe);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// Bytes of scratch fused_moe_entry_launch needs.
+extern "C" int fused_moe_entry_scratch_bytes(int T, int d, int E, int k,
+                                             int f, int f32) {
+  return static_cast<int>(Scratch(T, d, E, k, f, f32 ? 4 : 2).total);
+}
+
+// f32: 1 for float tokens and slot buffers, 0 for bf16.
 extern "C" int fused_moe_entry_launch(
     const void* x, const void* router_w, const void* logit_bias,
     const void* slot_of_expert, const void* s_gate, const void* s_up,
-    const void* s_down, void* gates, void* ids, void* order, void* h,
-    void* part, void* y, int T, int d, int E, int k, int f, int S, int norm,
+    const void* s_down, void* gates, void* ids, void* scratch, void* y,
+    int T, int d, int E, int k, int f, int S, int norm, int f32,
     void* stream) {
-  if (T < 1 || T > MAX_T || E < 1 || E > MAX_E || k < 1 || k > MAX_K ||
-      k > E || d % 8 || f % 8)
+  if (T < 1 || T > MAX_T || E < 4 || E > MAX_E || E % 4 || k < 1 ||
+      k > MAX_K || k > E || d % 8 || f % 8 || S < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* soe = static_cast<const int*>(slot_of_expert);
-  int* id = static_cast<int*>(ids);
-  route_kernel<<<T, ROUTE_THREADS, 0, st>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(router_w),
-      static_cast<const float*>(logit_bias), soe, static_cast<float*>(gates),
-      id, static_cast<int*>(order), d, E, k, norm);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  expert_rows_kernel<true><<<dim3((f + NT - 1) / NT, E), GEMV_THREADS, 0,
-                             st>>>(
-      static_cast<const bf16*>(x), id, soe, S, T, k,
-      static_cast<const bf16*>(s_gate), static_cast<const bf16*>(s_up),
-      static_cast<bf16*>(h), d, f);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  expert_rows_kernel<false><<<dim3((d + NT - 1) / NT, E), GEMV_THREADS, 0,
-                              st>>>(
-      static_cast<const bf16*>(h), id, soe, S, T, k,
-      static_cast<const bf16*>(s_down), nullptr, static_cast<bf16*>(part), f,
-      d);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t n = static_cast<int64_t>(T) * d;
-  combine_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, st>>>(
-      static_cast<const bf16*>(part), static_cast<const float*>(gates), id,
-      static_cast<const int*>(order), soe, S, static_cast<float*>(y), T, k,
-      d);
-  return static_cast<int>(cudaGetLastError());
+  return f32 ? launch<float>(x, router_w, logit_bias, slot_of_expert, s_gate,
+                             s_up, s_down, gates, ids, scratch, y, T, d, E, k,
+                             f, S, norm, st)
+             : launch<bf16>(x, router_w, logit_bias, slot_of_expert, s_gate,
+                            s_up, s_down, gates, ids, scratch, y, T, d, E, k,
+                            f, S, norm, st);
 }

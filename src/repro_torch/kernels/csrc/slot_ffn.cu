@@ -1,4 +1,5 @@
-// Slot-indirect expert SwiGLU FFN for Hopper (sm_90a), bf16 in, fp32 out.
+// Slot-indirect expert SwiGLU FFN for Hopper (sm_90a), bf16 or f32 in,
+// fp32 out (f32: `swiglu_f32.cuh`, `slot_ffn_f32_launch`).
 //
 // Replaces the TPU kernel `repro/kernels/slot_gather.py::slot_ffn`
 // (`_slot_ffn_kernel`, pallas_call at slot_gather.py:72): for every expert e
@@ -39,7 +40,7 @@
 // tensor map cannot be encoded). It allocates nothing: the caller passes the
 // bf16 (E, C, F) scratch `h` and the fp32 output. `counts` may be null.
 
-#include "swiglu_gemm.cuh"
+#include "swiglu_f32.cuh"  // includes swiglu_gemm.cuh
 
 extern "C" int slot_ffn_launch(const void* x, const void* slot_of_expert,
                                const void* counts, const void* s_gate,
@@ -49,4 +50,16 @@ extern "C" int slot_ffn_launch(const void* x, const void* slot_of_expert,
   return swiglu_ffn_launch(x, static_cast<const int*>(slot_of_expert),
                            static_cast<const int*>(counts), s_gate, s_up,
                            s_down, h, out, E, C, D, F, S, stream);
+}
+
+// The f32 path (`swiglu_f32.cuh`): x and the slot buffers fp32, h the fp32
+// (E, C, F) scratch.
+extern "C" int slot_ffn_f32_launch(const void* x, const void* slot_of_expert,
+                                   const void* counts, const void* s_gate,
+                                   const void* s_up, const void* s_down,
+                                   void* h, void* out, int E, int C, int D,
+                                   int F, int S, void* stream) {
+  return swiglu_ffn_f32_launch(x, static_cast<const int*>(slot_of_expert),
+                               static_cast<const int*>(counts), s_gate, s_up,
+                               s_down, h, out, E, C, D, F, S, stream);
 }

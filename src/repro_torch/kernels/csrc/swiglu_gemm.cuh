@@ -42,6 +42,15 @@
 // in one fixed order, deterministic from run to run, and a row's value
 // depends neither on the other rows of its tile nor on the slot table, so
 // both entry points give the same bits for the same weights.
+//
+// MOE (`fused_moe_entry.cu`'s two expert passes): the rows are the decode
+// tokens' assignments grouped by expert, expert e's at rows [start[e],
+// start[e] + counts[e]) of one (rows, K) buffer, counts 0 for an expert
+// that is not routed or not resident; the epilogues round where that
+// kernel does (g, u, silu(g), h and part to bf16), and the down pass writes
+// part (fp32 values of bf16 numbers) and then, in the block that finishes
+// a 128-column panel's last tile (a counter per panel, not a sum), adds
+// gate * part over each token's experts in ascending id (`moe_combine`).
 
 #pragma once
 
@@ -206,25 +215,98 @@ struct TileWalker {
   }
 };
 
+// The MOE passes' extra operands (all from `fused_moe_entry`'s route).
+struct MoeArgs {
+  const int* start;       // (E,) expert e's first row
+  const int* tiles;       // tiles a down panel has (all its experts' m-tiles)
+  int* counters;          // (down panels,) tiles finished, zeroed by route
+  const float* gates;     // (T k,) gate of each assignment
+  const int* order;       // (T, k) each token's assignments, ascending id
+  const int* grow;        // (T k,) an assignment's row, -1 if not resident
+  float* y;               // (T, N) output
+  int T, k;
+};
+
+// y[t, n0:n1] = sum over t's assignments in ascending expert id of
+// gate * part[row] (no fused multiply-add), by `threads` threads; part is
+// read through L2 (other blocks wrote it).
+__device__ inline void moe_combine(const MoeArgs& m, const float* part,
+                                   int N, int n0, int n1, int tid,
+                                   int threads) {
+  const int w = n1 - n0;
+  for (int i = tid; i < m.T * w; i += threads) {
+    const int t = i / w;
+    const int col = n0 + i - t * w;
+    float acc = 0.f;
+    for (int r = 0; r < m.k; ++r) {
+      const int a = t * m.k + m.order[t * m.k + r];
+      const int row = m.grow[a];
+      if (row >= 0)
+        acc = __fadd_rn(acc, __fmul_rn(m.gates[a],
+                                       __ldcg(part + static_cast<int64_t>(
+                                                         row) * N + col)));
+    }
+    m.y[static_cast<int64_t>(t) * N + col] = acc;
+  }
+}
+
+// MOE down pass, once per finished tile: counts the tile into its panel's
+// counter and, in the block that brings it to the panel's total, combines
+// that panel. `sync` is a barrier of the `threads` calling threads.
+template <typename Sync>
+__device__ inline void moe_tile_done(const MoeArgs& m, const float* part,
+                                     int N, int panel, int n0, int n1,
+                                     int tid, int threads, int* flag,
+                                     Sync sync) {
+  __threadfence();                         // this thread's part is out
+  sync();
+  if (tid == 0) *flag = atomicAdd(&m.counters[panel], 1) == *m.tiles - 1;
+  sync();
+  if (*flag) {
+    __threadfence();
+    moe_combine(m, part, N, n0, n1, tid, threads);
+  }
+}
+
 // GATED: A = x (E, C, K=D), B0/B1 = gate/up (S, K, N=F) at the same panel;
 // out = h, bf16 (E, C, F), one 64-column panel a tile.
 // Otherwise: A = h (E, C, K=F), B0 = B1 = down (S, K, N=D) at two adjacent
 // panels; out fp32 (E, C, D), 128 columns a tile.
-template <bool GATED>
+// MOE: A and out are (rows, K) / (rows, N), expert e's rows from
+// moe.start[e] (see the note above).
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS * 128) : "memory");
+}
+
+template <bool GATED, bool MOE = false>
 __global__ void __launch_bounds__(THREADS, 1)
     swiglu_gemm_kernel(const __grid_constant__ CUtensorMap tm_a,
                        const __grid_constant__ CUtensorMap tm_b0,
                        const __grid_constant__ CUtensorMap tm_b1,
                        const int* __restrict__ slot_of_expert,
                        const int* __restrict__ counts, int n_slots,
-                       void* __restrict__ out, int E, int C, int N, int K) {
+                       void* __restrict__ out, int E, int C, int N, int K,
+                       MoeArgs moe) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full_bar[STAGES];
   __shared__ __align__(8) uint64_t empty_bar[STAGES];
+  __shared__ int combine_flag;
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   constexpr int TILE_N = GATED ? PANEL : 2 * PANEL;
   const int n_panels = (N + TILE_N - 1) / TILE_N;
   const int n_k = (K + BK - 1) / BK;
+  if constexpr (MOE && !GATED) {
+    if (*moe.tiles == 0) {                 // nothing routed is resident
+      for (int64_t i = blockIdx.x * THREADS + threadIdx.x;
+           i < static_cast<int64_t>(moe.T) * N; i += gridDim.x * THREADS)
+        moe.y[i] = 0.f;
+      return;
+    }
+  }
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -260,9 +342,11 @@ __global__ void __launch_bounds__(THREADS, 1)
         mbar_expect_tx(full, bytes);
         const uint32_t st = base + stage * STAGE_BYTES;
         const int k0 = kb * BK;
-        tma_load_3d(st, &tm_a, full, k0, m0, walk.e);
+        const int a_row = MOE ? moe.start[walk.e] + m0 : m0;
+        const int a_mat = MOE ? 0 : walk.e;
+        tma_load_3d(st, &tm_a, full, k0, a_row, a_mat);
         if (a_hi)
-          tma_load_3d(st + BOX_BYTES, &tm_a, full, k0, m0 + 64, walk.e);
+          tma_load_3d(st + BOX_BYTES, &tm_a, full, k0, a_row + 64, a_mat);
         tma_load_3d(st + 2 * BOX_BYTES, &tm_b0, full, n0, k0, slot);
         if (b_hi) tma_load_3d(st + 3 * BOX_BYTES, &tm_b1, full, n1, k0, slot);
         if (++stage == STAGES) {
@@ -312,39 +396,62 @@ __global__ void __launch_bounds__(THREADS, 1)
         phase ^= 1;
       }
     }
-    if (!active) continue;
-    // accumulator layout: register 4j + 2h + i holds row 16 warp + lane/4
-    // + 8h, column 8j + 2 (lane % 4) + i
-    const int64_t row0 = m0 + 64 * wg + 16 * warp + lane / 4;
+    if (active) {
+      // accumulator layout: register 4j + 2h + i holds row 16 warp +
+      // lane/4 + 8h, column 8j + 2 (lane % 4) + i
+      const int64_t row0 = m0 + 64 * wg + 16 * warp + lane / 4;
+      const int64_t first =
+          MOE ? moe.start[walk.e] : static_cast<int64_t>(walk.e) * C;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = 8 * j + 2 * (lane % 4);
+      for (int j = 0; j < 8; ++j) {
+        const int col = 8 * j + 2 * (lane % 4);
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int64_t row = row0 + 8 * h;
-        if (row >= walk.rows) continue;
-        const int64_t off = (static_cast<int64_t>(walk.e) * C + row) * N;
-        if constexpr (GATED) {
-          if (n0 + col >= N) continue;
-          const int r = 4 * j + 2 * h;
-          const float g0 = acc[0][r], g1 = acc[0][r + 1];
-          const float u0 = acc[1][r], u1 = acc[1][r + 1];
-          __nv_bfloat162 hv;
-          hv.x = __float2bfloat16(g0 / (1.0f + expf(-g0)) * u0);
-          hv.y = __float2bfloat16(g1 / (1.0f + expf(-g1)) * u1);
-          *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(out) + off +
-                                             n0 + col) = hv;
-        } else {
-          float* o = static_cast<float*>(out) + off;
-          if (n0 + col < N)
-            *reinterpret_cast<float2*>(o + n0 + col) = make_float2(
-                acc[0][4 * j + 2 * h], acc[0][4 * j + 2 * h + 1]);
-          if (b_hi && n1 + col < N)
-            *reinterpret_cast<float2*>(o + n1 + col) = make_float2(
-                acc[1][4 * j + 2 * h], acc[1][4 * j + 2 * h + 1]);
+        for (int h = 0; h < 2; ++h) {
+          const int64_t row = row0 + 8 * h;
+          if (row >= walk.rows) continue;
+          const int64_t off = (first + row) * N;
+          if constexpr (GATED) {
+            if (n0 + col >= N) continue;
+            const int r = 4 * j + 2 * h;
+            float g0 = acc[0][r], g1 = acc[0][r + 1];
+            float u0 = acc[1][r], u1 = acc[1][r + 1];
+            __nv_bfloat162 hv;
+            if constexpr (MOE) {
+              // fused_moe_entry's rounding points: g, u, silu(g), h
+              g0 = bf16_round(g0);
+              g1 = bf16_round(g1);
+              u0 = bf16_round(u0);
+              u1 = bf16_round(u1);
+              hv.x = __float2bfloat16(
+                  __fmul_rn(bf16_round(g0 / (1.0f + expf(-g0))), u0));
+              hv.y = __float2bfloat16(
+                  __fmul_rn(bf16_round(g1 / (1.0f + expf(-g1))), u1));
+            } else {
+              hv.x = __float2bfloat16(g0 / (1.0f + expf(-g0)) * u0);
+              hv.y = __float2bfloat16(g1 / (1.0f + expf(-g1)) * u1);
+            }
+            *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(out) +
+                                               off + n0 + col) = hv;
+          } else {
+            float* o = static_cast<float*>(out) + off;
+            const int r = 4 * j + 2 * h;
+            float2 v0 = make_float2(acc[0][r], acc[0][r + 1]);
+            float2 v1 = make_float2(acc[1][r], acc[1][r + 1]);
+            if constexpr (MOE) {              // part rounds to bf16
+              v0 = make_float2(bf16_round(v0.x), bf16_round(v0.y));
+              v1 = make_float2(bf16_round(v1.x), bf16_round(v1.y));
+            }
+            if (n0 + col < N) *reinterpret_cast<float2*>(o + n0 + col) = v0;
+            if (b_hi && n1 + col < N)
+              *reinterpret_cast<float2*>(o + n1 + col) = v1;
+          }
         }
       }
     }
+    if constexpr (MOE && !GATED)
+      moe_tile_done(moe, static_cast<const float*>(out), N, panel, n0,
+                    min(n0 + TILE_N, N), threadIdx.x, CONSUMERS * 128,
+                    &combine_flag, consumers_sync);
   }
 }
 
@@ -437,14 +544,14 @@ inline int swiglu_ffn_launch(const void* x, const int* slot_of_expert,
   // (1) h = bf16(silu(x @ Wg) * (x @ Wu)): N = F, K = D
   swiglu_gemm_kernel<true><<<grid_for(dev, E, C, (F + PANEL - 1) / PANEL),
                              THREADS, SMEM_BYTES, st>>>(
-      tx, tg, tu, slot_of_expert, counts, S, h, E, C, F, D);
+      tx, tg, tu, slot_of_expert, counts, S, h, E, C, F, D, MoeArgs{});
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   // (2) out = h @ Wd: N = D, K = F
   swiglu_gemm_kernel<false>
       <<<grid_for(dev, E, C, (D + 2 * PANEL - 1) / (2 * PANEL)), THREADS,
          SMEM_BYTES, st>>>(th, td, td, slot_of_expert, counts, S, out, E, C,
-                           D, F);
+                           D, F, MoeArgs{});
   return static_cast<int>(cudaGetLastError());
 }
 

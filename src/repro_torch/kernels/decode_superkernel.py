@@ -17,11 +17,13 @@ On a CUDA tensor each wrapper launches its hand-written Hopper kernel
 a CPU tensor it runs the plain version in `kernels.ref`, which follows the
 kernel's rounding points. Any other device raises. Each wrapper counts the
 calls that launched its kernel in `.launches` (one per call, though
-`fused_moe_entry` is four CUDA launches).
+`fused_moe_entry` is three CUDA launches). bf16 and f32 run on the card, as
+in the reference; any other dtype raises.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -29,6 +31,7 @@ from repro_torch.kernels.build import LIBS
 from repro_torch.kernels.ref import (fused_decode_attention_ref,
                                      fused_mla_decode_attention_ref,
                                      fused_moe_entry_ref)
+from repro_torch.kernels.slot_gather import KERNEL_DTYPES
 
 MAX_TOKENS = 1024        # fused_moe_entry: tokens per call (a decode batch)
 MAX_EXPERTS = 256
@@ -75,21 +78,28 @@ def _check_moe(x, router_w, logit_bias, slot_of_expert, s_gate, s_up,
     E = router_w.shape[1]
     S, _, f = s_gate.shape
     dev = x.device
-    _need(x, "x", torch.bfloat16, (T, d), dev)
+    if x.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"x must be bfloat16 or float32, got {x.dtype}")
+    _need(x, "x", x.dtype, (T, d), dev)
     _need(router_w, "router_w", torch.float32, (d, E), dev)
     _need(logit_bias, "logit_bias", torch.float32, (E,), dev)
     _need(slot_of_expert, "slot_of_expert", torch.int32, (E,), dev)
-    _need(s_gate, "s_gate", torch.bfloat16, (S, d, f), dev)
-    _need(s_up, "s_up", torch.bfloat16, (S, d, f), dev)
-    _need(s_down, "s_down", torch.bfloat16, (S, f, d), dev)
+    _need(s_gate, "s_gate", x.dtype, (S, d, f), dev)
+    _need(s_up, "s_up", x.dtype, (S, d, f), dev)
+    _need(s_down, "s_down", x.dtype, (S, f, d), dev)
     if not 1 <= T <= MAX_TOKENS:
         raise ValueError(f"T={T} tokens: the kernel takes 1..{MAX_TOKENS}")
-    if not 1 <= top_k <= min(E, MAX_TOP_K) or E > MAX_EXPERTS:
+    if not 1 <= top_k <= min(E, MAX_TOP_K) or E > MAX_EXPERTS or E % 4:
         raise ValueError(f"top_k={top_k} of E={E} experts: the kernel takes "
-                         f"E <= {MAX_EXPERTS}, top_k <= {MAX_TOP_K}")
+                         f"E <= {MAX_EXPERTS}, a multiple of 4, top_k <= "
+                         f"{MAX_TOP_K}")
     if d % 8 or f % 8:
         raise ValueError(f"d={d} and f={f} must be multiples of 8 "
                          "(16-byte loads)")
+    route_bytes = (d + 8192 + 8 * E) * 4 + T * top_k * 4 + E * 4
+    if route_bytes > 230400:
+        raise ValueError(f"d={d}, T={T}, top_k={top_k}: the route launch's "
+                         "shared memory does not fit a block")
 
 
 def fused_moe_entry(x: torch.Tensor, router_w: torch.Tensor,
@@ -97,12 +107,13 @@ def fused_moe_entry(x: torch.Tensor, router_w: torch.Tensor,
                     s_gate: torch.Tensor, s_up: torch.Tensor,
                     s_down: torch.Tensor, *, top_k: int,
                     norm_topk: bool = True):
-    """x: (T, d) bf16 tokens; router_w: (d, E) fp32; logit_bias: (E,) fp32
-    (zeros: plain routing); slot_of_expert: (E,) int32, -1 = not resident;
-    slot buffers (S, d, f) / (S, f, d) bf16.
+    """x: (T, d) tokens, bf16 or f32; router_w: (d, E) fp32; logit_bias:
+    (E,) fp32 (zeros: plain routing); slot_of_expert: (E,) int32, -1 = not
+    resident; slot buffers (S, d, f) / (S, f, d) of x's dtype.
 
     Returns (y (T, d) fp32, gates (T, top_k) fp32 zeroed for non-resident
-    experts, ids (T, top_k) int32). Non-resident experts are never read."""
+    experts, ids (T, top_k) int32). Non-resident experts are never read.
+    g, u, h and the down-projection round to x's dtype (none in f32)."""
     if _device(x, "fused_moe_entry") == "cpu":
         return fused_moe_entry_ref(x, router_w, logit_bias, slot_of_expert,
                                    s_gate, s_up, s_down, top_k=top_k,
@@ -116,17 +127,18 @@ def fused_moe_entry(x: torch.Tensor, router_w: torch.Tensor,
     y = torch.empty((T, d), dtype=torch.float32, device=dev)
     gates = torch.empty((T, top_k), dtype=torch.float32, device=dev)
     ids = torch.empty((T, top_k), dtype=torch.int32, device=dev)
-    order = torch.empty((T, top_k), dtype=torch.int32, device=dev)
-    h = torch.empty((T * top_k, f), dtype=torch.bfloat16, device=dev)
-    part = torch.empty((T * top_k, d), dtype=torch.bfloat16, device=dev)
     lib = LIBS.get("fused_moe_entry")
+    f32 = int(x.dtype == torch.float32)
+    scratch = torch.empty(
+        lib.fused_moe_entry_scratch_bytes(T, d, E, top_k, f, f32),
+        dtype=torch.uint8, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.fused_moe_entry_launch(
         x.data_ptr(), router_w.data_ptr(), logit_bias.data_ptr(),
         slot_of_expert.data_ptr(), s_gate.data_ptr(), s_up.data_ptr(),
         s_down.data_ptr(), gates.data_ptr(), ids.data_ptr(),
-        order.data_ptr(), h.data_ptr(), part.data_ptr(), y.data_ptr(),
-        T, d, E, top_k, f, S, int(norm_topk), stream)
+        scratch.data_ptr(), y.data_ptr(), T, d, E, top_k, f, S,
+        int(norm_topk), f32, stream)
     if err != 0:
         raise RuntimeError(f"fused_moe_entry launch failed with CUDA error "
                            f"{err}")
@@ -142,9 +154,9 @@ def fused_decode_attention(q: torch.Tensor, k_new: torch.Tensor,
                            v_cache: torch.Tensor, cache_len: torch.Tensor, *,
                            logit_softcap: float = 0.0, scale=None):
     """q: (B, 1, Hq, D); k_new / v_new: (B, 1, Hkv, D); caches (B, S, Hkv, D),
-    all bf16; cache_len: () or (B,) int64, the entries cached BEFORE this
-    token (the port's `DecodeState.cache_len`, passed as it is: a () tensor
-    is read with stride 0).
+    all of one dtype, bf16 or f32; cache_len: () or (B,) int64, the entries
+    cached BEFORE this token (the port's `DecodeState.cache_len`, passed as
+    it is: a () tensor is read with stride 0).
 
     Returns (out (B, 1, Hq, D), new k cache, new v cache). The input caches
     are left as they were."""
@@ -158,11 +170,13 @@ def fused_decode_attention(q: torch.Tensor, k_new: torch.Tensor,
     B, _, Hq, D = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
     dev = q.device
-    _need(q, "q", torch.bfloat16, (B, 1, Hq, D), dev)
+    if q.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"q must be bfloat16 or float32, got {q.dtype}")
+    _need(q, "q", q.dtype, (B, 1, Hq, D), dev)
     for name, t in (("k_new", k_new), ("v_new", v_new)):
-        _need(t, name, torch.bfloat16, (B, 1, Hkv, D), dev)
+        _need(t, name, q.dtype, (B, 1, Hkv, D), dev)
     for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
-        _need(t, name, torch.bfloat16, (B, S, Hkv, D), dev)
+        _need(t, name, q.dtype, (B, S, Hkv, D), dev)
     _check_cache_len(cache_len, B, dev)
     if Hq % Hkv or not 1 <= Hq // Hkv <= MAX_GROUP:
         raise ValueError(f"Hq={Hq} must be 1..{MAX_GROUP} times Hkv={Hkv}")
@@ -181,7 +195,7 @@ def fused_decode_attention(q: torch.Tensor, k_new: torch.Tensor,
         v_cache.data_ptr(), cache_len.data_ptr(),
         0 if cache_len.numel() == 1 else 1, out.data_ptr(), kc.data_ptr(),
         vc.data_ptr(), B, S, Hkv, Hq // Hkv, D, ctypes.c_float(scale),
-        ctypes.c_float(logit_softcap), stream)
+        ctypes.c_float(logit_softcap), int(q.dtype == torch.float32), stream)
     if err != 0:
         raise RuntimeError(f"fused_decode_attention launch failed with CUDA "
                            f"error {err}")
@@ -195,17 +209,23 @@ fused_decode_attention.launches = 0
 def fused_mla_decode_attention(q_abs: torch.Tensor, q_pe: torch.Tensor,
                                c_new: torch.Tensor, pe_new: torch.Tensor,
                                latent: torch.Tensor, pe: torch.Tensor,
-                               cache_len: torch.Tensor, *, scale: float):
+                               cache_len: torch.Tensor, *, scale: float,
+                               max_len: Optional[int] = None):
     """q_abs: (B, H, R) fp32 (q_nope absorbed through wkv_b's key half);
-    q_pe: (B, H, P) fp32; c_new: (B, R) / pe_new: (B, P) bf16, this token's
-    latent and rope key; latent: (B, S, R) / pe: (B, S, P) bf16 caches;
-    cache_len: () or (B,) int64, the positions cached BEFORE this token.
+    q_pe: (B, H, P) fp32; c_new: (B, R) / pe_new: (B, P), this token's
+    latent and rope key; latent: (B, S, R) / pe: (B, S, P) caches, the four
+    of one dtype, bf16 or f32; cache_len: () or (B,) int64, the positions
+    cached BEFORE this token.
 
     Returns (ctx (B, H, R) fp32, new latent, new pe): the new row lands at
     position `cache_len` of each row (positional, no ring); the input
-    caches are left as they were. Raises if any `cache_len` is outside
-    [0, S): the cache has no room for the token. On CUDA that check reads
-    the lengths back to the host, one synchronisation per call."""
+    caches are left as they were. Raises if the cache has no room for the
+    token: with `max_len`, a host int the caller knows bounds every
+    `cache_len` from above (the engine's host mirror of the lengths), if
+    max_len >= S, without reading the device; without it, if any
+    `cache_len` is outside [0, S), which on CUDA reads the lengths back to
+    the host (one synchronisation per call). Whatever the lengths, the
+    kernel reads only positions < S and writes only the new caches and ctx."""
     if latent.dim() != 3 or q_abs.dim() != 3:
         raise ValueError("q_abs must be (B, H, R), latent (B, S, R)")
     B, S, R = latent.shape
@@ -215,10 +235,13 @@ def fused_mla_decode_attention(q_abs: torch.Tensor, q_pe: torch.Tensor,
         dev = q_abs.device
         _need(q_abs, "q_abs", torch.float32, (B, H, R), dev)
         _need(q_pe, "q_pe", torch.float32, (B, H, P), dev)
-        _need(c_new, "c_new", torch.bfloat16, (B, R), dev)
-        _need(pe_new, "pe_new", torch.bfloat16, (B, P), dev)
-        _need(latent, "latent", torch.bfloat16, (B, S, R), dev)
-        _need(pe, "pe", torch.bfloat16, (B, S, P), dev)
+        if latent.dtype not in KERNEL_DTYPES:
+            raise TypeError(f"latent must be bfloat16 or float32, got "
+                            f"{latent.dtype}")
+        _need(c_new, "c_new", latent.dtype, (B, R), dev)
+        _need(pe_new, "pe_new", latent.dtype, (B, P), dev)
+        _need(latent, "latent", latent.dtype, (B, S, R), dev)
+        _need(pe, "pe", latent.dtype, (B, S, P), dev)
         _check_cache_len(cache_len, B, dev)
         if not 1 <= H <= MAX_MLA_HEADS:
             raise ValueError(f"H={H} heads: the kernel takes 1.."
@@ -228,10 +251,16 @@ def fused_mla_decode_attention(q_abs: torch.Tensor, q_pe: torch.Tensor,
             raise ValueError(f"latent width {R} and rope width {P} must be "
                              f"multiples of 8, at most {MAX_LATENT} / "
                              f"{MAX_ROPE}")
-    lo, hi = (int(v) for v in torch.stack(torch.aminmax(cache_len)).tolist())
-    if lo < 0 or hi >= S:
-        raise ValueError(f"cache_len in [{lo}, {hi}] does not fit a cache of "
-                         f"{S} positions")
+    if max_len is not None:
+        if max_len >= S:
+            raise ValueError(f"cache_len up to {max_len} does not fit a "
+                             f"cache of {S} positions")
+    else:
+        lo, hi = (int(v) for v in
+                  torch.stack(torch.aminmax(cache_len)).tolist())
+        if lo < 0 or hi >= S:
+            raise ValueError(f"cache_len in [{lo}, {hi}] does not fit a cache "
+                             f"of {S} positions")
     if cpu:
         return fused_mla_decode_attention_ref(q_abs, q_pe, c_new, pe_new,
                                               latent, pe, cache_len,
@@ -255,7 +284,7 @@ def _launch_mla(q_abs, q_pe, c_new, pe_new, latent, pe, cache_len, scale):
         pe_new.data_ptr(), latent.data_ptr(), pe.data_ptr(),
         cache_len.data_ptr(), 0 if cache_len.numel() == 1 else 1,
         ctx.data_ptr(), lat.data_ptr(), pe2.data_ptr(), B, S, H, R, P,
-        ctypes.c_float(scale), stream)
+        ctypes.c_float(scale), int(latent.dtype == torch.float32), stream)
     if err != 0:
         raise RuntimeError(f"fused_mla_decode_attention launch failed with "
                            f"CUDA error {err}")

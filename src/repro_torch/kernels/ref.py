@@ -247,3 +247,84 @@ def fused_mla_decode_attention_ref(q_abs: torch.Tensor, q_pe: torch.Tensor,
     s = torch.where(mask[:, None, :], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhs,bsr->bhr", p, latf), lat, pe2
+
+
+def moe_entry_work_list(ids, slot_of_expert, n_slots: int
+                        ) -> List[Tuple[int, int, List[int]]]:
+    """Python twin of the work list `fused_moe_entry`'s route launch builds
+    on the device (`Work` in csrc/fused_moe_entry.cu): (expert, slot,
+    assignments) for every expert that is routed and resident (slot in
+    [0, n_slots)), in ascending id, its assignments t * k + j in ascending
+    order; their grouped rows follow in that order. ids: (T, k) integers;
+    slot_of_expert: (E,) integers. The expert passes walk it as
+    `ffn_block_tiles` over the per-expert row counts (len(assignments), 0
+    for every other expert), C = T."""
+    flat = [int(e) for e in torch.as_tensor(ids).reshape(-1).tolist()]
+    slots = [int(s) for s in torch.as_tensor(slot_of_expert).tolist()]
+    out = []
+    for e, s in enumerate(slots):
+        rows = [i for i, v in enumerate(flat) if v == e]
+        if 0 <= s < n_slots and rows:
+            out.append((e, s, rows))
+    return out
+
+
+MLA_SPLITS = 8    # blocks a batch row (csrc/fused_mla_decode_attention.cu)
+MLA_CHUNK = 32    # positions a chunk of a block's online softmax
+
+
+def mla_split_merge(q_abs: torch.Tensor, q_pe: torch.Tensor,
+                    c_new: torch.Tensor, pe_new: torch.Tensor,
+                    latent: torch.Tensor, pe: torch.Tensor,
+                    cache_len: torch.Tensor, *, scale: float,
+                    splits: int = MLA_SPLITS, chunk: int = MLA_CHUNK):
+    """Plain-torch twin of the split-S walk of `fused_mla_decode_attention`'s
+    kernel: the function of `fused_mla_decode_attention_ref` computed the
+    kernel's way. Split s of each row owns positions [s per, (s + 1) per),
+    per = ceil(S / splits), and runs an online softmax over its attended
+    positions in chunks of `chunk`; the splits' (max, sum, context) then
+    merge in ascending split order. Returns (ctx fp32, new latent, new pe)."""
+    B, S, R = latent.shape
+    clen = cache_len.reshape(-1).expand(B).long()
+    ins = torch.clamp(clen, -1, S)
+    rows = torch.arange(B, device=latent.device)
+    lat, pe2 = latent.clone(), pe.clone()
+    fits = (ins >= 0) & (ins < S)
+    lat[rows[fits], ins[fits]] = c_new[fits]
+    pe2[rows[fits], ins[fits]] = pe_new[fits]
+    valid = torch.clamp(ins + 1, max=S)
+    q = torch.cat([q_abs, q_pe], -1).float()                  # (B, H, K)
+    kv = torch.cat([lat, pe2], -1).float()                    # (B, S, K)
+    H = q.shape[1]
+    per = -(-S // splits)
+    parts = []
+    for s in range(splits):
+        m = torch.full((B, H), NEG_INF, device=q.device)
+        l = torch.zeros((B, H), device=q.device)
+        acc = torch.zeros((B, H, R), device=q.device)
+        end = min((s + 1) * per, S)
+        for c0 in range(min(s * per, S), end, chunk):
+            c1 = min(c0 + chunk, end)
+            sc = torch.einsum("bhk,bjk->bhj", q, kv[:, c0:c1]) * scale
+            live = (torch.arange(c0, c1, device=q.device)[None, :]
+                    < valid[:, None])[:, None, :]             # (B, 1, n)
+            mx = torch.where(live, sc, torch.full_like(sc, NEG_INF)).amax(-1)
+            m_new = torch.maximum(m, mx)
+            corr = torch.exp(m - m_new)
+            p = torch.where(live, torch.exp(sc - m_new[..., None]),
+                            torch.zeros_like(sc))
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhj,bjr->bhr", p, kv[:, c0:c1, :R])
+            m = m_new
+        parts.append((m, l, acc))
+    mx = parts[0][0]
+    for m, _, _ in parts[1:]:
+        mx = torch.maximum(mx, m)
+    total = torch.zeros_like(parts[0][1])
+    ctx = torch.zeros_like(parts[0][2])
+    for m, l, acc in parts:
+        w = torch.exp(m - mx)
+        total = total + l * w
+        ctx = ctx + acc * w[..., None]
+    return ctx / torch.clamp(total, min=1e-20)[..., None], lat, pe2

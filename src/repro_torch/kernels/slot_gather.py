@@ -5,7 +5,8 @@ The expert weights live in a bounded slot buffer (S < E slots); an
 tensor `slot_ffn` launches the hand-written Hopper kernel
 (`csrc/slot_ffn.cu`), which chases the table inside the kernel; on a CPU
 tensor it runs the plain version (`kernels.ref.slot_ffn_ref`) with the same
-arithmetic. Any other device raises. With per-expert row counts the kernel
+arithmetic. bf16 and f32 run on the card, as in the reference; any other
+dtype or device raises. With per-expert row counts the kernel
 computes only the rows that hold tokens, and an expert whose count is 0
 (empty, or not resident) reads neither its rows nor its weights.
 """
@@ -17,6 +18,8 @@ import torch
 
 from repro_torch.kernels.build import LIBS
 from repro_torch.kernels.ref import slot_ffn_ref
+
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def _check(x, slot_of_expert, s_gate, s_up, s_down, counts):
@@ -30,10 +33,12 @@ def _check(x, slot_of_expert, s_gate, s_up, s_down, counts):
     if tuple(slot_of_expert.shape) != (E,):
         raise ValueError(f"slot_of_expert must be ({E},), got "
                          f"{tuple(slot_of_expert.shape)}")
+    if x.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"x must be bfloat16 or float32, got {x.dtype}")
     for name, t in (("x", x), ("s_gate", s_gate), ("s_up", s_up),
                     ("s_down", s_down)):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name} must be bfloat16, got {t.dtype}")
+        if t.dtype != x.dtype:
+            raise TypeError(f"{name} must be {x.dtype} as x, got {t.dtype}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
         if t.device != x.device:
@@ -55,8 +60,10 @@ def _check(x, slot_of_expert, s_gate, s_up, s_down, counts):
 def slot_ffn(x: torch.Tensor, slot_of_expert: torch.Tensor,
              s_gate: torch.Tensor, s_up: torch.Tensor, s_down: torch.Tensor,
              counts: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x: (E, C, D) bf16 dispatch buffer; slot_of_expert: (E,) int32 slots in
-    [0, S); slot buffers (S, D, F) / (S, F, D) bf16. Returns (E, C, D) fp32.
+    """x: (E, C, D) dispatch buffer; slot_of_expert: (E,) int32 slots in
+    [0, S); slot buffers (S, D, F) / (S, F, D) of x's dtype, bf16 (the TMA +
+    wgmma GEMM) or f32 (a CUDA-core GEMM over the same tiles). Returns
+    (E, C, D) fp32.
 
     `counts`: optional (E,) int32 tensor on x's device, the rows of x[e]
     that hold tokens (its first counts[e] rows). None computes all C rows,
@@ -77,10 +84,12 @@ def slot_ffn(x: torch.Tensor, slot_of_expert: torch.Tensor,
     out = torch.empty((E, C, D), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
-    h = torch.empty((E, C, F), dtype=torch.bfloat16, device=x.device)
+    h = torch.empty((E, C, F), dtype=x.dtype, device=x.device)
     lib = LIBS.get("slot_ffn")
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.slot_ffn_launch(
+    launch = (lib.slot_ffn_launch if x.dtype == torch.bfloat16
+              else lib.slot_ffn_f32_launch)
+    err = launch(
         x.data_ptr(), slot_of_expert.data_ptr(),
         None if counts is None else counts.data_ptr(), s_gate.data_ptr(),
         s_up.data_ptr(), s_down.data_ptr(), h.data_ptr(), out.data_ptr(),

@@ -11,6 +11,8 @@ ported yet.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels.decode_superkernel import fused_mla_decode_attention
@@ -263,7 +265,7 @@ def mla_prefill_chunk(params, h: torch.Tensor, positions: torch.Tensor,
 def mla_decode(params, x: torch.Tensor, latent_cache: torch.Tensor,
                pe_cache: torch.Tensor, cache_len: torch.Tensor, *, mla,
                rope_theta: float, norm_eps: float = 1e-6,
-               use_kernel: bool = False):
+               use_kernel: bool = False, max_len: Optional[int] = None):
     """One-token MLA decode over the compressed cache, weight-absorbed.
 
     x: (B, 1, d); latent_cache: (B, S, R); pe_cache: (B, S, 1, P);
@@ -277,7 +279,9 @@ def mla_decode(params, x: torch.Tensor, latent_cache: torch.Tensor,
       out         = ((sum_s p[h, s] c[s]) @ Wv[h]) @ Wo
 
     `use_kernel=True` inserts and attends in one `fused_mla_decode_attention`
-    call; otherwise the same in torch ops. Returns (out (B, 1, d) in x's
+    call (`max_len`: a host int bounding every `cache_len`, which spares the
+    kernel's wrapper a device read of the lengths); otherwise the same in
+    torch ops. Returns (out (B, 1, d) in x's
     dtype, new latent cache, new pe cache)."""
     B = x.shape[0]
     nope, rope_d = mla.qk_nope_head_dim, mla.qk_rope_head_dim
@@ -295,7 +299,8 @@ def mla_decode(params, x: torch.Tensor, latent_cache: torch.Tensor,
         ctx, latent_cache, pe_sq = fused_mla_decode_attention(
             q_abs.contiguous(), q_pe[:, 0].float().contiguous(),
             c_new[:, 0].contiguous(), pe_new[:, 0, 0].contiguous(),
-            latent_cache, pe_cache[:, :, 0], cache_len, scale=scale)
+            latent_cache, pe_cache[:, :, 0], cache_len, scale=scale,
+            max_len=max_len)
         pe_cache = pe_sq[:, :, None]
     else:
         rows = torch.arange(B, device=x.device)

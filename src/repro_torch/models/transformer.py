@@ -251,7 +251,8 @@ def layer_prefill_chunk(p, cfg: ModelConfig, spec: LayerSpec,
 
 
 def layer_decode(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
-                 cache, cache_len: torch.Tensor, use_kernel: bool = False):
+                 cache, cache_len: torch.Tensor, use_kernel: bool = False,
+                 max_len: Optional[int] = None):
     """One-token layer step. x: (B, 1, d). Returns (x, new_cache).
 
     `cache_len` is a () tensor (all rows at one position) or a (B,) tensor
@@ -262,7 +263,9 @@ def layer_decode(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
 
     `use_kernel=True` runs the insert and the attention in one
     `fused_decode_attention` (GQA) or `fused_mla_decode_attention` (MLA)
-    call, which writes the new caches itself."""
+    call, which writes the new caches itself; `max_len`, a host int that
+    bounds every `cache_len`, lets the MLA kernel's wrapper check the room
+    in the cache without reading the lengths from the device."""
     _check_supported(cfg, spec)
     B = x.shape[0]
     h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
@@ -270,7 +273,7 @@ def layer_decode(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
         mix, lat, pe = attn_mod.mla_decode(
             p["attn"], h, cache["latent"], cache["pe"], cache_len,
             mla=cfg.mla, rope_theta=cfg.rope_theta, norm_eps=cfg.norm_eps,
-            use_kernel=use_kernel)
+            use_kernel=use_kernel, max_len=max_len)
         return _decode_ffn(p, cfg, x + mix), dict(cache, latent=lat, pe=pe)
     size = cache["k"].shape[1]
     clen = cache_len.reshape(-1).expand(B)

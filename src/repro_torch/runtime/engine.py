@@ -1090,7 +1090,8 @@ class SlotBufferEngine:
 
     def _sk_seg(self, seg: List[int], ps, seg_caches, x, clen, slot_weights,
                 slot_map, routers_next, bias, active=None, *,
-                first: bool = False, with_logits: bool = False):
+                first: bool = False, with_logits: bool = False,
+                max_len: Optional[int] = None):
         """One decode segment: (embed the tokens if first) -> its dense
         layers -> the MoE layer's attention, each attention through
         `fused_decode_attention` (GQA) or `fused_mla_decode_attention` (MLA)
@@ -1099,19 +1100,22 @@ class SlotBufferEngine:
         the (1 + s, E) mask block (row 0 the experts routed to over `active`
         rows, rows 1.. the top-(k + margin) pre-gate of the next s routers).
         `with_logits`: the last segment of an all-MoE stack also computes
-        the final-norm logits. Returns (x, masks, new caches, logits)."""
+        the final-norm logits. `max_len`: the host's bound on `clen` (its
+        mirror of the lengths), passed to MLA's kernel so that it reads no
+        length back from the device. Returns (x, masks, new caches,
+        logits)."""
         cfg = self.cfg
         if first:
             x = self._embed_decode(x)
         new_caches = []
         for j, i in enumerate(seg[:-1]):
             x, c = layer_decode(ps[j], cfg, self.specs[i], x, seg_caches[j],
-                                clen, use_kernel=True)
+                                clen, use_kernel=True, max_len=max_len)
             new_caches.append(c)
         p = ps[-1]
         stripped, spec_nf = split_ffn_params(p, self.specs[seg[-1]])
         x, c = layer_decode(stripped, cfg, spec_nf, x, seg_caches[-1], clen,
-                            use_kernel=True)
+                            use_kernel=True, max_len=max_len)
         new_caches.append(c)
         B, T, d = x.shape
         flat = rms_norm(x, p["ffn_norm"], cfg.norm_eps).reshape(-1, d)
@@ -1143,6 +1147,7 @@ class SlotBufferEngine:
         self.stats.steps += 1
         tok = torch.as_tensor(tok, device=self.device)
         caches, clen = list(state.caches), state.cache_len
+        max_len = int(np.max(state.pos))     # the host mirror of clen
         segs, tail = self._sk_segments()
         if tail:
             raise NotImplementedError(
@@ -1233,7 +1238,7 @@ class SlotBufferEngine:
                 [caches[j] for j in seg], x_in, clen, self.buffer,
                 torch.from_numpy(slot_map).to(self.device),
                 self._router_stack[li + 1: li + 1 + s], self._zero_bias,
-                active_dev, first=first, with_logits=last)
+                active_dev, first=first, with_logits=last, max_len=max_len)
             if last:
                 logits = lg
             for jj, aj in enumerate(seg):

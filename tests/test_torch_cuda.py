@@ -62,6 +62,8 @@ def test_slot_ffn_kernel_matches_plain_version(gen, shape):
 def test_slot_ffn_wrapper_rejects_what_the_kernel_does_not_take(gen):
     x, slot, wg, wu, wd = _inputs(gen, 2, 4, 64, 32, 3)
     with pytest.raises(TypeError):
+        slot_gather.slot_ffn(x.half(), slot, wg.half(), wu.half(), wd.half())
+    with pytest.raises(TypeError):
         slot_gather.slot_ffn(x.float(), slot, wg, wu, wd)
     with pytest.raises(TypeError):
         slot_gather.slot_ffn(x, slot.long(), wg, wu, wd)
@@ -240,6 +242,9 @@ def test_fused_decode_attention_kernel_matches_plain_version(gen, case,
 def test_superkernel_wrappers_reject_what_the_kernels_do_not_take(gen):
     x, rw, bias, soe, sg, su, sd = _moe_args(gen, 4, 64, 8, 32, 4, 4)
     with pytest.raises(TypeError):
+        dsk.fused_moe_entry(x.half(), rw, bias, soe, sg.half(), su.half(),
+                            sd.half(), top_k=2)
+    with pytest.raises(TypeError):
         dsk.fused_moe_entry(x.float(), rw, bias, soe, sg, su, sd, top_k=2)
     with pytest.raises(TypeError):
         dsk.fused_moe_entry(x, rw, bias, soe.long(), sg, su, sd, top_k=2)
@@ -256,6 +261,9 @@ def test_superkernel_wrappers_reject_what_the_kernels_do_not_take(gen):
     q, kn, vn = r(2, 1, 4, 32), r(2, 1, 2, 32), r(2, 1, 2, 32)
     kc, vc = r(2, 16, 2, 32), r(2, 16, 2, 32)
     clen = torch.tensor([3, 9], device="cuda")
+    with pytest.raises(TypeError):
+        dsk.fused_decode_attention(q.half(), kn.half(), vn.half(), kc.half(),
+                                   vc.half(), clen)
     with pytest.raises(TypeError):
         dsk.fused_decode_attention(q.float(), kn, vn, kc, vc, clen)
     with pytest.raises(TypeError):
@@ -357,6 +365,9 @@ def test_fused_mla_decode_attention_wrapper_rejects(gen):
     call = dsk.fused_mla_decode_attention
     with pytest.raises(TypeError):
         call(q.bfloat16(), qp, cn, pn, lat, pe, clen, scale=0.2)
+    with pytest.raises(TypeError):
+        call(q, qp, cn.half(), pn.half(), lat.half(), pe.half(), clen,
+             scale=0.2)
     with pytest.raises(TypeError):
         call(q, qp, cn.float(), pn, lat, pe, clen, scale=0.2)
     with pytest.raises(TypeError):
@@ -492,7 +503,9 @@ def test_slot_ffn_identity_table_equals_expert_ffn_bitwise(gen):
 def test_expert_ffn_wrapper_rejects_what_the_kernel_does_not_take(gen):
     x, wg, wu, wd = _ffn_inputs(gen, 2, 4, 64, 32)
     with pytest.raises(TypeError):
-        ops.expert_ffn(x.float(), wg.float(), wu.float(), wd.float())
+        ops.expert_ffn(x.half(), wg.half(), wu.half(), wd.half())
+    with pytest.raises(TypeError):
+        ops.expert_ffn(x.float(), wg, wu, wd)
     with pytest.raises(ValueError):
         ops.expert_ffn(x, wg.transpose(1, 2), wu, wd)
     x2, wg2, wu2, wd2 = _ffn_inputs(gen, 2, 4, 60, 32)
@@ -525,3 +538,165 @@ def test_chunked_prefill_bitwise_vs_oracle_on_the_card(gen):
     # once more)
     assert slot_gather.slot_ffn.launches - before == \
         2 * n_chunks * len(eng.moe_layer_ids)
+
+
+# ---------------------------------------------------------------------------
+# the f32 paths: each kernel in f32 against its plain version, to the
+# reference's own f32 tolerance (2e-5); caches bitwise equal
+# ---------------------------------------------------------------------------
+
+TOL_F32 = 2e-5
+
+
+def _f32(*ts):
+    return tuple(t.float() if t.is_floating_point() else t for t in ts)
+
+
+@pytest.mark.parametrize("shape", [(4, 1, 8, 64, 2048, 1024, 256),
+                                   (1, 5, 2, 3, 96, 40, 4)],
+                         ids=["decode", "ragged"])
+def test_slot_ffn_f32_matches_plain_version(gen, shape):
+    args, counts = _routed_inputs(gen, *shape)
+    args = _f32(*args)
+    got = slot_gather.slot_ffn(*args, counts=counts)
+    again = slot_gather.slot_ffn(*args, counts=counts)
+    every_row = slot_gather.slot_ffn(*args)
+    want = slot_ffn_ref(*args, counts=counts)
+    torch.cuda.synchronize()
+    live = (torch.arange(args[0].shape[1], device="cuda")[None, :]
+            < counts.long()[:, None])[..., None]
+    counted = lambda y: torch.where(live, y, 0)  # noqa: E731
+    torch.testing.assert_close(counted(got), want, rtol=TOL_F32,
+                               atol=TOL_F32)
+    torch.testing.assert_close(every_row, slot_ffn_ref(*args),
+                               rtol=TOL_F32, atol=TOL_F32)
+    assert torch.equal(counted(got), counted(again))
+    assert torch.equal(counted(got), counted(every_row))
+
+
+@pytest.mark.parametrize("shape", [(3, 40, 64, 48), (8, 128, 256, 128)])
+def test_expert_ffn_f32_matches_plain_version(gen, shape):
+    args = _f32(*_ffn_inputs(gen, *shape))
+    got = ops.expert_ffn(*args)
+    want = expert_ffn_ref(*args)
+    ident = torch.arange(shape[0], dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=TOL_F32, atol=TOL_F32)
+    assert torch.equal(got, ops.slot_ffn(args[0], ident, *args[1:]))
+
+
+@pytest.mark.parametrize("case", [(4, 2048, 64, 1024, 256, 16, 8),
+                                  (5, 48, 8, 72, 6, 5, 2)],
+                         ids=["decode_16_resident", "off_tile"])
+def test_fused_moe_entry_f32_matches_plain_version(gen, case):
+    T, d, E, f, S, n_res, k = case
+    args = _f32(*_moe_args(gen, T, d, E, f, S, n_res))
+    y, g, i = dsk.fused_moe_entry(*args, top_k=k)
+    y2, g2, i2 = dsk.fused_moe_entry(*args, top_k=k)
+    yr, gr, ir = fused_moe_entry_ref(*args, top_k=k)
+    torch.cuda.synchronize()
+    assert torch.equal(i, ir)
+    torch.testing.assert_close(g, gr, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(y, yr, rtol=TOL_F32, atol=TOL_F32)
+    assert torch.equal(y, y2) and torch.equal(g, g2) and torch.equal(i, i2)
+
+
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+def test_fused_decode_attention_f32_matches_plain_version(gen, softcap):
+    clens, Hq, Hkv, S, D = [0, 63, 128, 300], 8, 2, 256, 128
+    r = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa: E731
+    B = len(clens)
+    args = (r(B, 1, Hq, D), r(B, 1, Hkv, D), r(B, 1, Hkv, D),
+            r(B, S, Hkv, D), r(B, S, Hkv, D),
+            torch.tensor(clens, device="cuda"))
+    o, kc, vc = dsk.fused_decode_attention(*args, logit_softcap=softcap)
+    orf, kr, vr = fused_decode_attention_ref(*args, logit_softcap=softcap)
+    torch.cuda.synchronize()
+    assert o.dtype == torch.float32
+    assert torch.equal(kc, kr) and torch.equal(vc, vr)
+    torch.testing.assert_close(o, orf, rtol=TOL_F32, atol=TOL_F32)
+
+
+@pytest.mark.parametrize("case", [([0, 63, 128, 255], 256, 16, 512, 64),
+                                  ([100, 7], 130, 3, 40, 16)],
+                         ids=["deepseek_decode", "off_tile"])
+def test_fused_mla_decode_attention_f32_matches_plain_version(gen, case):
+    clens, S, H, R, P = case
+    args = _f32(*_mla_args(gen, clens, S, H, R, P))
+    ctx, lat, pe = dsk.fused_mla_decode_attention(*args, scale=0.1)
+    ctx2, _, _ = dsk.fused_mla_decode_attention(*args, scale=0.1)
+    cr, lr, pr = fused_mla_decode_attention_ref(*args, scale=0.1)
+    torch.cuda.synchronize()
+    assert lat.dtype == torch.float32
+    assert torch.equal(lat, lr) and torch.equal(pe, pr)
+    torch.testing.assert_close(ctx, cr, rtol=TOL_F32, atol=TOL_F32)
+    assert torch.equal(ctx, ctx2)
+
+
+# ---------------------------------------------------------------------------
+# the redesigned fused_moe_entry and fused_mla_decode_attention
+# ---------------------------------------------------------------------------
+
+def test_mla_wrapper_with_the_host_bound_never_synchronises(gen):
+    args = _mla_args(gen, [0, 63, 128, 255], 256, 16, 512, 64)
+    want = dsk.fused_mla_decode_attention(*args, scale=0.1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = dsk.fused_mla_decode_attention(*args, scale=0.1, max_len=255)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def _nan_fill_allocator():
+    """Fill the caching allocator's free blocks with NaN, so scratch and
+    outputs a kernel leaves unwritten show up."""
+    junk = [torch.full((1 << n,), float("nan"), device="cuda")
+            for n in range(10, 25) for _ in range(4)]
+    del junk
+
+
+@pytest.mark.parametrize("case", [(4, 2048, 64, 1024, 256, 16, 8),
+                                  (64, 2048, 64, 1024, 256, 64, 8),
+                                  (3, 64, 8, 72, 4, 0, 2)],
+                         ids=["decode_16_resident", "t64_all_resident",
+                              "none_resident"])
+def test_fused_moe_entry_over_nan_filled_scratch(gen, case):
+    """Every y element is written (tokens with no resident expert get 0),
+    the work list is rebuilt each call, the result is the same from run to
+    run, and a weight slab is read once whatever an expert's row count
+    (T = 64: up to 64 rows an expert, same bits as the plain version's
+    tolerance allows)."""
+    T, d, E, f, S, n_res, k = case
+    args = _moe_args(gen, T, d, E, f, S, n_res)
+    _nan_fill_allocator()
+    y, g, i = dsk.fused_moe_entry(*args, top_k=k)
+    _nan_fill_allocator()
+    y2, g2, i2 = dsk.fused_moe_entry(*args, top_k=k)
+    yr, gr, ir = fused_moe_entry_ref(*args, top_k=k)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all() and torch.isfinite(g).all()
+    assert torch.equal(i, ir)
+    torch.testing.assert_close(y, yr, rtol=TOL, atol=TOL)
+    assert torch.equal(y, y2) and torch.equal(g, g2) and torch.equal(i, i2)
+    if n_res == 0:
+        assert not y.any() and not g.any()
+
+
+@pytest.mark.parametrize("clens", [[0, 63, 128, 255], [255] * 4, [0] * 4])
+def test_fused_mla_decode_attention_over_nan_filled_scratch(gen, clens):
+    """Every ctx element and every position of the new caches is written,
+    and the split merge gives the same bits from run to run."""
+    args = _mla_args(gen, clens, 256, 16, 512, 64)
+    _nan_fill_allocator()
+    ctx, lat, pe = dsk.fused_mla_decode_attention(*args, scale=0.1)
+    _nan_fill_allocator()
+    ctx2, lat2, pe2 = dsk.fused_mla_decode_attention(*args, scale=0.1)
+    cr, lr, pr = fused_mla_decode_attention_ref(*args, scale=0.1)
+    torch.cuda.synchronize()
+    assert torch.isfinite(ctx).all()
+    assert torch.equal(lat, lr) and torch.equal(pe, pr)
+    torch.testing.assert_close(ctx, cr, rtol=2e-4, atol=2e-4)
+    assert torch.equal(ctx, ctx2) and torch.equal(lat, lat2)

@@ -83,7 +83,17 @@ MOE_CASES = {
     "T4_E16_S5_k4": (4, 16, 5, 4, 64, 128),
     "T1_E8_S3_k8": (1, 8, 3, 8, 64, 128),
     "off_tile_d48_f72": (5, 4, 3, 2, 48, 72),
+    # f32 tokens and slot buffers, as the reference's own f32 test
+    "f32_off_tile_d48_f72": (5, 4, 3, 2, 48, 72),
+    "f32_T4_E16_S5_k4": (4, 16, 5, 4, 64, 128),
 }
+TOL_F32 = 2e-5      # the reference's f32 tolerance: no bf16 rounding
+
+
+def _f32(args):
+    """The same inputs with the bf16 arrays widened to f32."""
+    return tuple(a.astype(np.float32) if a.dtype == _bf16(0).dtype else a
+                 for a in args)
 
 
 @pytest.mark.parametrize("norm", [True, False])
@@ -91,6 +101,9 @@ MOE_CASES = {
 def test_fused_moe_entry_plain_matches_reference_kernel(case, norm):
     T, E, S, k, d, f = MOE_CASES[case]
     args = _moe_inputs(T * E + k, T, E, S, d, f)
+    tol = TOL_Y
+    if case.startswith("f32"):
+        args, tol = _f32(args), TOL_F32
     x, rw, bias, soe, sg, su, sd = args
     yj, gj, ij = jax_ops.fused_moe_entry(
         *(jnp.asarray(a) for a in (x, rw, bias, soe, sg, su, sd)),
@@ -101,8 +114,8 @@ def test_fused_moe_entry_plain_matches_reference_kernel(case, norm):
     np.testing.assert_array_equal(i.numpy(), np.asarray(ij))
     np.testing.assert_allclose(g.numpy(), np.asarray(gj), rtol=TOL_GATES,
                                atol=TOL_GATES)
-    np.testing.assert_allclose(y.numpy(), np.asarray(yj), rtol=TOL_Y,
-                               atol=TOL_Y)
+    np.testing.assert_allclose(y.numpy(), np.asarray(yj), rtol=tol,
+                               atol=tol)
     # absent experts: gate exactly 0
     assert (g.numpy()[soe[i.numpy()] < 0] == 0).all()
 
@@ -171,6 +184,9 @@ ATTN_CASES = {
     "wrapped": ([16, 25], 16, 4, 4, 32),
     "gqa_G2": ([5, 0, 12], 16, 4, 2, 32),
     "gqa_G4_two_chunks": ([200, 130], 256, 8, 2, 16),
+    # f32 q, k, v and caches, as the reference's own f32 tests
+    "f32_gqa_G2": ([0, 3, 7, 16], 16, 4, 2, 32),
+    "f32_gqa_G4_two_chunks": ([200, 130], 256, 8, 2, 16),
 }
 
 
@@ -190,6 +206,9 @@ def _attn_inputs(seed, clens, S, Hq, Hkv, D):
 def test_fused_decode_attention_plain_matches_reference_kernel(case,
                                                                softcap):
     args = _attn_inputs(len(case), *ATTN_CASES[case])
+    f32 = case.startswith("f32")
+    if f32:
+        args = _f32(args)
     q, kn, vn, kc, vc, clen = args
     oj, kj, vj = jax_ops.fused_decode_attention(
         *(jnp.asarray(a) for a in (q, kn, vn, kc, vc)),
@@ -198,14 +217,18 @@ def test_fused_decode_attention_plain_matches_reference_kernel(case,
     o, k2, v2 = dsk.fused_decode_attention(
         to_tensor(q), to_tensor(kn), to_tensor(vn), kc_t, vc_t,
         to_tensor(clen), logit_softcap=softcap)
-    assert o.dtype == torch.bfloat16
-    np.testing.assert_array_equal(k2.view(torch.uint16).numpy(),
-                                  np.asarray(kj).view(np.uint16))
-    np.testing.assert_array_equal(v2.view(torch.uint16).numpy(),
-                                  np.asarray(vj).view(np.uint16))
+    assert o.dtype == (torch.float32 if f32 else torch.bfloat16)
+    bits = np.uint32 if f32 else np.uint16
+    np.testing.assert_array_equal(k2.numpy().view(bits) if f32 else
+                                  k2.view(torch.uint16).numpy(),
+                                  np.asarray(kj).view(bits))
+    np.testing.assert_array_equal(v2.numpy().view(bits) if f32 else
+                                  v2.view(torch.uint16).numpy(),
+                                  np.asarray(vj).view(bits))
+    tol = TOL_F32 if f32 else TOL_Y
     np.testing.assert_allclose(o.float().numpy(),
                                np.asarray(oj).astype(np.float32),
-                               rtol=TOL_Y, atol=TOL_Y)
+                               rtol=tol, atol=tol)
     # the input caches are left as they were
     assert torch.equal(kc_t, to_tensor(kc))
     assert torch.equal(vc_t, to_tensor(vc))

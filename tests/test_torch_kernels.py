@@ -42,7 +42,12 @@ CASES = {
     "ragged": dict(E=3, C=5, D=96, F=40, S=4),
     "duplicate_slots": dict(E=4, C=8, D=64, F=32, S=3, table=[1, 1, 2, 1]),
     "clamped_slot0": dict(E=4, C=8, D=64, F=32, S=4, table=[0, 0, 3, 0]),
+    # f32 x and slot buffers: the reference's f32 tolerance, 2e-5
+    "f32_aligned": dict(E=4, C=16, D=64, F=32, S=6),
+    "f32_duplicate_slots": dict(E=4, C=8, D=64, F=32, S=3,
+                                table=[1, 1, 2, 1]),
 }
+TOL_F32 = 2e-5
 
 
 @pytest.mark.parametrize("name", list(CASES))
@@ -50,10 +55,14 @@ def test_slot_ffn_plain_matches_reference_kernel(name):
     c = CASES[name]
     x, soe, wg, wu, wd = _inputs(7, c["E"], c["C"], c["D"], c["F"], c["S"],
                                  c.get("table"))
+    tol = TOL
+    if name.startswith("f32"):
+        x, wg, wu, wd = (a.astype(np.float32) for a in (x, wg, wu, wd))
+        tol = TOL_F32
     want = _jax_slot_ffn(x, soe, wg, wu, wd)
     got = slot_gather.slot_ffn(*(to_tensor(a) for a in (x, soe, wg, wu, wd)))
     assert got.dtype == torch.float32 and got.shape == want.shape
-    np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(got.numpy(), want, rtol=tol, atol=tol)
 
 
 def test_slot_ffn_cpu_path_is_plain_version_and_not_counted():

@@ -99,7 +99,11 @@ MLA_CASES = {
     "ragged_0_and_S-1": ([0, 7, 15], 16, 4, 32, 8),
     "two_chunks": ([200, 255, 0, 130], 256, 4, 32, 8),
     "deepseek_decode_shape": ([0, 63, 128, 255], 256, 16, 512, 64),
+    # f32 c_new, pe_new, latent and pe, as the reference's own f32 test
+    "f32_ragged_0_and_S-1": ([0, 5, 15], 16, 4, 32, 8),
+    "f32_two_chunks": ([200, 255, 0, 130], 256, 4, 32, 8),
 }
+TOL_F32 = 2e-5      # the reference's f32 tolerance
 
 
 def _mla_inputs(seed, clens, S, H, R, P):
@@ -118,6 +122,10 @@ def _mla_inputs(seed, clens, S, H, R, P):
 def test_fused_mla_decode_attention_plain_matches_reference_kernel(case):
     clens, S, H, R, P = MLA_CASES[case]
     args = _mla_inputs(len(case), clens, S, H, R, P)
+    f32 = case.startswith("f32")
+    if f32:
+        args = tuple(a.astype(np.float32) if a.dtype == _bf16(0).dtype
+                     else a for a in args)
     scale = float(R + P) ** -0.5
     cj, lj, pj = jax_ops.fused_mla_decode_attention(
         *(jnp.asarray(a) for a in args[:6]), jnp.asarray(args[6], jnp.int32),
@@ -126,11 +134,17 @@ def test_fused_mla_decode_attention_plain_matches_reference_kernel(case):
     before = dsk.fused_mla_decode_attention.launches
     ctx, lat, pe = dsk.fused_mla_decode_attention(*t, scale=scale)
     assert dsk.fused_mla_decode_attention.launches == before   # CPU: plain
-    assert ctx.dtype == torch.float32 and lat.dtype == torch.bfloat16
-    np.testing.assert_array_equal(_u16(lat), _u16(lj))
-    np.testing.assert_array_equal(_u16(pe), _u16(pj))
-    np.testing.assert_allclose(ctx.numpy(), np.asarray(cj), rtol=TOL_CTX,
-                               atol=TOL_CTX)
+    assert ctx.dtype == torch.float32
+    assert lat.dtype == (torch.float32 if f32 else torch.bfloat16)
+    if f32:
+        np.testing.assert_array_equal(lat.numpy(), np.asarray(lj))
+        np.testing.assert_array_equal(pe.numpy(), np.asarray(pj))
+    else:
+        np.testing.assert_array_equal(_u16(lat), _u16(lj))
+        np.testing.assert_array_equal(_u16(pe), _u16(pj))
+    tol = TOL_F32 if f32 else TOL_CTX
+    np.testing.assert_allclose(ctx.numpy(), np.asarray(cj), rtol=tol,
+                               atol=tol)
     # positional insert, and the input caches are left as they were
     for b, c in enumerate(clens):
         assert torch.equal(lat[b, c], t[2][b]) and torch.equal(pe[b, c],
