@@ -11,17 +11,21 @@ the last line:
    `fused_decode_attention`, `fused_mla_decode_attention`, `topk_gating`,
    `expert_ffn`), from `src/repro_torch/kernels/csrc`, one nvcc per
    source, all at once; each entry function's registers, static shared
-   memory and spills as ptxas reports them, and how many HGMMA (wgmma) and
-   UTMALDG (TMA load) instructions the `slot_ffn` and `expert_ffn`
+   memory and spills as ptxas reports them, and how many HGMMA (wgmma),
+   UTMALDG (TMA load) and TF32 HMMA (the f32 path's 3xTF32 mma.sync)
+   instructions the `slot_ffn`, `expert_ffn` and `fused_moe_entry`
    libraries' SASS holds (`cuobjdump -sass`; "not checked" without it);
 3. kernels: each kernel against its plain PyTorch version on the card at
    its paths' shapes, with CUDA-event medians of the kernel, the plain
    version and a library yardstick (timed only; the port never calls it),
    and the kernel's bound (the larger of needed bytes / 3.35 TB/s and
-   needed operations over the H100 SXM peak for their type). The five
+   needed operations over the H100 SXM peak for their type; the f32 SwiGLU
+   GEMM's as 3xTF32, three TF32 products at 495 TFLOP/s), with the SwiGLU
+   GEMM rows' achieved TB/s and TFLOP/s. The five
    kernels the reference also runs in f32 (all but `topk_gating`, which
-   takes fp32 logits anyway) are checked in f32 too (`f32_*` shapes), to
-   the reference's f32 tolerance, 2e-5:
+   takes fp32 logits anyway) are checked in f32 too (`f32_*` shapes, each
+   GEMM's launches timed by the profiler), to the reference's f32
+   tolerance, 2e-5:
    - `slot_ffn` at olmoe-1b-7b decode (batch 4), prefill (128 tokens), one
      32-token prefill chunk (every routed expert resident, and 16 of 64
      experts resident as serving meets it) and a ragged shape, and at
@@ -34,12 +38,17 @@ the last line:
      routed expert resident and with 16 resident experts per layer (some
      routed ones absent), bias zeros and nonzero, at DeepSeek-V2-Lite
      decode (T=4, top-6, 416 slots) and at T=64 (up to 64 rows an expert,
-     each weight panel still read once an expert): ids equal, gates within
-     1e-6, y within 2e-2, with each of its three launches' device time
+     each weight panel still read once an expert), and in f32 at T=4 and
+     T=128 (the f32 GEMM's wgmma route): ids equal, gates within
+     1e-6, y within 2e-2 (f32: 2e-5), deterministic, with each of its three launches' device time
      from a `torch.profiler` trace (`launch_split`);
    - `fused_decode_attention` at B=4, Hq=Hkv=16, D=128, S=256 with cache
-     lengths 0, 63, 128, 255, a wrapped ring (lengths >= S) and a GQA shape
-     (G=4), softcap 0 and 30: new caches bitwise equal, out within 2e-2;
+     lengths 0, 63, 128, 255, a wrapped ring (lengths >= S), GQA shapes
+     (G=4; G=16 at D=64 and D=256 with every length 0), S=130 (no multiple
+     of the 8 splits), S=2048 and one () length, softcap 0 and 30: new
+     caches bitwise equal, out finite and within 2e-2, with the kernel's
+     device time (profiler) and a clone + insert + SDPA yardstick
+     (`enable_gqa` where G > 1);
    - `fused_mla_decode_attention` at DeepSeek-V2-Lite decode (B=4, H=16,
      R=512, P=64, S=256) with cache lengths 0, 63, 128, 255 and with every
      row at S - 1: new caches bitwise equal, ctx within 2e-4; its time is
@@ -126,6 +135,7 @@ SRC = ROOT / "src"
 H100_BYTES_PER_S = 3.35e12        # HBM3, H100 SXM data sheet
 H100_BF16_FLOP_PER_S = 989e12     # dense bf16 tensor cores, H100 SXM
 H100_FP32_FLOP_PER_S = 67e12      # fp32 outside the tensor cores, H100 SXM
+H100_TF32_FLOP_PER_S = 495e12     # dense TF32 tensor cores, H100 SXM
 TOL = 2e-2
 TOL_F32 = 2e-5     # the f32 paths: the reference's own f32 tolerance
 TOL_GATES = 1e-6
@@ -199,6 +209,19 @@ def bound(nbytes, ops):
                                  else "operations")
 
 
+def gemm_ops(flops, f32):
+    """The SwiGLU GEMM's operations for `bound`: bf16 products on the
+    tensor cores, or f32 as 3xTF32 (three TF32 products a multiply-add)."""
+    return ([(3 * flops, H100_TF32_FLOP_PER_S)] if f32
+            else [(flops, H100_BF16_FLOP_PER_S)])
+
+
+def rates(nbytes, flops, ms):
+    """Achieved TB/s and TFLOP/s of `nbytes` and `flops` done in `ms`."""
+    return {"achieved_tb_s": nbytes / ms / 1e9,
+            "achieved_tflop_s": flops / ms / 1e9}
+
+
 def kernel_name(mangled):
     """The `...kernel` identifier of a mangled entry-function name, with its
     first template argument (`swiglu_gemm_kernel<1>`)."""
@@ -218,9 +241,11 @@ def kernel_name(mangled):
 
 def build_report(build):
     """Per kernel library: each entry function's registers, static shared
-    memory and spills as ptxas reported them, and, for the two SwiGLU GEMM
-    libraries, how many HGMMA (wgmma) and UTMALDG (TMA load) instructions
-    their SASS holds (`cuobjdump -sass`, where the toolkit has it)."""
+    memory and spills as ptxas reported them, with ptxas's performance
+    warnings (serialised wgmma), and, for the three libraries
+    of the SwiGLU GEMM, how many HGMMA (wgmma), UTMALDG (TMA load) and TF32
+    HMMA (mma.sync, the f32 path's 3xTF32) instructions their SASS holds
+    (`cuobjdump -sass`, where the toolkit has it)."""
     import os
     import re
     import shutil
@@ -231,14 +256,15 @@ def build_report(build):
             m = re.search(r"entry function '(\w+)'", line)
             if m:
                 fn = kernel_name(m.group(1))
-            elif "registers" in line or "spill" in line:
+            elif ("registers" in line or "spill" in line
+                  or "Performance Loss" in line):   # e.g. serialised wgmma
                 entries.append(f"{fn}: {line.split(':', 1)[-1].strip()}")
         info[name] = {"ptxas": entries}
         for e in entries:
             log(f"build {name}: {e}")
     cuobjdump = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    for name in ("slot_ffn", "expert_ffn"):
+    for name in ("slot_ffn", "expert_ffn", "fused_moe_entry"):
         info.setdefault(name, {"ptxas": []})
         if not os.path.exists(cuobjdump):
             info[name]["sass"] = "not checked"
@@ -248,6 +274,8 @@ def build_report(build):
                               capture_output=True, text=True).stdout
         info[name]["sass"] = {op: sass.count(op) for op in ("HGMMA",
                                                             "UTMALDG")}
+        info[name]["sass"]["HMMA.TF32"] = len(
+            re.findall(r"HMMA\.\S*TF32", sass))
         log(f"build {name}: SASS holds {info[name]['sass']}")
     return info
 
@@ -320,6 +348,9 @@ def slot_ffn_phase(torch, moe_mod, slot_gather, ref, g):
                            resident_frac=0.25, f32=True),
         "f32_ragged": dict(B=1, T=5, k=2, E=3, D=96, F=40, S=4,
                            resident_frac=1.0, f32=True),
+        # a prefill chunk's buffer (256 rows an expert): the wgmma route
+        "f32_chunk": dict(B=1, T=CHUNK, k=8, E=64, D=2048, F=1024, S=256,
+                          resident_frac=0.25, f32=True),
     }
     results = {}
     for name, sh in shapes.items():
@@ -330,7 +361,6 @@ def slot_ffn_phase(torch, moe_mod, slot_gather, ref, g):
                          for a in args)
         tol = TOL_F32 if f32 else TOL
         isz = args[0].element_size()
-        peak = H100_FP32_FLOP_PER_S if f32 else H100_BF16_FLOP_PER_S
         x = args[0]
         E, C, D = x.shape
         F = args[2].shape[-1]
@@ -360,12 +390,13 @@ def slot_ffn_phase(torch, moe_mod, slot_gather, ref, g):
         rows = int(counts.sum())                      # rows holding tokens
         distinct = int(torch.unique(routed_slots).numel())
         w_bytes = distinct * 3 * D * F * isz
-        b_ms, b_by = bound(rows * D * (isz + 4) + E * 8 + w_bytes,
-                           [(2 * 3 * D * F * rows, peak)])
+        nbytes = rows * D * (isz + 4) + E * 8 + w_bytes
+        flops = 2 * 3 * D * F * rows
+        b_ms, b_by = bound(nbytes, gemm_ops(flops, f32))
         # the all-rows figure: every row of the buffer read and written
         b_all_ms, _ = bound(x.numel() * isz + E * C * D * 4 + E * 4 + w_bytes,
-                            [(2 * 3 * D * F * rows, peak)])
-        dense_ms = 2 * 3 * D * F * E * C / peak * 1e3
+                            gemm_ops(flops, f32))
+        dense_ms = bound(0, gemm_ops(2 * 3 * D * F * E * C, f32))[0]
         heavy = E * C * D > 2 ** 26
         r = {
             "shape": {"E": E, "C": C, "D": D, "F": F,
@@ -385,6 +416,10 @@ def slot_ffn_phase(torch, moe_mod, slot_gather, ref, g):
             "distinct_routed_slots": distinct,
             "dense_rows_flop_ms": dense_ms,
         }
+        r.update(rates(nbytes, flops, r["ms"]))
+        if f32:
+            r["launch_split_ms"] = launch_split(
+                torch, lambda: slot_gather.slot_ffn(*args, counts=counts))
         results[name] = r
         log(f"kernel slot_ffn {name} {r['shape']}: {rows} rows over "
             f"{r['computed_experts']} experts; max|err| {err:.3g} (counted "
@@ -393,7 +428,10 @@ def slot_ffn_phase(torch, moe_mod, slot_gather, ref, g):
             f"{r['plain_ms']:.4f} ms, gather+bmm {r['library_ms']:.4f} ms, "
             f"bound {b_ms:.4f} ms ({b_by}; reading and writing all {E * C} "
             f"rows: {b_all_ms:.4f} ms; all rows dense FLOPs: "
-            f"{dense_ms:.4f} ms)")
+            f"{dense_ms:.4f} ms); {r['achieved_tb_s']:.3f} TB/s, "
+            f"{r['achieved_tflop_s']:.2f} TFLOP/s"
+            + (f"; per launch (profiler, ms) {r['launch_split_ms']}"
+               if f32 else ""))
         del args, got, again, want, got_all, want_all
         torch.cuda.empty_cache()
     return results
@@ -414,6 +452,10 @@ def moe_entry_phase(torch, dsk, ref, g):
     # the f32 path (the reference runs fused_moe_entry in f32 too)
     results.update(moe_entry_cases(torch, dsk, ref, g, T=4, d=2048, E=64,
                                    k=8, f=1024, S=256, prefix="f32_",
+                                   only_all_routed=True, f32=True))
+    # more than 64 tokens: the f32 GEMM's wgmma route, the combine folded in
+    results.update(moe_entry_cases(torch, dsk, ref, g, T=128, d=2048, E=64,
+                                   k=8, f=1024, S=256, prefix="f32_t128_",
                                    only_all_routed=True, f32=True))
     return results
 
@@ -481,10 +523,9 @@ def moe_entry_cases(torch, dsk, ref, g, *, T, d, E, k, f, S, prefix,
         isz = x.element_size()
         nbytes = (x.numel() * isz + rw.numel() * 4 + E * 4 + E * 4
                   + distinct * 3 * d * f * isz + T * d * 4 + T * k * 8)
-        b_ms, b_by = bound(nbytes, [(2 * 3 * d * f * pairs,
-                                     H100_FP32_FLOP_PER_S if f32
-                                     else H100_BF16_FLOP_PER_S),
-                                    (2 * T * d * E, H100_FP32_FLOP_PER_S)])
+        flops = 2 * 3 * d * f * pairs
+        b_ms, b_by = bound(nbytes, gemm_ops(flops, f32)
+                           + [(2 * T * d * E, H100_FP32_FLOP_PER_S)])
         r = {"shape": {"T": T, "d": d, "E": E, "k": k, "f": f, "S": S},
              "dtype": str(dt), "resident": int(resident.sum()), "routed_resident_pairs": pairs,
              "distinct_routed_resident": distinct,
@@ -497,12 +538,14 @@ def moe_entry_cases(torch, dsk, ref, g, *, T, d, E, k, f, S, prefix,
              "bound_ms": b_ms, "bound_by": b_by,
              "launch_split_ms": launch_split(
                  torch, lambda: dsk.fused_moe_entry(*args, top_k=k))}
+        r.update(rates(nbytes, flops, r["ms"]))
         results[name] = r
         log(f"kernel fused_moe_entry {name}: {distinct} distinct routed "
             f"resident experts ({pairs} pairs), max|err| {err:.3g}, kernel "
             f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, route+gather+"
             f"bmm {r['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
-            f"per launch (profiler, ms) {r['launch_split_ms']}")
+            f"{r['achieved_tb_s']:.3f} TB/s, {r['achieved_tflop_s']:.2f} "
+            f"TFLOP/s; per launch (profiler, ms) {r['launch_split_ms']}")
     del sg, su, sd
     torch.cuda.empty_cache()
     return results
@@ -510,13 +553,17 @@ def moe_entry_cases(torch, dsk, ref, g, *, T, d, E, k, f, S, prefix,
 
 def attention_phase(torch, dsk, ref, g):
     """`fused_decode_attention` at olmoe-1b-7b's decode shape, a wrapped
-    ring and a GQA shape."""
+    ring, GQA shapes, a cache length that no split divides, a long cache,
+    the widest group at the narrowest and widest head dims with every row
+    empty, and one length for every row (a () `cache_len`)."""
     import torch.nn.functional as Fn
     dev = "cuda"
-    B, D, S = 4, 128, 256
+    B = 4
 
     def library(q, kn, vn, kc, vc, clen):
         # yardstick only: clone + ring insert + scaled_dot_product_attention
+        S = kc.shape[1]
+        clen = clen.reshape(-1).expand(B)
         rows = torch.arange(B, device=dev)
         slot = clen % S
         k2, v2 = kc.clone(), vc.clone()
@@ -526,16 +573,24 @@ def attention_phase(torch, dsk, ref, g):
         mask = torch.arange(S, device=dev)[None] < valid[:, None]
         out = Fn.scaled_dot_product_attention(
             q.transpose(1, 2), k2.transpose(1, 2), v2.transpose(1, 2),
-            attn_mask=mask[:, None, None, :])
+            attn_mask=mask[:, None, None, :],
+            enable_gqa=q.shape[2] != kc.shape[2])
         return out.transpose(1, 2), k2, v2
 
-    cases = {"decode": (16, 16, [0, 63, 128, 255]),
-             "wrapped": (16, 16, [256, 300, 511, 1000]),
-             "gqa_G4": (16, 4, [17, 255, 0, 90]),
+    # name: (Hq, Hkv, D, S, cache lengths; an int is one () length)
+    cases = {"decode": (16, 16, 128, 256, [0, 63, 128, 255]),
+             "wrapped": (16, 16, 128, 256, [256, 300, 511, 1000]),
+             "gqa_G4": (16, 4, 128, 256, [17, 255, 0, 90]),
+             "s130": (16, 16, 128, 130, [0, 129, 70, 300]),
+             "s2048": (16, 16, 128, 2048, [0, 511, 1500, 2047]),
+             "g16_d64_empty": (32, 2, 64, 256, [0, 0, 0, 0]),
+             "g16_d256_empty": (32, 2, 256, 256, [0, 0, 0, 0]),
+             "one_length": (16, 16, 128, 256, 100),
              # the f32 path (the reference runs it in f32 too)
-             "f32_decode": (16, 16, [0, 63, 128, 255])}
+             "f32_decode": (16, 16, 128, 256, [0, 63, 128, 255]),
+             "f32_gqa_G4": (16, 4, 128, 256, [17, 255, 0, 90])}
     results = {}
-    for name, (Hq, Hkv, clens) in cases.items():
+    for name, (Hq, Hkv, D, S, clens) in cases.items():
         f32 = name.startswith("f32")
         dt = torch.float32 if f32 else torch.bfloat16
         tol = TOL_F32 if f32 else TOL
@@ -544,13 +599,15 @@ def attention_phase(torch, dsk, ref, g):
         args = (r16(B, 1, Hq, D), r16(B, 1, Hkv, D), r16(B, 1, Hkv, D),
                 r16(B, S, Hkv, D), r16(B, S, Hkv, D),
                 torch.tensor(clens, device=dev))
-        err = 0.0
+        err = lib_err = 0.0
         for cap in (0.0, 30.0):
             o, k2, v2 = dsk.fused_decode_attention(*args, logit_softcap=cap)
             o2, _, _ = dsk.fused_decode_attention(*args, logit_softcap=cap)
             orf, kr, vr = ref.fused_decode_attention_ref(
                 *args, logit_softcap=cap)
             torch.cuda.synchronize()
+            check(torch.isfinite(o).all(),
+                  f"fused_decode_attention out not finite at {name}")
             check(torch.equal(k2, kr) and torch.equal(v2, vr),
                   f"fused_decode_attention caches differ at {name}")
             e = float((o.float() - orf.float()).abs().max())
@@ -559,7 +616,12 @@ def attention_phase(torch, dsk, ref, g):
             check(torch.equal(o, o2), "fused_decode_attention not "
                                       "deterministic")
             err = max(err, e)
-        valid = sum(min(c + 1, S) for c in clens)
+        lib_err = float((library(*args)[0].float() - ref.
+                         fused_decode_attention_ref(*args)[0].float())
+                        .abs().max())
+        library_ms = time_ms(torch, lambda: library(*args))
+        lens = [clens] * B if isinstance(clens, int) else clens
+        valid = sum(min(c + 1, S) for c in lens)
         isz = args[0].element_size()
         nbytes = (4 * B * S * Hkv * D * isz + B * Hq * D * isz * 2
                   + 2 * B * Hkv * D * isz + B * 8)
@@ -571,15 +633,18 @@ def attention_phase(torch, dsk, ref, g):
              "ms": time_ms(torch, lambda: dsk.fused_decode_attention(*args)),
              "plain_ms": time_ms(torch, lambda:
                                  ref.fused_decode_attention_ref(*args)),
-             "library_ms": (time_ms(torch, lambda: library(*args))
-                            if Hq == Hkv else None),
-             "bound_ms": b_ms, "bound_by": b_by}
+             "library_ms": library_ms,
+             "library_max_abs_err": lib_err,
+             "bound_ms": b_ms, "bound_by": b_by,
+             "launch_split_ms": launch_split(
+                 torch, lambda: dsk.fused_decode_attention(*args))}
+        r["device_ms"] = sum(r["launch_split_ms"].values()) or None
         results[name] = r
-        lib = ("n/a" if r["library_ms"] is None
-               else f"{r['library_ms']:.4f} ms")
         log(f"kernel fused_decode_attention {name} {r['shape']}: max|err| "
-            f"{err:.3g}, kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}"
-            f" ms, clone+insert+sdpa {lib}, bound {b_ms:.4f} ms ({b_by})")
+            f"{err:.3g}, kernel {r['ms']:.4f} ms (device {r['device_ms']}), "
+            f"plain {r['plain_ms']:.4f} ms, clone+insert+sdpa "
+            f"{library_ms:.4f} ms (max|err| {lib_err:.3g}), bound "
+            f"{b_ms:.4f} ms ({b_by})")
     return results
 
 
@@ -770,9 +835,8 @@ def expert_ffn_phase(torch, ops, ref, g):
               f"at {name}")
         isz = x.element_size()
         nbytes = E * C * D * isz + 3 * E * D * F * isz + E * C * D * 4
-        b_ms, b_by = bound(nbytes, [(6 * E * C * D * F,
-                                     H100_FP32_FLOP_PER_S if f32
-                                     else H100_BF16_FLOP_PER_S)])
+        flops = 6 * E * C * D * F
+        b_ms, b_by = bound(nbytes, gemm_ops(flops, f32))
         heavy = E * C * D > 2 ** 23
         r = {"shape": {"E": E, "C": C, "D": D, "F": F}, "dtype": str(dt),
              "max_abs_err": err,
@@ -782,11 +846,18 @@ def expert_ffn_phase(torch, ops, ref, g):
                                  reps=3, inner=2 if heavy else 5),
              "library_ms": time_ms(torch, lambda: library(*args)),
              "bound_ms": b_ms, "bound_by": b_by}
+        r.update(rates(nbytes, flops, r["ms"]))
+        if f32:
+            r["launch_split_ms"] = launch_split(
+                torch, lambda: ops.expert_ffn(*args), reps=5)
         results[name] = r
         log(f"kernel expert_ffn {name} {r['shape']}: max|err| {err:.3g}, "
             f"slot_ffn(identity) bitwise equal, kernel {r['ms']:.4f} ms, "
             f"plain {r['plain_ms']:.4f} ms, 3x bmm {r['library_ms']:.4f} ms,"
-            f" bound {b_ms:.4f} ms ({b_by})")
+            f" bound {b_ms:.4f} ms ({b_by}); {r['achieved_tb_s']:.3f} TB/s, "
+            f"{r['achieved_tflop_s']:.2f} TFLOP/s"
+            + (f"; per launch (profiler, ms) {r['launch_split_ms']}"
+               if f32 else ""))
         del args, got, again, want, via_slots
         torch.cuda.empty_cache()
     return results

@@ -1,9 +1,11 @@
 // Element types of the kernels that run in bf16 or f32 (the reference's two
-// types): conversion to and from fp32, and the elements of a 16-byte load.
+// types): conversion to and from fp32, and the elements of a 16-byte load;
+// and the launchers' opt-in to more than 48 KB of dynamic shared memory.
 
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 
 namespace {
 
@@ -28,5 +30,28 @@ template <typename T>
 struct Vec {
   static constexpr int N = 16 / sizeof(T);   // elements of one 16-byte load
 };
+
+// Lets `kernel` launch with up to `bytes` of dynamic shared memory (the
+// opt-in above 48 KB), once per kernel and device; a launcher passes the
+// most it ever asks for. Returns cudaSuccess or the error.
+template <typename Kernel>
+inline cudaError_t opt_in_smem(Kernel* kernel, int bytes) {
+  struct Done {
+    const void* kernel;
+    int dev;
+  };
+  static Done done[64];
+  static int n_done = 0;
+  const void* k = reinterpret_cast<const void*>(kernel);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  for (int i = 0; i < n_done; ++i)
+    if (done[i].kernel == k && done[i].dev == dev) return cudaSuccess;
+  err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess && n_done < 64) done[n_done++] = {k, dev};
+  return err;
+}
 
 }  // namespace

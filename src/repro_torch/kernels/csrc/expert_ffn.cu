@@ -29,9 +29,9 @@
 // - The TPU kernel asks C to divide by block_c and F by block_f (its VMEM
 //   tiling). Here any C >= 1 works (rows are masked) and D, F need only be
 //   multiples of 8 (16-byte TMA strides); TMA zero-fills the ragged tails.
-// - f32: the reference kernel also runs in f32 (to 2e-5). TF32 wgmma would
-//   miss that, so f32 takes `swiglu_f32.cuh`, a CUDA-core GEMM over the same
-//   tile walk (`expert_ffn_f32_launch`).
+// - f32: the reference kernel also runs in f32 (to 2e-5). One TF32 product
+//   would miss that, so f32 takes `swiglu_f32.cuh`, a 3xTF32 GEMM over the
+//   same tile walk (`expert_ffn_f32_launch`; wgmma above 64 rows an expert).
 //
 // C interface (bound with ctypes): expert_ffn_launch returns
 // cudaGetLastError() after enqueueing both launches on `stream`

@@ -278,18 +278,11 @@ int launch(const void* q_abs, const void* q_pe, const void* c_new,
            void* pe_out, int B, int S, int H, int R, int P, float scale,
            cudaStream_t stream) {
   const size_t smem = mla_smem<T>(H, R, P);
-  // the opt-in above 48 KB of dynamic shared memory, once per device (at
-  // the largest size the checked shapes need)
-  static bool opted_in[64] = {};
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev >= 64 || !opted_in[dev]) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        mla_decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(mla_smem<T>(MAX_H, MAX_R, MAX_P)));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    if (dev < 64) opted_in[dev] = true;
-  }
+  // at the largest size the checked shapes need
+  const cudaError_t e =
+      opt_in_smem(mla_decode_kernel<T>,
+                  static_cast<int>(mla_smem<T>(MAX_H, MAX_R, MAX_P)));
+  if (e != cudaSuccess) return static_cast<int>(e);
   mla_decode_kernel<T><<<dim3(SPLITS, B), THREADS, smem, stream>>>(
       static_cast<const float*>(q_abs), static_cast<const float*>(q_pe),
       static_cast<const T*>(c_new), static_cast<const T*>(pe_new),

@@ -40,17 +40,17 @@
 //    column panel, 128-row tile) items over the per-expert row counts, a
 //    TMA ring of 128-byte-swizzled boxes with the slot as a tensor-map
 //    coordinate, wgmma on two warpgroups; f32 takes `swiglu_f32.cuh`, the
-//    same walk on the CUDA cores), in its MOE form: rows grouped by expert,
-//    fused_moe_entry's rounding points in the epilogues, and the combine
-//    folded into the down pass. An expert with up to 128 rows multiplies
-//    each weight panel once, whatever its row count; an unrouted or absent
-//    expert has no rows, so no item, and costs nothing; the grid never
-//    depends on the routing. The block that finishes a 128-column panel's
-//    last down tile (a counter per panel) adds gate * part over each
-//    token's experts in ascending id, with no fused multiply-add. So every
-//    y element is summed by one thread in one order that depends neither on
-//    S nor on which slot holds an expert: the slot path and a
-//    fully-resident run give the same bits.
+//    same walk as 3xTF32 over a cp.async ring), in its MOE form: rows
+//    grouped by expert, fused_moe_entry's rounding points in the epilogues,
+//    and the combine folded into the down pass. An expert with up to 128
+//    rows multiplies each weight panel once, whatever its row count; an
+//    unrouted or absent expert has no rows, so no item, and costs nothing;
+//    the grid never depends on the routing. The block that finishes a
+//    128-column panel's last down tile (a counter per panel) adds
+//    gate * part over each token's experts in ascending id, with no fused
+//    multiply-add. So every y element is summed by one thread in one order
+//    that depends neither on S nor on which slot holds an expert: the slot
+//    path and a fully-resident run give the same bits.
 // Why not a kernel of its own for 2 and 3: a design that streamed each
 // expert's slab as 32-byte-wide column strips (so that a whole strip stays
 // in shared memory for every row of the expert) and multiplied on the CUDA
@@ -389,27 +389,10 @@ int launch(const void* x, const void* router_w, const void* logit_bias,
   const size_t rs = route_smem(T, d, E, k);
   if (rs > SMEM_MAX - 2048) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
-  // the opt-in above 48 KB of dynamic shared memory, once per device
-  static bool opted_in[64] = {};
+  if ((err = opt_in_smem(route_kernel<X>, SMEM_MAX - 2048)) != cudaSuccess)
+    return static_cast<int>(err);
   int dev = 0;
   cudaGetDevice(&dev);
-  if (dev >= 64 || !opted_in[dev]) {
-    if ((err = cudaFuncSetAttribute(
-             route_kernel<X>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-             SMEM_MAX - 2048)) != cudaSuccess)
-      return static_cast<int>(err);
-    if (sizeof(X) == 2 &&
-        ((err = cudaFuncSetAttribute(
-              swiglu_gemm_kernel<true, true>,
-              cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES)) !=
-             cudaSuccess ||
-         (err = cudaFuncSetAttribute(
-              swiglu_gemm_kernel<false, true>,
-              cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES)) !=
-             cudaSuccess))
-      return static_cast<int>(err);
-    if (dev < 64) opted_in[dev] = true;
-  }
   route_kernel<X><<<ROUTE_CLUSTER, ROUTE_THREADS, rs, st>>>(
       static_cast<const X*>(x), static_cast<const float*>(router_w),
       static_cast<const float*>(logit_bias), soe, S,
@@ -421,6 +404,11 @@ int launch(const void* x, const void* router_w, const void* logit_bias,
   const int grid_d = grid_for(dev, E, T, panels);
   if constexpr (sizeof(X) == 2) {
     // the TMA + wgmma GEMM: rows grouped by expert, T rows an expert at most
+    if ((err = opt_in_smem(swiglu_gemm_kernel<true, true>, SMEM_BYTES)) !=
+            cudaSuccess ||
+        (err = opt_in_smem(swiglu_gemm_kernel<false, true>, SMEM_BYTES)) !=
+            cudaSuccess)
+      return static_cast<int>(err);
     CUtensorMap tx, tg, tu, th, td;
     if (!encode_3d(&tx, x_rows, d, n, 1) || !encode_3d(&tg, s_gate, f, d, S) ||
         !encode_3d(&tu, s_up, f, d, S) || !encode_3d(&th, h, f, n, 1) ||
@@ -433,16 +421,17 @@ int launch(const void* x, const void* router_w, const void* logit_bias,
     swiglu_gemm_kernel<false, true><<<grid_d, THREADS, SMEM_BYTES, st>>>(
         th, td, td, soe, counts, S, part, E, T, d, f, moe);
   } else {
-    // f32: the CUDA-core GEMM over the same tiles
-    swiglu_f32_kernel<true, true><<<grid_g, F32_THREADS, 0, st>>>(
-        reinterpret_cast<const float*>(x_rows),
-        static_cast<const float*>(s_gate), static_cast<const float*>(s_up),
-        soe, counts, S, reinterpret_cast<float*>(h), E, T, f, d, moe);
-    if ((err = cudaGetLastError()) != cudaSuccess)
+    // f32: the 3xTF32 GEMM over the same tiles
+    if ((err = f32_pass<true, true>(
+             grid_g, st, reinterpret_cast<const float*>(x_rows),
+             static_cast<const float*>(s_gate),
+             static_cast<const float*>(s_up), soe, counts, S,
+             reinterpret_cast<float*>(h), E, T, f, d, moe)) != cudaSuccess)
       return static_cast<int>(err);
-    swiglu_f32_kernel<false, true><<<grid_d, F32_THREADS, 0, st>>>(
-        reinterpret_cast<const float*>(h), static_cast<const float*>(s_down),
-        nullptr, soe, counts, S, part, E, T, d, f, moe);
+    return static_cast<int>(f32_pass<false, true>(
+        grid_d, st, reinterpret_cast<const float*>(h),
+        static_cast<const float*>(s_down), nullptr, soe, counts, S, part, E,
+        T, d, f, moe));
   }
   return static_cast<int>(cudaGetLastError());
 }

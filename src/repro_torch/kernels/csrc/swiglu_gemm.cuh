@@ -55,13 +55,12 @@
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only; no -lcuda)
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "dtype.cuh"  // bf16, opt_in_smem
 
-typedef __nv_bfloat16 bf16;
+namespace {
 
 constexpr int BM = 128;               // rows per tile: 2 warpgroups x 64
 constexpr int BK = 64;                // reduction depth per stage
@@ -527,25 +526,20 @@ inline int swiglu_ffn_launch(const void* x, const int* slot_of_expert,
       !encode_3d(&tu, w_up, F, D, S) || !encode_3d(&th, h, F, C, E) ||
       !encode_3d(&td, w_down, D, F, S))
     return static_cast<int>(cudaErrorInvalidValue);
-  // the opt-in above 48 KB of dynamic shared memory, once per device
-  static bool opted_in[64] = {};
+  cudaError_t err;
+  if ((err = opt_in_smem(swiglu_gemm_kernel<true>, SMEM_BYTES)) !=
+          cudaSuccess ||
+      (err = opt_in_smem(swiglu_gemm_kernel<false>, SMEM_BYTES)) !=
+          cudaSuccess)
+    return static_cast<int>(err);
   int dev = 0;
   cudaGetDevice(&dev);
-  if (dev >= 64 || !opted_in[dev]) {
-    cudaFuncSetAttribute(swiglu_gemm_kernel<true>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         SMEM_BYTES);
-    cudaFuncSetAttribute(swiglu_gemm_kernel<false>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         SMEM_BYTES);
-    if (dev < 64) opted_in[dev] = true;
-  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // (1) h = bf16(silu(x @ Wg) * (x @ Wu)): N = F, K = D
   swiglu_gemm_kernel<true><<<grid_for(dev, E, C, (F + PANEL - 1) / PANEL),
                              THREADS, SMEM_BYTES, st>>>(
       tx, tg, tu, slot_of_expert, counts, S, h, E, C, F, D, MoeArgs{});
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   // (2) out = h @ Wd: N = D, K = F
   swiglu_gemm_kernel<false>

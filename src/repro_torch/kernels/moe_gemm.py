@@ -4,8 +4,8 @@ On a CUDA tensor `expert_ffn` launches the hand-written Hopper kernel
 (`csrc/expert_ffn.cu`, the tiled GEMM `slot_ffn` uses, without the slot
 table); on a CPU tensor it runs the plain version
 (`kernels.ref.expert_ffn_ref`) with the same rounding points. bf16 and f32
-run on the card (f32 through a CUDA-core GEMM over the same tiles), as in
-the reference; any other dtype or device raises.
+run on the card (f32 through a 3xTF32 tensor-core GEMM over the same
+tiles), as in the reference; any other dtype or device raises.
 """
 from __future__ import annotations
 

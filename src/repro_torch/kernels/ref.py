@@ -50,6 +50,59 @@ def slot_ffn_ref(x: torch.Tensor, slot_of_expert: torch.Tensor,
     return torch.where(live[..., None], out, out.new_zeros(()))
 
 
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x = hi + lo for an fp32 tensor, as the f32 SwiGLU GEMM's 3xTF32
+    products read them (`split_tf32` in csrc/swiglu_f32.cuh), bit for bit:
+    hi rounded to TF32 (10 mantissa bits) to nearest with ties away from
+    zero on the bit pattern, as `cvt.rna.tf32.f32` rounds a finite value or
+    an infinity; lo = x - hi truncated to TF32, as the tensor cores read an
+    fp32 register. A NaN from the subtraction is the GPU's canonical NaN
+    0x7FFFFFFF, so a NaN x gives a NaN lo whatever hi became."""
+    x = x.float().contiguous()
+    hi = ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+    d = x - hi
+    bits = torch.where(torch.isnan(d), 0x7FFFFFFF, d.view(torch.int32))
+    return hi, (bits & ~0x1FFF).view(torch.float32)
+
+
+TF32_STEP = 8   # reduction depth of one mma.sync.m16n8k8 TF32 product
+TF32_PARTIAL = 16   # depth the tensor cores sum before each fp32 add
+
+
+def _tf32_bmm(a: torch.Tensor, b: torch.Tensor, products: int
+              ) -> torch.Tensor:
+    """a @ b (batched, fp32) as the f32 GEMM forms it: k ascending; each
+    16-deep partial sums, over its two 8-deep steps, lo_a.hi_b, hi_a.lo_b,
+    hi_a.hi_b (3 products) or hi_a.hi_b alone (1 product), and is then
+    added to an fp32 sum."""
+    ah, al = tf32_split(a)
+    bh, bl = tf32_split(b)
+    out = a.new_zeros((a.shape[0], a.shape[1], b.shape[2]))
+    for k0 in range(0, a.shape[2], TF32_PARTIAL):
+        part = torch.zeros_like(out)
+        for k1 in range(k0, min(k0 + TF32_PARTIAL, a.shape[2]), TF32_STEP):
+            k = slice(k1, k1 + TF32_STEP)
+            if products == 3:
+                part = part + torch.bmm(al[..., k], bh[:, k])
+                part = part + torch.bmm(ah[..., k], bl[:, k])
+            part = part + torch.bmm(ah[..., k], bh[:, k])
+        out = out + part
+    return out
+
+
+def expert_ffn_3xtf32(x: torch.Tensor, w_gate: torch.Tensor,
+                      w_up: torch.Tensor, w_down: torch.Tensor, *,
+                      products: int = 3) -> torch.Tensor:
+    """Twin of the f32 path of the SwiGLU GEMM: `expert_ffn_ref`'s function
+    in fp32 with every product formed from TF32 operands (`_tf32_bmm`).
+    `products=1` is a single TF32 product, which misses the reference's
+    2e-5; 3 (3xTF32) is what the kernel does."""
+    xf = x.float()
+    g = _tf32_bmm(xf, w_gate.float(), products)
+    u = _tf32_bmm(xf, w_up.float(), products)
+    return _tf32_bmm(F.silu(g) * u, w_down.float(), products)
+
+
 FFN_BLOCK_M = 128   # rows per tile of the SwiGLU GEMM (csrc/swiglu_gemm.cuh)
 
 
@@ -215,6 +268,79 @@ def fused_decode_attention_ref(q: torch.Tensor, k_new: torch.Tensor,
     return out.reshape(B, 1, Hq, D).to(q.dtype), kc, vc
 
 
+def _merge_splits(parts):
+    """The split-S kernels' merge: the splits' (max, sum, partial output)
+    combined in ascending split order, then normalised."""
+    mx = parts[0][0]
+    for m, _, _ in parts[1:]:
+        mx = torch.maximum(mx, m)
+    total = torch.zeros_like(parts[0][1])
+    out = torch.zeros_like(parts[0][2])
+    for m, l, acc in parts:
+        w = torch.exp(m - mx)
+        total = total + l * w
+        out = out + acc * w[..., None]
+    return out / torch.clamp(total, min=1e-20)[..., None]
+
+
+GQA_SPLITS = 8    # blocks a (kv head, row) (csrc/fused_decode_attention.cu)
+GQA_CHUNK = 32    # positions a chunk of a block's online softmax
+
+
+def gqa_split_merge(q: torch.Tensor, k_new: torch.Tensor,
+                    v_new: torch.Tensor, k_cache: torch.Tensor,
+                    v_cache: torch.Tensor, cache_len: torch.Tensor, *,
+                    logit_softcap: float = 0.0, scale=None,
+                    splits: int = GQA_SPLITS, chunk: int = GQA_CHUNK):
+    """Plain-torch twin of the split-S walk of `fused_decode_attention`'s
+    kernel: the function of `fused_decode_attention_ref` computed the
+    kernel's way. Split s of each (row, kv head) owns positions
+    [s per, (s + 1) per), per = ceil(S / splits), and runs an online
+    softmax over its attended positions in chunks of `chunk`; the splits'
+    (max, sum, partial output) then merge in ascending split order.
+    Returns (out in q's dtype, new k cache, new v cache)."""
+    B, _, Hq, D = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    G = Hq // Hkv
+    if scale is None:
+        scale = D ** -0.5
+    clen = cache_len.reshape(-1).expand(B).long()
+    rows = torch.arange(B, device=q.device)
+    slot = torch.remainder(clen, S)
+    kc, vc = k_cache.clone(), v_cache.clone()
+    kc[rows, slot] = k_new[:, 0]
+    vc[rows, slot] = v_new[:, 0]
+    valid = torch.clamp(clen + 1, max=S)
+    qf = q.reshape(B, Hkv, G, D).float() * scale
+    kf, vf = kc.float(), vc.float()
+    per = -(-S // splits)
+    parts = []
+    for s in range(splits):
+        m = torch.full((B, Hkv, G), NEG_INF, device=q.device)
+        l = torch.zeros((B, Hkv, G), device=q.device)
+        acc = torch.zeros((B, Hkv, G, D), device=q.device)
+        end = min((s + 1) * per, S)
+        for c0 in range(min(s * per, S), end, chunk):
+            c1 = min(c0 + chunk, end)
+            sc = torch.einsum("bhgd,bjhd->bhgj", qf, kf[:, c0:c1])
+            if logit_softcap > 0.0:
+                sc = logit_softcap * torch.tanh(sc / logit_softcap)
+            live = (torch.arange(c0, c1, device=q.device)[None, :]
+                    < valid[:, None])[:, None, None, :]       # (B,1,1,n)
+            mx = torch.where(live, sc, torch.full_like(sc, NEG_INF)).amax(-1)
+            m_new = torch.maximum(m, mx)
+            corr = torch.exp(m - m_new)
+            p = torch.where(live, torch.exp(sc - m_new[..., None]),
+                            torch.zeros_like(sc))
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhgj,bjhd->bhgd", p, vf[:, c0:c1])
+            m = m_new
+        parts.append((m, l, acc))
+    out = _merge_splits(parts)
+    return out.reshape(B, 1, Hq, D).to(q.dtype), kc, vc
+
+
 def fused_mla_decode_attention_ref(q_abs: torch.Tensor, q_pe: torch.Tensor,
                                    c_new: torch.Tensor, pe_new: torch.Tensor,
                                    latent: torch.Tensor, pe: torch.Tensor,
@@ -318,13 +444,4 @@ def mla_split_merge(q_abs: torch.Tensor, q_pe: torch.Tensor,
                 "bhj,bjr->bhr", p, kv[:, c0:c1, :R])
             m = m_new
         parts.append((m, l, acc))
-    mx = parts[0][0]
-    for m, _, _ in parts[1:]:
-        mx = torch.maximum(mx, m)
-    total = torch.zeros_like(parts[0][1])
-    ctx = torch.zeros_like(parts[0][2])
-    for m, l, acc in parts:
-        w = torch.exp(m - mx)
-        total = total + l * w
-        ctx = ctx + acc * w[..., None]
-    return ctx / torch.clamp(total, min=1e-20)[..., None], lat, pe2
+    return _merge_splits(parts), lat, pe2

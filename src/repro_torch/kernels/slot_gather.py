@@ -62,7 +62,7 @@ def slot_ffn(x: torch.Tensor, slot_of_expert: torch.Tensor,
              counts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x: (E, C, D) dispatch buffer; slot_of_expert: (E,) int32 slots in
     [0, S); slot buffers (S, D, F) / (S, F, D) of x's dtype, bf16 (the TMA +
-    wgmma GEMM) or f32 (a CUDA-core GEMM over the same tiles). Returns
+    wgmma GEMM) or f32 (a 3xTF32 tensor-core GEMM over the same tiles). Returns
     (E, C, D) fp32.
 
     `counts`: optional (E,) int32 tensor on x's device, the rows of x[e]

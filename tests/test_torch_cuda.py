@@ -586,8 +586,10 @@ def test_expert_ffn_f32_matches_plain_version(gen, shape):
 
 
 @pytest.mark.parametrize("case", [(4, 2048, 64, 1024, 256, 16, 8),
-                                  (5, 48, 8, 72, 6, 5, 2)],
-                         ids=["decode_16_resident", "off_tile"])
+                                  (5, 48, 8, 72, 6, 5, 2),
+                                  (128, 2048, 64, 1024, 256, 64, 8)],
+                         ids=["decode_16_resident", "off_tile",
+                              "t128_wgmma_route"])
 def test_fused_moe_entry_f32_matches_plain_version(gen, case):
     T, d, E, f, S, n_res, k = case
     args = _f32(*_moe_args(gen, T, d, E, f, S, n_res))
@@ -700,3 +702,141 @@ def test_fused_mla_decode_attention_over_nan_filled_scratch(gen, clens):
     assert torch.equal(lat, lr) and torch.equal(pe, pr)
     torch.testing.assert_close(ctx, cr, rtol=2e-4, atol=2e-4)
     assert torch.equal(ctx, ctx2) and torch.equal(lat, lat2)
+
+
+# ---------------------------------------------------------------------------
+# the redesigned fused_decode_attention (split-S over a cluster) and the
+# 3xTF32 f32 SwiGLU GEMM
+# ---------------------------------------------------------------------------
+
+def _attn_args(g, clens, S, Hq, Hkv, D, dtype=torch.bfloat16):
+    B = 4 if isinstance(clens, int) else len(clens)
+    r = lambda *s: torch.randn(s, generator=g,  # noqa: E731
+                               device="cuda").to(dtype)
+    return (r(B, 1, Hq, D), r(B, 1, Hkv, D), r(B, 1, Hkv, D),
+            r(B, S, Hkv, D), r(B, S, Hkv, D),
+            torch.tensor(clens, device="cuda"))
+
+
+ATTN_SPLIT_CASES = {
+    # name: (cache lengths, or one int for a () length; S, Hq, Hkv, D)
+    "s130": ([0, 129, 70, 300], 130, 16, 16, 128),
+    "s2048": ([0, 511, 1500, 2047], 2048, 16, 16, 128),
+    "g16_d64_empty": ([0, 0, 0, 0], 256, 32, 2, 64),
+    "g16_d256_empty": ([0, 0, 0, 0], 256, 32, 2, 256),
+    "one_length": (100, 256, 16, 4, 128),
+    "s_below_splits": ([0, 2, 7], 5, 8, 2, 64),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+@pytest.mark.parametrize("case", list(ATTN_SPLIT_CASES))
+def test_fused_decode_attention_split_cases(gen, case, softcap, dtype):
+    args = _attn_args(gen, *ATTN_SPLIT_CASES[case], dtype=dtype)
+    old = [a.clone() for a in args[3:5]]
+    o, kc, vc = dsk.fused_decode_attention(*args, logit_softcap=softcap)
+    o2, _, _ = dsk.fused_decode_attention(*args, logit_softcap=softcap)
+    orf, kr, vr = fused_decode_attention_ref(*args, logit_softcap=softcap)
+    torch.cuda.synchronize()
+    tol = TOL if dtype == torch.bfloat16 else TOL_F32
+    assert torch.equal(kc, kr) and torch.equal(vc, vr)
+    assert torch.equal(args[3], old[0]) and torch.equal(args[4], old[1])
+    torch.testing.assert_close(o.float(), orf.float(), rtol=tol, atol=tol)
+    assert torch.equal(o, o2), "the kernel must be deterministic"
+
+
+@pytest.mark.parametrize("case", ["decode", "s2048", "s_below_splits"])
+def test_fused_decode_attention_over_nan_filled_outputs(gen, case):
+    """Every element of out and of the new caches is written, whatever the
+    lengths, and the split merge gives the same bits from run to run."""
+    spec = {"decode": ([0, 63, 128, 255], 256, 16, 16, 128)}
+    args = _attn_args(gen, *{**ATTN_SPLIT_CASES, **spec}[case])
+    _nan_fill_allocator()
+    o, kc, vc = dsk.fused_decode_attention(*args, logit_softcap=30.0)
+    _nan_fill_allocator()
+    o2, kc2, vc2 = dsk.fused_decode_attention(*args, logit_softcap=30.0)
+    orf, kr, vr = fused_decode_attention_ref(*args, logit_softcap=30.0)
+    torch.cuda.synchronize()
+    assert torch.isfinite(o).all()
+    assert torch.equal(kc, kr) and torch.equal(vc, vr)
+    torch.testing.assert_close(o.float(), orf.float(), rtol=TOL, atol=TOL)
+    assert torch.equal(o, o2) and torch.equal(kc, kc2) and torch.equal(vc, vc2)
+
+
+def test_fused_decode_attention_wrapper_never_synchronises(gen):
+    args = _attn_args(gen, [0, 63, 128, 255], 256, 16, 4, 128)
+    want = dsk.fused_decode_attention(*args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = dsk.fused_decode_attention(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_expert_ffn_f32_at_olmoe_width(gen):
+    """The 3xTF32 GEMM at 128 rows an expert: within the reference's f32
+    tolerance, deterministic, and `slot_ffn` under the identity table gives
+    the same bits."""
+    args = _f32(*_ffn_inputs(gen, 64, 128, 2048, 1024))
+    got = ops.expert_ffn(*args)
+    again = ops.expert_ffn(*args)
+    ident = torch.arange(64, dtype=torch.int32, device="cuda")
+    via_slots = ops.slot_ffn(args[0], ident, *args[1:])
+    want = expert_ffn_ref(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=TOL_F32, atol=TOL_F32)
+    assert torch.equal(got, again) and torch.equal(got, via_slots)
+
+
+@pytest.mark.parametrize("shape", [(4, 1, 8, 64, 2048, 1024, 256),
+                                   (1, 32, 8, 64, 2048, 1024, 256),
+                                   (1, 128, 6, 64, 2048, 1408, 416)],
+                         ids=["decode", "chunk", "deepseek_prefill"])
+def test_slot_ffn_f32_with_empty_and_absent_experts(gen, shape):
+    """Half the experts absent (routed ones among them) and the unrouted
+    ones empty: the counted rows within 2e-5 and bitwise equal to the
+    all-rows call's, deterministic."""
+    args, counts = _routed_inputs(gen, *shape)
+    args = _f32(*args)
+    assert int((counts == 0).sum()) > 0 and int(counts.sum()) > 0
+    got = slot_gather.slot_ffn(*args, counts=counts)
+    again = slot_gather.slot_ffn(*args, counts=counts)
+    every_row = slot_gather.slot_ffn(*args)
+    want = slot_ffn_ref(*args, counts=counts)
+    torch.cuda.synchronize()
+    live = (torch.arange(args[0].shape[1], device="cuda")[None, :]
+            < counts.long()[:, None])[..., None]
+    counted = lambda y: torch.where(live, y, 0)  # noqa: E731
+    torch.testing.assert_close(counted(got), want, rtol=TOL_F32,
+                               atol=TOL_F32)
+    assert torch.equal(counted(got), counted(again))
+    assert torch.equal(counted(got), counted(every_row))
+
+
+@pytest.mark.parametrize("shape", [(3, 40, 64, 48), (2, 128, 64, 48)],
+                         ids=["mma_sync_route", "wgmma_route"])
+def test_f32_gemm_keeps_a_nan_of_any_payload(gen, shape):
+    """A NaN in x makes its row's output NaN on both routes, as in the plain
+    fp32 chain, whatever its payload bits (0x7FFFFFFF is the NaN the GPU's
+    own arithmetic produces); the other rows stay finite and close."""
+    args = list(_f32(*_ffn_inputs(gen, *shape)))
+    x = args[0].clone()
+    bits = x.view(torch.int32)
+    bits[0, 1, 5] = 0x7FFFFFFF
+    bits[1, 2, 7] = -1                                      # 0xFFFFFFFF
+    bits[1, 3, 0] = 0x7F800001
+    args[0] = x
+    got = ops.expert_ffn(*args)
+    want = expert_ffn_ref(*args)
+    torch.cuda.synchronize()
+    nan_rows = torch.zeros(got.shape[:2], dtype=torch.bool, device="cuda")
+    nan_rows[0, 1] = nan_rows[1, 2] = nan_rows[1, 3] = True
+    assert torch.isnan(got[nan_rows]).all()
+    assert torch.isfinite(got[~nan_rows]).all()
+    torch.testing.assert_close(got, want, rtol=TOL_F32, atol=TOL_F32,
+                               equal_nan=True)
