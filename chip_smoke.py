@@ -55,9 +55,13 @@ the last line:
      the kernel's, printed beside the wrapper's with the host bound the
      serving path passes (`max_len`, no device read) and without it
      (reading the lengths back), and the kernel's device time (profiler);
-   - `topk_gating` at (T, E, k) = (4, 64, 8), (512, 64, 8), (512, 64, 6),
-     (33, 128, 8), (256, 256, 8), (7, 8, 8) and with exactly tied logits:
-     ids equal, gates within 1e-6 abs / 1e-5 rel;
+   - `topk_gating` at (T, E, k) = (4, 64, 8), (512, 64, 8) (fp32 and bf16
+     logits), (512, 64, 6), (512, 60, 4), (33, 128, 8), (256, 256, 8),
+     (7, 8, 8) and with exactly tied logits: ids equal, gates within 1e-6
+     abs / 1e-5 rel; its device time (profiler), the bare launch's event
+     time and an empty kernel's (the launch floor, built by this script
+     alone from `EMPTY_KERNEL_CU` beside the port's kernels in phase 2)
+     beside the wrapper's;
    - `expert_ffn` at (E, C, D, F) = (64, 128, 2048, 1024), (64, 128, 2048,
      1408) and (3, 40, 64, 48), within 2e-2, with `slot_ffn` under the
      identity table bitwise equal to it;
@@ -107,7 +111,25 @@ the last line:
    partings from single-stream decoding are reported, not checked (batch-1
    products round differently, and across 26 routers that flips an expert
    choice and moves logits past a near-tie);
-8. a `{"kernels": [...]}` line (per kernel: `launches` summed over the runs
+8. §3.4 cache-aware routing: the monolithic runs of olmoe-1b-7b (unfused
+   and superkernel) and DeepSeek-V2-Lite (superkernel) again, with the
+   same requests and route bias 1.0 (`EngineServingConfig.route_bias`,
+   the reference's own value), each printing its demand misses, replays,
+   swapped GB (copy s, GB/s), TTFT / TPOT p50 and tok/s beside the bias-off
+   run of the same call, and how many served streams differ from it. The
+   launch checks of phases 5-7 hold; the routing calls of decode
+   (`fused_moe_entry`'s bias operand, or `route`'s `logit_bias` unfused)
+   must see a nonzero bias, and those of every bias-off run none; the run
+   demands no more experts than its bias-off run. At strength 1.0 one
+   prompt prefilled and decoded single-stream through the slot path (16
+   steps), with the bias each MoE layer routed with at each step recorded,
+   gives logits bitwise equal to the path's fully-resident oracle routed
+   with those same biases (`biased_oracle`). Then the engine's
+   strength is held at 0 with the biased calls still on (its ceiling
+   stays 1.0 and its controller, never given one, stays at 0): one
+   prompt's logits over prefill + 16 decode steps are bitwise equal to its
+   fully-resident oracle and to the bias-off engine's;
+9. a `{"kernels": [...]}` line (per kernel: `launches` summed over the runs
    whose path runs it, the kernel API's for `topk_gating` and
    `expert_ffn`, `launches_by_path` per run; times at the shape its entry
    names, every measured shape under `shapes`), the total time, then the
@@ -147,6 +169,17 @@ TOL_TOPK_ABS, TOL_TOPK_REL = 1e-6, 1e-5   # topk_gating's gates (fp32)
 CHUNK = 32        # the chunked runs' prefill chunk (the serving default)
 TOL_CTX = 2e-4     # fused_mla_decode_attention's ctx: fp32, summation order
 ARCHS = ("olmoe-1b-7b", "deepseek-v2-lite")
+ROUTE_BIAS = 1.0   # the cache-aware runs' strength (the reference's value)
+# The launch floor beside phase 3's topk_gating rows: an empty kernel on
+# the same grid, enqueued the same way. Only this script builds it.
+EMPTY_KERNEL_CU = r"""
+__global__ void empty_kernel() {}
+
+extern "C" int empty_launch(int blocks, int threads, void* stream) {
+  empty_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+"""
 
 
 def log(*a):
@@ -237,6 +270,31 @@ def kernel_name(mangled):
             t = re.match(r"IL[a-z](\d+)E", mangled[i:])
             return ident + (f"<{t.group(1)}>" if t else "")
     return mangled
+
+
+def start_empty_kernel_build(build):
+    """Start nvcc on `EMPTY_KERNEL_CU` into the port's git-ignored build
+    directory, beside the kernels' own builds; returns a function that
+    waits for it and loads the library."""
+    import ctypes
+    out_dir = build.BUILD_ROOT / "launch_floor"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src, so = out_dir / "empty.cu", out_dir / "libempty.so"
+    src.write_text(EMPTY_KERNEL_CU)
+    proc = subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, "-o", str(so),
+                             str(src)], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+    def finish():
+        out, _ = proc.communicate()
+        check(proc.returncode == 0,
+              f"nvcc failed for the empty kernel:\n{out}")
+        lib = ctypes.CDLL(str(so))
+        lib.empty_launch.argtypes = [ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_void_p]
+        lib.empty_launch.restype = ctypes.c_int
+        return lib
+    return finish
 
 
 def build_report(build):
@@ -738,23 +796,44 @@ def mla_phase(torch, dsk, ref, g):
     return results
 
 
-def topk_phase(torch, ops, ref, g):
+def topk_phase(torch, ops, ref, g, floor_lib):
     """`topk_gating` through `ops.topk` at the router shapes: olmoe-1b-7b
-    decode (T=4) and a batch of prompts (T=512), DeepSeek-V2-Lite (k=6),
-    the reference's own test shapes (33, 128, 8) and (7, 8, 8: k = E), the
+    decode (T=4) and a batch of prompts (T=512, fp32 and bf16 logits),
+    DeepSeek-V2-Lite (k=6), qwen1.5-moe (E=60, no multiple of 32), the
+    reference's own test shapes (33, 128, 8) and (7, 8, 8: k = E), the
     largest E it takes (256), and exactly tied logits. ids equal, gates
-    within 1e-6 abs / 1e-5 rel."""
+    within 1e-6 abs / 1e-5 rel. Each shape's time three ways: the wrapper's
+    CUDA-event median ("ms", host time included), the same for the bare
+    ctypes launch into preallocated outputs ("launch_ms"), and the kernel's
+    device time from a profiler trace ("device_ms"); beside them the floor,
+    an empty kernel enqueued the same way on the same grid (`floor_lib`,
+    built from `EMPTY_KERNEL_CU`)."""
+    from repro_torch.kernels.build import LIBS
     dev = "cuda"
+    lib = LIBS.get("topk_gating")
 
     def library(x, k):
         # yardstick only: softmax + torch.topk + normalise
         gates, ids = torch.softmax(x.float(), dim=-1).topk(k)
         return gates / gates.sum(-1, keepdim=True).clamp(min=1e-9), ids
 
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def empty(blocks):
+        floor_lib.empty_launch(blocks, 256, stream())   # topk's block size
+
+    def bare(x, k, out):
+        # the kernel's launch alone: no checks, no allocation
+        lib.topk_gating_launch(x.data_ptr(), int(x.dtype == torch.bfloat16),
+                               out.data_ptr(), out[x.shape[0] * k:].data_ptr(),
+                               x.shape[0], x.shape[1], k, 1, stream())
+
     cases = {"olmoe_decode": (4, 64, 8), "olmoe_batch": (512, 64, 8),
-             "deepseek_batch": (512, 64, 6), "wide_e": (33, 128, 8),
-             "e256": (256, 256, 8), "k_equals_e": (7, 8, 8),
-             "tied": (64, 64, 8)}
+             "olmoe_batch_bf16": (512, 64, 8),
+             "deepseek_batch": (512, 64, 6), "qwen_batch": (512, 60, 4),
+             "wide_e": (33, 128, 8), "e256": (256, 256, 8),
+             "k_equals_e": (7, 8, 8), "tied": (64, 64, 8)}
     results = {}
     for name, (T, E, k) in cases.items():
         if name == "tied":          # pairs of equal logits and a tied row
@@ -763,6 +842,8 @@ def topk_phase(torch, ops, ref, g):
             x[0] = 0.0
         else:
             x = torch.randn((T, E), generator=g, device=dev)
+        if name.endswith("bf16"):
+            x = x.bfloat16()
         gates, ids = ops.topk(x, k)
         gates2, ids2 = ops.topk(x, k)
         gr, ir = ref.topk_gating_ref(x, k)
@@ -777,19 +858,32 @@ def topk_phase(torch, ops, ref, g):
         if name == "tied":
             check(ids[0].tolist() == list(range(k)),
                   f"tied row did not pick the lowest ids: {ids[0].tolist()}")
-        nbytes = T * E * 4 + T * k * 8
+        nbytes = T * E * x.element_size() + T * k * 8
         b_ms, b_by = bound(nbytes, [(T * E * (k + 6),
                                      H100_FP32_FLOP_PER_S)])
-        r = {"shape": {"T": T, "E": E, "k": k}, "max_abs_err": err,
+        out = torch.empty(2 * T * k, dtype=torch.float32, device=dev)
+        blocks = -(-T // 8)             # the grid of 8 rows a block
+        split = launch_split(torch, lambda: ops.topk(x, k))
+        floor_split = launch_split(torch, lambda: empty(blocks))
+        r = {"shape": {"T": T, "E": E, "k": k}, "dtype": str(x.dtype),
+             "max_abs_err": err,
              "ms": time_ms(torch, lambda: ops.topk(x, k)),
+             "launch_ms": time_ms(torch, lambda: bare(x, k, out)),
+             "empty_launch_ms": time_ms(torch, lambda: empty(blocks)),
+             "launch_split_ms": split,
+             "device_ms": sum(split.values()) or None,
+             "empty_device_ms": sum(floor_split.values()) or None,
              "plain_ms": time_ms(torch, lambda: ref.topk_gating_ref(x, k)),
              "library_ms": time_ms(torch, lambda: library(x, k)),
              "bound_ms": b_ms, "bound_by": b_by}
         results[name] = r
-        log(f"kernel topk_gating {name} {r['shape']}: max|err| {err:.3g}, "
-            f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-            f"softmax+topk {r['library_ms']:.4f} ms, bound "
-            f"{b_ms:.6f} ms ({b_by})")
+        log(f"kernel topk_gating {name} {r['shape']} {r['dtype']}: max|err| "
+            f"{err:.3g}, kernel {r['ms']:.4f} ms through the wrapper, "
+            f"{r['launch_ms']:.4f} ms bare launch, device {r['device_ms']} "
+            f"ms; empty kernel on {blocks} blocks {r['empty_launch_ms']:.4f}"
+            f" ms, device {r['empty_device_ms']} ms; plain "
+            f"{r['plain_ms']:.4f} ms, softmax+topk {r['library_ms']:.4f} ms, "
+            f"bound {b_ms:.6f} ms ({b_by})")
     return results
 
 
@@ -916,10 +1010,12 @@ def kernel_api_phase(torch, ops, ref, moe_mod, g):
 
 # --------------------------------------------------------------- phase 5-7
 
-def sk_reference_decode_step(eng, tok, state, DecodeState):
+def sk_reference_decode_step(eng, tok, state, DecodeState, biases=None):
     """The fully-resident oracle of the superkernel path: the engine's own
     segment functions over every expert of each layer with the identity
-    slot table (no slot buffer, no swaps, no pre-gate rows)."""
+    slot table (no slot buffer, no swaps, no pre-gate rows). `biases`: each
+    MoE layer's (E,) router-logit bias for `fused_moe_entry`'s operand
+    (None: zeros)."""
     segs, _ = eng._sk_segments()
     caches, clen = list(state.caches), state.cache_len
     x = tok
@@ -928,24 +1024,118 @@ def sk_reference_decode_step(eng, tok, state, DecodeState):
         x, _, new_cs, logits = eng._sk_seg(
             seg, [eng._p[j] for j in seg], [caches[j] for j in seg], x, clen,
             eng._full_experts(li), eng._ident_map, eng._router_stack[:0],
-            eng._zero_bias, first=li == 0, with_logits=li == len(segs) - 1)
+            eng._zero_bias if biases is None else biases[li], first=li == 0,
+            with_logits=li == len(segs) - 1)
         for jj, aj in enumerate(seg):
             caches[aj] = new_cs[jj]
     return logits, DecodeState(caches, clen + 1, pos=state.pos + 1)
+
+
+def biased_reference_decode_step(eng, tok, state, biases):
+    """The unfused path's fully-resident oracle (`reference_decode_step`)
+    with MoE layer li routed with `biases[li]`: its `_pre_decode` calls,
+    one per MoE layer in order, get the bias as their `rbias`."""
+    it = iter(biases)
+    pre = eng._pre_decode
+    eng._pre_decode = lambda *a: pre(*a, rbias=next(it))
+    try:
+        return eng.reference_decode_step(tok, state)
+    finally:
+        del eng._pre_decode
+
+
+def biased_oracle(torch, eng, prompt, superkernel, DecodeState, tag):
+    """At the engine's own strength (> 0): one prompt prefilled (unbiased,
+    as serving prefills) and decoded single-stream through the slot path,
+    teacher-forced on the oracle's greedy tokens, with the residency bias
+    each MoE layer routed with at each step recorded (a replay rebuilds
+    it: the last one counts); the path's fully-resident oracle, routed with
+    those same biases, must give bitwise equal logits. Returns how many
+    (step, layer) biases were nonzero."""
+    seen = {}
+    orig = eng._residency_bias
+
+    def record(li):
+        seen[li] = orig(li)
+        return seen[li]
+
+    eng._residency_bias = record
+    try:
+        lg, s_slot = eng.prefill(prompt)
+        lr, s_ref = eng.reference_prefill(prompt)
+        worst, nonzero, toks = float((lg - lr).abs().max()), 0, []
+        for _ in range(16):
+            tok = lr.argmax(-1)
+            toks.append(int(tok[0]))
+            seen.clear()
+            lg, s_slot = eng.decode_step(tok, s_slot)
+            biases = [seen[li] for li in range(len(eng.moe_layer_ids))]
+            nonzero += sum(int(torch.count_nonzero(b)) > 0 for b in biases)
+            if superkernel:
+                lr, s_ref = sk_reference_decode_step(eng, tok, s_ref,
+                                                     DecodeState, biases)
+            else:
+                lr, s_ref = biased_reference_decode_step(eng, tok, s_ref,
+                                                         biases)
+            worst = max(worst, float((lg - lr).abs().max()))
+    finally:
+        del eng._residency_bias
+    check(worst == 0.0, f"[{tag}] at strength {eng._route_bias_strength()} "
+                        f"the slot path differs from its oracle routed with "
+                        f"the same biases: max |dlogit| {worst}")
+    check(nonzero > 0, f"[{tag}] no decode step routed with a nonzero bias")
+    log(f"oracle [{tag}]: at strength {eng._route_bias_strength()}, "
+        f"single-stream slot path bitwise equal to its fully-resident "
+        f"oracle routed with the same recorded biases over prefill + 16 "
+        f"decode steps ({nonzero} nonzero layer biases; tokens "
+        f"{toks[:8]}...)")
+    return nonzero
 
 
 def counters(mods):
     return {n: getattr(mods[n], "launches") for n in KERNELS}
 
 
+class BiasRecorder:
+    """Wraps a routing function during a serving run and keeps each call's
+    logit-bias tensor (a reference: no device read during the run), to
+    count afterwards the calls that saw a nonzero bias."""
+
+    def __init__(self, module, name, arg):
+        self.module, self.name, self.arg = module, name, arg
+        self.fn = getattr(module, name)
+        self.biases = []
+
+    def __enter__(self):
+        def call(*a, **kw):
+            b = kw.get("logit_bias", a[self.arg] if len(a) > self.arg
+                       else None)
+            if b is not None:
+                self.biases.append(b)
+            return self.fn(*a, **kw)
+        setattr(self.module, self.name, call)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+    def nonzero_calls(self, torch):
+        return sum(int(torch.count_nonzero(b)) > 0 for b in self.biases)
+
+
 def serving_phase(torch, np, mods, *, arch: str, superkernel: bool,
-                  chunk: int, mono_outputs=None):
+                  chunk: int, mono_outputs=None, route_bias: float = 0.0,
+                  base=None):
     """One serving run: `chunk` = 0 admits monolithically, > 0 through
     chunked prefill (then `mono_outputs`, the monolithic run's served
-    tokens on the same path, are compared with this run's)."""
+    tokens on the same path, are compared with this run's). `route_bias`
+    > 0 serves with §3.4 cache-aware routing at that strength; `base` is
+    then the bias-off run of the same path and admission, whose counters
+    and streams this run's are printed beside and held against."""
     path = "superkernel" if superkernel else "unfused"
     admission = f"chunked {chunk}" if chunk else "monolithic"
-    tag = f"{arch} {path} {admission}"
+    tag = f"{arch} {path} {admission}" + (f" bias {route_bias}"
+                                          if route_bias else "")
     cfg = mods["get_config"](arch)
     Model, SlotBufferEngine = mods["Model"], mods["SlotBufferEngine"]
     model = Model(cfg)
@@ -978,7 +1168,8 @@ def serving_phase(torch, np, mods, *, arch: str, superkernel: bool,
     Request = mods["Request"]
     reqs = [Request(p, max_new_tokens=16) for p in prompts]
     srv = mods["ServingEngine"](eng, mods["EngineServingConfig"](
-        max_batch=4, admission_cap=False, prefill_chunk=chunk))
+        max_batch=4, admission_cap=False, prefill_chunk=chunk,
+        route_bias=route_bias or None))
 
     # per-call launch counts and engine counters through shims
     # ("prefill" is one whole prompt, or one chunk on the chunked runs)
@@ -1011,9 +1202,15 @@ def serving_phase(torch, np, mods, *, arch: str, superkernel: bool,
     eng.stats.reset()
     for n in KERNELS:                          # this path's counts
         mods[n].launches = 0
+    moe_mod = mods["moe_mod"]
+    # the bias each routing call of decode saw: fused_moe_entry's operand
+    # (superkernel) or route's logit_bias (unfused; prefill passes none)
+    rec = (BiasRecorder(moe_mod, "fused_moe_entry", 2) if superkernel
+           else BiasRecorder(moe_mod, "route", 4))
     t0 = time.perf_counter()
-    report = srv.serve(reqs)
-    eng.synchronize()
+    with rec:
+        report = srv.serve(reqs)
+        eng.synchronize()
     wall = time.perf_counter() - t0
     launches = counters(mods)
     setattr(eng, pf_name, orig_prefill)
@@ -1058,6 +1255,11 @@ def serving_phase(torch, np, mods, *, arch: str, superkernel: bool,
     check(st.swap_experts > 0 and st.evictions > 0,
           f"[{tag}] no churn: swapped {st.swap_experts}, evicted "
           f"{st.evictions}")
+    biased_calls = rec.nonzero_calls(torch)
+    check((biased_calls > 0) == bool(route_bias),
+          f"[{tag}] {biased_calls} of {len(rec.biases)} routing calls saw a "
+          f"nonzero logit bias at route_bias {route_bias}")
+    rec.biases.clear()
     gbps = st.swap_bytes / st.copy_s / 1e9 if st.copy_s > 0 else float("nan")
     mean = lambda xs: float(np.mean(xs))  # noqa: E731
     serving = {
@@ -1086,6 +1288,8 @@ def serving_phase(torch, np, mods, *, arch: str, superkernel: bool,
         "peak_device_GB": torch.cuda.max_memory_allocated() / 1e9,
         "controller_s_history": list(eng.controller.s_history),
         "outputs": [list(r.output) for r in reqs],
+        "route_bias": route_bias,
+        "routing_calls_with_nonzero_bias": biased_calls,
     }
     log(f"serving [{tag}]: {len(reqs)} requests done in {wall:.2f} s; TTFT "
         f"p50 {serving['ttft_p50_s'] * 1e3:.1f} ms, TPOT p50 "
@@ -1101,6 +1305,20 @@ def serving_phase(torch, np, mods, *, arch: str, superkernel: bool,
         f"{st.swap_bytes / 1e9:.2f} GB in {st.copy_s:.3f} s of copies "
         f"({gbps:.2f} GB/s host->device), {st.evictions} evictions")
     log(f"serving [{tag}]: " + json.dumps(serving))
+    if route_bias:
+        log_beside(tag, serving, base)
+        check(st.demand_misses <= base["demand_misses"],
+              f"[{tag}] demanded {st.demand_misses} experts, more than the "
+              f"bias-off run's {base['demand_misses']}")
+        serving["oracle_biased_nonzero_layer_steps"] = biased_oracle(
+            torch, eng, prompts[0][None, :], superkernel,
+            mods["DecodeState"], tag)
+        # the oracle below needs strength 0: the ceiling keeps the biased
+        # calls on, the controller (never given a ceiling) holds it at 0
+        eng.route_bias_adaptive = True
+        check(eng._route_bias_strength() == 0.0,
+              f"[{tag}] strength {eng._route_bias_strength()} with the "
+              f"controller held at 0")
 
     # ---- oracle checks -----------------------------------------------------
     if superkernel:
@@ -1121,19 +1339,40 @@ def serving_phase(torch, np, mods, *, arch: str, superkernel: bool,
         lg, s_slot = eng.prefill(prompt)
     lr, s_ref = prefill_ref(prompt)
     worst = float((lg - lr).abs().max())
-    toks_slot, toks_ref = [], []
+    toks_slot, toks_ref, rows = [], [], [lg.cpu()]
     for _ in range(16):
         toks_slot.append(int(lg.argmax(-1)[0]))
         toks_ref.append(int(lr.argmax(-1)[0]))
         tok = lr.argmax(-1)
         lg, s_slot = eng.decode_step(tok, s_slot)
         lr, s_ref = step_ref(tok, s_ref)
+        rows.append(lg.cpu())
         worst = max(worst, float((lg - lr).abs().max()))
     check(worst == 0.0 and toks_slot == toks_ref,
           f"[{tag}] slot path differs from {what}: max |dlogit| {worst}, "
           f"tokens {toks_slot} vs {toks_ref}")
     log(f"oracle [{tag}]: single-stream slot path bitwise equal to {what} "
-        f"over prefill + 16 decode steps (tokens {toks_slot[:8]}...)")
+        f"over prefill + 16 decode steps (tokens {toks_slot[:8]}...)"
+        + (" at strength 0 with the biased calls on" if route_bias else ""))
+    if route_bias:
+        same = all(torch.equal(a, b) for a, b in zip(rows,
+                                                     base["_oracle_rows"]))
+        check(same, f"[{tag}] the zero-strength engine's logits differ from "
+                    f"the bias-off engine's on the same prompt")
+        log(f"oracle [{tag}]: logits of request {reqs[0].request_id}'s "
+            f"prompt over prefill + 16 decode steps bitwise equal to the "
+            f"bias-off engine's")
+        parted = [r.request_id for r, o in zip(reqs, base["outputs"])
+                  if list(r.output) != o]
+        serving["streams_parting_from_bias_off_run"] = parted
+        serving["zero_strength_bitwise"] = True
+        log(f"oracle [{tag}]: {len(parted)} of {len(reqs)} served streams "
+            f"differ from the bias-off run's {parted} (the bias moves "
+            f"routing, so streams part by design)")
+        eng.drop_resident_experts()
+        serving["phase_s"] = time.perf_counter() - t_phase
+        return serving, launches
+    serving["_oracle_rows"] = rows
     if chunk:
         # chunked against whole-prompt ingestion, both fully resident: the
         # chunk's GEMMs and attention have other shapes than the prompt's
@@ -1190,6 +1429,20 @@ def serving_phase(torch, np, mods, *, arch: str, superkernel: bool,
     serving["phase_s"] = time.perf_counter() - t_phase
     serving["oracle_bitwise"] = True
     return serving, launches
+
+
+def log_beside(tag, run, base):
+    """Print a biased run's counters and times beside its bias-off run's."""
+    def line(r):
+        gb = r["swapped_bytes"] / 1e9
+        return (f"demand misses {r['demand_misses']}, replays {r['replays']}"
+                f", swapped {gb:.2f} GB ({r['copy_s']:.2f} s, "
+                f"{r['h2d_GBps']:.2f} GB/s), TTFT p50 "
+                f"{r['ttft_p50_s'] * 1e3:.1f} ms, TPOT p50 "
+                f"{r['tpot_p50_s'] * 1e3:.1f} ms, "
+                f"{r['throughput_tok_s']:.2f} tok/s")
+    log(f"serving [{tag}]: {line(run)}")
+    log(f"serving [{tag}]: bias off (same call): {line(base)}")
 
 
 def stream_partings(torch, np, eng, reqs, prompts, prefill_fn, step_fn,
@@ -1262,7 +1515,9 @@ def main(argv) -> int:
     # ---- phase 2: build ------------------------------------------------------
     from repro_torch.kernels import build
     t0 = time.perf_counter()
+    floor_build = start_empty_kernel_build(build)
     secs = build.build_all()
+    floor_lib = floor_build()
     log(f"build: {json.dumps(secs)} ({time.perf_counter() - t0:.1f} s wall)")
     build_info = build_report(build)
 
@@ -1283,7 +1538,7 @@ def main(argv) -> int:
         "fused_moe_entry": lambda: moe_entry_phase(torch, dsk, ref, g),
         "fused_decode_attention": lambda: attention_phase(torch, dsk, ref, g),
         "fused_mla_decode_attention": lambda: mla_phase(torch, dsk, ref, g),
-        "topk_gating": lambda: topk_phase(torch, ops, ref, g),
+        "topk_gating": lambda: topk_phase(torch, ops, ref, g, floor_lib),
         "expert_ffn": lambda: expert_ffn_phase(torch, ops, ref, g)}
     kres = {n: phases[n]() for n in only or KERNELS}
     log(f"kernels done at {time.perf_counter() - t_start:.1f} s")
@@ -1292,7 +1547,7 @@ def main(argv) -> int:
         out_dir.mkdir(exist_ok=True)
         (out_dir / "chip_smoke_kernels.json").write_text(json.dumps(
             {"gpu": smi[0], "kernels": kres, "build": build_info}, indent=1))
-        log("--kernels: phases 4-8 skipped, no result")
+        log("--kernels: phases 4-9 skipped, no result")
         return 0
 
     # ---- phase 4: the kernel API, the path of topk_gating and expert_ffn ----
@@ -1309,7 +1564,8 @@ def main(argv) -> int:
                 fused_moe_entry=dsk.fused_moe_entry,
                 fused_decode_attention=dsk.fused_decode_attention,
                 fused_mla_decode_attention=dsk.fused_mla_decode_attention,
-                topk_gating=ops.topk, expert_ffn=ops.expert_ffn)
+                topk_gating=ops.topk, expert_ffn=ops.expert_ffn,
+                moe_mod=moe_mod)
     serving = {}
     for arch in ARCHS:
         for superkernel in (False, True):
@@ -1327,6 +1583,23 @@ def main(argv) -> int:
                 if hasattr(torch._C, "_host_emptyCache"):
                     torch._C._host_emptyCache()   # release cached pinned memory
                 log(f"[{tag}] done at {time.perf_counter() - t_start:.1f} s")
+    # §3.4 cache-aware routing: the monolithic runs again at route bias
+    # ROUTE_BIAS, each beside its bias-off run of this call
+    for arch, superkernel in (("olmoe-1b-7b", False), ("olmoe-1b-7b", True),
+                              ("deepseek-v2-lite", True)):
+        base = f"{arch} {'superkernel' if superkernel else 'unfused'} " \
+               f"monolithic"
+        tag = f"{base} bias {ROUTE_BIAS}"
+        serving[tag], launches[tag] = serving_phase(
+            torch, np, mods, arch=arch, superkernel=superkernel, chunk=0,
+            route_bias=ROUTE_BIAS, base=serving[base])
+        gc.collect()
+        torch.cuda.empty_cache()
+        if hasattr(torch._C, "_host_emptyCache"):
+            torch._C._host_emptyCache()
+        log(f"[{tag}] done at {time.perf_counter() - t_start:.1f} s")
+    for run in serving.values():
+        run.pop("_oracle_rows", None)
 
     src = "src/repro_torch/kernels/csrc/"
     # (kernel, source, TPU kernel it replaces, the runs whose path runs it,

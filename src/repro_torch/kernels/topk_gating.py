@@ -4,6 +4,10 @@ On a CUDA tensor `topk_gating` launches the hand-written Hopper kernel
 (`csrc/topk_gating.cu`, one warp per row); on a CPU tensor it runs the
 plain version (`kernels.ref.topk_gating_ref`), which follows the kernel's
 selection rule. Any other device raises.
+
+The kernel runs for a few microseconds, so the wrapper keeps its own host
+work small: one output allocation viewed as gates and ids, one read of the
+current stream, no host sync.
 """
 from __future__ import annotations
 
@@ -13,6 +17,7 @@ from repro_torch.kernels.build import LIBS
 from repro_torch.kernels.ref import topk_gating_ref
 
 MAX_EXPERTS = 256
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def topk_gating(logits: torch.Tensor, k: int, *, norm: bool = True):
@@ -24,31 +29,31 @@ def topk_gating(logits: torch.Tensor, k: int, *, norm: bool = True):
 
     Launches on the current CUDA stream and counts each launch in
     `topk_gating.launches`."""
-    if logits.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"topk_gating runs on cuda or cpu, not "
-                         f"{logits.device}")
+    dev = logits.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"topk_gating runs on cuda or cpu, not {dev}")
     if logits.dim() != 2:
         raise ValueError(f"logits must be (T, E), got {tuple(logits.shape)}")
     T, E = logits.shape
     if E > MAX_EXPERTS or not 1 <= k <= E:
         raise ValueError(f"topk_gating needs E <= {MAX_EXPERTS} and "
                          f"1 <= k <= E, got E={E}, k={k}")
-    if logits.device.type == "cpu":
+    if dev.type == "cpu":
         return topk_gating_ref(logits, k, norm)
-    if logits.dtype not in (torch.float32, torch.bfloat16):
+    if logits.dtype not in _KERNEL_DTYPES:
         raise TypeError(f"logits must be float32 or bfloat16 on the card, "
                         f"got {logits.dtype}")
     if not logits.is_contiguous():
         raise ValueError("logits must be contiguous")
-    gates = torch.empty((T, k), dtype=torch.float32, device=logits.device)
-    ids = torch.empty((T, k), dtype=torch.int32, device=logits.device)
+    out = torch.empty(2 * T * k, dtype=torch.float32, device=dev)
+    gates = out[:T * k].view(T, k)
+    ids = out[T * k:].view(torch.int32).view(T, k)
     if T == 0:
         return gates, ids
-    lib = LIBS.get("topk_gating")
-    stream = torch.cuda.current_stream(logits.device).cuda_stream
-    err = lib.topk_gating_launch(
+    err = LIBS.get("topk_gating").topk_gating_launch(
         logits.data_ptr(), int(logits.dtype == torch.bfloat16),
-        gates.data_ptr(), ids.data_ptr(), T, E, k, int(norm), stream)
+        gates.data_ptr(), ids.data_ptr(), T, E, k, int(norm),
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"topk_gating launch failed with CUDA error {err}")
     topk_gating.launches += 1

@@ -72,10 +72,20 @@ def top_k_first_max(vals: torch.Tensor, k: int):
 
 
 def route(router_w: torch.Tensor, x: torch.Tensor, top_k: int,
-          norm_topk: bool = True) -> RouterOutput:
+          norm_topk: bool = True,
+          logit_bias: Optional[torch.Tensor] = None) -> RouterOutput:
     """Top-k softmax routing in fp32. x: (T, d) -> assignments over E
-    experts."""
+    experts.
+
+    `logit_bias` ((E,) or (T, E), fp32, additive) is §3.4 cache-aware
+    routing: the engine passes 0 for resident experts and -strength for the
+    others (`core.cache_aware.residency_logit_bias`), so a non-resident
+    expert loses its top-k place only to a resident one within `strength`
+    logits. The returned logits and probs are the biased ones. None computes
+    exactly what the unbiased router computes."""
     logits = x.float() @ router_w.float()
+    if logit_bias is not None:
+        logits = logits + logit_bias.float()
     probs = torch.softmax(logits, dim=-1)
     gates, expert_ids = top_k_first_max(probs, top_k)
     if norm_topk:

@@ -56,6 +56,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.cache import TwoLevelLRU
+from repro_torch.core.cache_aware import residency_logit_bias
 from repro_torch.core.expert_buffer import (HostExpertStore, SlotTable,
                                             make_buffer, swap_in_many)
 from repro_torch.core.prefetcher import Prefetcher, TransferLink
@@ -89,14 +90,17 @@ def _needed_mask(ids: torch.Tensor, E: int,
 
 
 def _route_ffn_entry(p, cfg: ModelConfig, x: torch.Tensor,
-                     active: Optional[torch.Tensor] = None):
+                     active: Optional[torch.Tensor] = None,
+                     rbias: Optional[torch.Tensor] = None):
     """FFN entry of a MoE layer: ffn-norm the attention output, flatten,
     route on the device and build the (E,) needed mask (the union over
-    `active` rows only, when given). Returns (flat, RouterOutput, needed)."""
+    `active` rows only, when given). `rbias`: the layer's (E,) residency
+    logit bias (§3.4), or None for the unbiased router. Returns (flat,
+    RouterOutput, needed)."""
     h2 = rms_norm(x, p["ffn_norm"], cfg.norm_eps)
     flat = h2.reshape(-1, x.shape[-1])
     r = moe_mod.route(p["moe"]["router"], flat, cfg.moe.top_k,
-                      cfg.moe.router_norm_topk)
+                      cfg.moe.router_norm_topk, logit_bias=rbias)
     return flat, r, _needed_mask(r.expert_ids, cfg.moe.num_experts, active)
 
 
@@ -190,13 +194,15 @@ class SlotBufferEngine:
     unfused decode through the slot-indirect `slot_ffn` kernel; otherwise
     through bf16 per-slot einsums. `use_superkernel=True` decodes through
     the segment-fused path (`fused_decode_attention` + `fused_moe_entry`).
-    `device` defaults to CUDA; without CUDA the engine raises unless the
-    caller passes ``device="cpu"``."""
+    `route_bias` > 0 turns on §3.4 cache-aware routing of decode
+    (`set_route_bias`). `device` defaults to CUDA; without CUDA the engine
+    raises unless the caller passes ``device="cpu"``."""
 
     def __init__(self, cfg: ModelConfig, params, model: Model,
                  n_slots_per_layer: int, *, use_kernel: bool = False,
                  max_seq: int = 256, step_size: Optional[int] = None,
                  pregate_margin: int = 2, use_superkernel: bool = False,
+                 route_bias: float = 0.0, route_bias_adaptive: bool = False,
                  device="cuda"):
         assert cfg.moe is not None
         self.device = resolve_device(device)
@@ -259,6 +265,13 @@ class SlotBufferEngine:
         self.pregate_margin = pregate_margin
         self._router_stack = torch.stack(
             [self._p[i]["moe"]["router"] for i in self.moe_layer_ids])
+        # §3.4 cache-aware routing: a bounded residency perturbation of the
+        # decode routers (`set_route_bias`); 0 leaves every router call as
+        # it is without the feature
+        self.route_bias = 0.0
+        self.route_bias_adaptive = False
+        if route_bias:
+            self.set_route_bias(route_bias, adaptive=route_bias_adaptive)
         # asynchronous swap-ins (CUDA): the copy stream, the copy-end event
         # each slot's FFN readers must wait on, and timing events not read yet
         self._copy_stream = (torch.cuda.Stream(self.device)
@@ -325,25 +338,31 @@ class SlotBufferEngine:
         """Logits of row `idx` (a final chunk's last real row)."""
         return self.model.logits(self.params, x[:, idx])
 
-    def _pre_decode(self, p, spec, x, cache, clen, active=None):
+    def _pre_decode(self, p, spec, x, cache, clen, active=None, rbias=None):
         """Decode half before the FFN: O(1) attention against the KV cache
         + cache update + norm + on-device routing (needed mask over
-        `active` rows when batched)."""
+        `active` rows when batched; `rbias` the layer's residency bias, or
+        None)."""
         stripped, spec_nf = split_ffn_params(p, spec)
         x, new_cache = layer_decode(stripped, self.cfg, spec_nf, x, cache,
                                     clen)
-        flat, r, needed = _route_ffn_entry(p, self.cfg, x, active)
+        flat, r, needed = _route_ffn_entry(p, self.cfg, x, active, rbias)
         return x, flat, r, needed, new_cache
 
-    def _pregate(self, flat, needed, routers, active=None):
+    def _pregate(self, flat, needed, routers, active=None, rbias=None):
         """(n + 1, E) bool: row 0 the layer's needed set, rows 1.. the
-        top-(k + margin) predictions of the next n routers on `flat`."""
+        top-(k + margin) predictions of the next n routers on `flat`
+        (each with its row of the (n, E) residency bias `rbias`, so the
+        prediction agrees with the biased routing its layer will run; None
+        for the unbiased routers)."""
         E = self.cfg.moe.num_experts
         k_pred = min(E, self.cfg.moe.top_k + self.pregate_margin)
         rows = [needed]
         for j in range(routers.shape[0]):
             rn = moe_mod.route(routers[j], flat, k_pred,
-                               self.cfg.moe.router_norm_topk)
+                               self.cfg.moe.router_norm_topk,
+                               logit_bias=None if rbias is None
+                               else rbias[j])
             rows.append(_needed_mask(rn.expert_ids, E, active))
         return torch.stack(rows)
 
@@ -629,6 +648,58 @@ class SlotBufferEngine:
             li += 1
         return x
 
+    # -- cache-aware routing (§3.4) ------------------------------------------
+    def set_route_bias(self, strength: float, adaptive: bool = False) -> None:
+        """Turn on (or adjust) the bounded residency perturbation of decode
+        routing: non-resident experts' router logits drop by `strength`
+        before top-k, so a non-resident expert loses its place only to a
+        resident one within `strength` logits, and the router's KL from the
+        unperturbed one is at most `strength` nats
+        (`core.cache_aware.residency_logit_bias`).
+
+        `adaptive=True` makes `strength` a ceiling: the engine's
+        `StepSizeController` ramps its `route_bias` within [0, strength]
+        from the stall/overfetch thresholds that move S. Strength 0 turns
+        the feature off."""
+        self.route_bias = float(strength)
+        self.route_bias_adaptive = bool(adaptive)
+        if adaptive and self.route_bias > 0.0 \
+                and self.controller.cfg.route_bias_max <= 0.0:
+            self.controller.cfg = dataclasses.replace(
+                self.controller.cfg, route_bias_max=self.route_bias)
+
+    def _route_bias_strength(self) -> float:
+        """The perturbation strength now (router-logit units). Degraded
+        routing under link faults (a floor on the strength) comes with the
+        fault handling, which the port does not have yet."""
+        if self.route_bias_adaptive:
+            return float(min(self.controller.route_bias, self.route_bias))
+        return self.route_bias
+
+    def _bias_to_device(self, bias: np.ndarray) -> torch.Tensor:
+        """A host bias array onto the device, `non_blocking`: PyTorch adds
+        no stream sync, and a copy from pageable memory reads its source
+        before it returns, so the array may go at once."""
+        return torch.from_numpy(bias).to(self.device, non_blocking=True)
+
+    def _residency_bias(self, li: int) -> torch.Tensor:
+        """(E,) device bias of MoE layer li from the host slot table, the
+        state every residency decision reads: no device->host pull.
+        Assigned in-flight transfers count as resident: they land before
+        the FFN that reads them."""
+        mask = self.table.layer_slot_map(li) >= 0
+        return self._bias_to_device(
+            residency_logit_bias(mask, self._route_bias_strength()))
+
+    def _pregate_bias(self, li: int, s: int) -> torch.Tensor:
+        """(s, E) bias of the pre-gated horizon (MoE layers li+1..li+s),
+        each row from its own layer's residency, so the predictions agree
+        with the biased routing those layers will run."""
+        rows = np.stack([self.table.layer_slot_map(li + 1 + j) >= 0
+                         for j in range(s)])
+        return self._bias_to_device(
+            residency_logit_bias(rows, self._route_bias_strength()))
+
     # -- adaptive horizon ----------------------------------------------------
     def _s_eff(self) -> int:
         return self.fixed_s if self.fixed_s is not None else self.controller.s
@@ -641,14 +712,15 @@ class SlotBufferEngine:
         return self.controller.horizon(remaining)
 
     def _sync_masks_dev(self, li: int, s: int, flat, needed_dev,
-                        active_dev=None) -> torch.Tensor:
+                        active_dev=None, rbias=None) -> torch.Tensor:
         """Device-side (s+1, E) sync mask block (row 0 the layer's needed
-        set, rows 1.. the pre-gated horizon)."""
+        set, rows 1.. the pre-gated horizon; `rbias` the horizon's (s, E)
+        residency bias, or None)."""
         if s == 0:
             return needed_dev[None]
         return self._dispatch(self._pregate, flat, needed_dev,
                               self._router_stack[li + 1: li + 1 + s],
-                              active_dev)
+                              active_dev, rbias)
 
     @staticmethod
     def _decode_sync_rows(li: int, s: int, rows: np.ndarray):
@@ -935,6 +1007,9 @@ class SlotBufferEngine:
             active_dev = None
         if self.use_superkernel:
             return self._decode_step_superkernel(tok, state, active_dev)
+        # cache-aware routing is switched by the ceiling, not the strength
+        # now: an adaptive engine at strength 0 routes with a zero bias
+        ca = self.route_bias > 0.0
         t0 = time.perf_counter()
         self.stats.steps += 1
         tok = torch.as_tensor(tok, device=self.device)
@@ -1016,7 +1091,8 @@ class SlotBufferEngine:
                 continue
             x_in, old_c = x, caches[i]
             x2, flat, r, needed_dev, c2 = self._dispatch(
-                self._pre_decode, p, spec, x_in, old_c, clen, active_dev)
+                self._pre_decode, p, spec, x_in, old_c, clen, active_dev,
+                self._residency_bias(li) if ca else None)
             self._advance_clock()
             if li in predicted:
                 # ---- speculative layer: no host pull ------------------------
@@ -1036,7 +1112,9 @@ class SlotBufferEngine:
                 continue
             # ---- sync layer: ONE blocking pull for verify + routing + S ----
             s = self._horizon(li)
-            masks = self._sync_masks_dev(li, s, flat, needed_dev, active_dev)
+            masks = self._sync_masks_dev(
+                li, s, flat, needed_dev, active_dev,
+                self._pregate_bias(li, s) if ca and s > 0 else None)
             sync, fail = pull_and_verify(masks)
             if fail >= 0:
                 i, li, x = replay_from(fail)
@@ -1090,6 +1168,7 @@ class SlotBufferEngine:
 
     def _sk_seg(self, seg: List[int], ps, seg_caches, x, clen, slot_weights,
                 slot_map, routers_next, bias, active=None, *,
+                bias_next: Optional[torch.Tensor] = None,
                 first: bool = False, with_logits: bool = False,
                 max_len: Optional[int] = None):
         """One decode segment: (embed the tokens if first) -> its dense
@@ -1099,6 +1178,9 @@ class SlotBufferEngine:
         `fused_moe_entry` -> residual, and
         the (1 + s, E) mask block (row 0 the experts routed to over `active`
         rows, rows 1.. the top-(k + margin) pre-gate of the next s routers).
+        `bias`: the (E,) router-logit bias `fused_moe_entry` adds (the
+        layer's residency bias, or zeros); `bias_next`: the pre-gate's
+        (s, E) bias, or None.
         `with_logits`: the last segment of an all-MoE stack also computes
         the final-norm logits. `max_len`: the host's bound on `clen` (its
         mirror of the lengths), passed to MLA's kernel so that it reads no
@@ -1123,7 +1205,7 @@ class SlotBufferEngine:
             p["moe"], slot_weights, slot_map, flat, cfg.moe, logit_bias=bias)
         x = x + out.reshape(B, T, d)
         needed = _needed_mask(ids, cfg.moe.num_experts, active)
-        masks = self._pregate(flat, needed, routers_next, active)
+        masks = self._pregate(flat, needed, routers_next, active, bias_next)
         logits = self._logits(x) if with_logits else None
         return x, masks, new_caches, logits
 
@@ -1142,7 +1224,11 @@ class SlotBufferEngine:
         first (`demand_hint`, growing monotonically, so replays end). A
         hinted segment whose demand still does not fit is capacity
         overflow: its absent experts' tokens drop, as on the unfused path.
-        Route bias and fault handling are not ported: the bias is zeros."""
+        With cache-aware routing each segment's residency bias goes into
+        `fused_moe_entry`'s logit-bias operand and its horizon's into the
+        pre-gate, both built from the residency the segment finds (so a
+        replay is rebuilt from the residency at that point)."""
+        ca = self.route_bias > 0.0
         t0 = time.perf_counter()
         self.stats.steps += 1
         tok = torch.as_tensor(tok, device=self.device)
@@ -1228,6 +1314,11 @@ class SlotBufferEngine:
                                      speculative=True)
             sync = li not in predicted or bool(hint)
             s = self._horizon(li) if sync else 0
+            if ca:
+                bias_this = self._residency_bias(li)
+                bias_next = self._pregate_bias(li, s) if s > 0 else None
+            else:
+                bias_this, bias_next = self._zero_bias, None
             x_in = tok if first else x
             last = si == n_segs - 1
             ckpt[si] = (x_in, [caches[j] for j in seg])
@@ -1237,8 +1328,9 @@ class SlotBufferEngine:
                 self._sk_seg, seg, [self._p[j] for j in seg],
                 [caches[j] for j in seg], x_in, clen, self.buffer,
                 torch.from_numpy(slot_map).to(self.device),
-                self._router_stack[li + 1: li + 1 + s], self._zero_bias,
-                active_dev, first=first, with_logits=last, max_len=max_len)
+                self._router_stack[li + 1: li + 1 + s], bias_this, active_dev,
+                bias_next=bias_next, first=first, with_logits=last,
+                max_len=max_len)
             if last:
                 logits = lg
             for jj, aj in enumerate(seg):

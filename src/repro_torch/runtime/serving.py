@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -47,8 +47,10 @@ from repro_torch.runtime.sampler import sample, sample_rows
 @dataclass
 class EngineServingConfig:
     max_batch: int = 4
-    # working-set admission cap fed by the engine's controller
+    # working-set admission cap fed by the engine's controller, its budget
+    # scaled by `admission_headroom`
     admission_cap: bool = True
+    admission_headroom: float = 1.0
     max_iterations: int = 100_000
     # chunked prefill: prompt-chunk width interleaved with decode; 0 =
     # monolithic whole-prompt prefill at admission
@@ -56,6 +58,20 @@ class EngineServingConfig:
     # aging bound of the shortest-remaining-first chunk scheduler: a cursor
     # passed over this many consecutive iterations is advanced regardless
     prefill_starve_limit: int = 4
+    # record each request's logits rows, its prefill's and one per decode
+    # step (tests, debugging): `ServingEngine.logits_trace`
+    trace_logits: bool = False
+    # §3.4 cache-aware routing, applied to the engine at construction (None
+    # leaves the engine's own setting): `route_bias` is the strength delta
+    # in router-logit units (router KL from unperturbed routing <= delta
+    # nats; 0 turns it off), `route_bias_adaptive` makes it a ceiling that
+    # the engine's StepSizeController ramps within
+    route_bias: Optional[float] = None
+    route_bias_adaptive: Optional[bool] = None
+    # default per-request deadline, relative to arrival: a request still
+    # queued past it is shed at admission (a request's own `deadline_s`
+    # wins; None = never shed)
+    deadline_s: Optional[float] = None
     # brownout admission: admissions pause while the single-replica
     # StragglerPolicy drains (decode-step EWMA past threshold x baseline)
     brownout_admission: bool = False
@@ -71,6 +87,10 @@ class ServingEngine:
                  cfg: Optional[EngineServingConfig] = None, seed: int = 17):
         self.engine = engine
         self.cfg = cfg or EngineServingConfig()
+        if self.cfg.route_bias is not None:
+            engine.set_route_bias(
+                self.cfg.route_bias,
+                adaptive=bool(self.cfg.route_bias_adaptive))
         admission = None
         if self.cfg.admission_cap:
             L = max(len(engine.moe_layer_ids), 1)
@@ -78,7 +98,8 @@ class ServingEngine:
                 controller=engine.controller,     # the engine's OWN signals
                 slots_per_layer=max(1, engine.n_slots // L),
                 expert_bytes=engine._expert_nbytes,
-                default_ws=float(engine.cfg.moe.top_k))
+                default_ws=float(engine.cfg.moe.top_k),
+                headroom=self.cfg.admission_headroom)
         self.straggler = StragglerPolicy(
             1, threshold=self.cfg.brownout_threshold,
             recovery=self.cfg.brownout_recovery)
@@ -87,6 +108,7 @@ class ServingEngine:
             brownout=(lambda: self.straggler.draining(0))
             if self.cfg.brownout_admission else None)
         self.seed = seed
+        self.logits_trace: Dict[int, List[np.ndarray]] = {}
         # per-row sampling state
         self._row_gen: List[Optional[torch.Generator]] = \
             [None] * self.cfg.max_batch
@@ -136,6 +158,9 @@ class ServingEngine:
         self._row_temp[slot] = max(float(req.temperature), 0.0)
         req.output.append(int(tok[0]))
         req.first_token_s = time.perf_counter() - self._t0
+        if self.cfg.trace_logits:
+            self.logits_trace.setdefault(req.request_id, []).append(
+                logits[0].float().cpu().numpy())
         report.run.add(StepMetrics(step=it,
                                    compute_s=req.first_token_s - t_start,
                                    step_size=eng.controller.s))
@@ -195,6 +220,10 @@ class ServingEngine:
                     f"request {r.request_id}: prompt {r.prompt_len} + "
                     f"max_new {r.max_new_tokens} exceeds engine "
                     f"max_seq {eng.max_seq}; it would fail mid-decode")
+        if cfg.deadline_s is not None:
+            for r in pending:
+                if r.deadline_s is None:
+                    r.deadline_s = cfg.deadline_s
         for r in pending:
             if self.batcher.admission is not None and r.predicted_ws is None:
                 r.predicted_ws = self.predict_working_set(r)
@@ -259,6 +288,12 @@ class ServingEngine:
             logits, state = eng.decode_step(toks, state)
             sampled = sample_rows(logits, self._row_gen,
                                   self._row_temp).cpu().numpy()
+            if cfg.trace_logits:
+                logits_h = logits.float().cpu().numpy()
+                for slot in active_slots:
+                    rid = self.batcher.active[slot].request_id
+                    self.logits_trace.setdefault(rid, []).append(
+                        logits_h[slot])
             next_tokens = {slot: int(sampled[slot]) for slot in active_slots}
             slot_of = {self.batcher.active[s].request_id: s
                        for s in active_slots}

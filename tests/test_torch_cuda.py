@@ -461,6 +461,40 @@ def test_topk_kernel_ties_go_to_the_lowest_index(gen):
     torch.testing.assert_close(g, gr, rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,k", [(8, 8), (60, 4), (64, 8), (128, 8),
+                                 (256, 16)])
+@pytest.mark.parametrize("kind", ["negative", "large", "tied_rows"])
+def test_topk_kernel_at_every_lane_width(gen, E, k, dtype, kind):
+    """Each of the kernel's widths (1, 2, 4 and 8 entries a lane, and E = 60
+    with a ragged last lane) on logits far below zero, of large magnitude
+    (a probability that underflows to 0 still ranks above a chosen entry),
+    and with whole rows tied: ids equal to the plain version's."""
+    x = torch.randn((65, E), generator=gen, device="cuda")
+    if kind == "negative":
+        x = x - 80.0
+    elif kind == "large":
+        x = x * 1e3
+    else:
+        x[::3] = 0.0                    # every third row tied throughout
+        x[1::3] = -7.5
+    x = x.to(dtype)
+    g, i = ops.topk(x, k)
+    gr, ir = topk_gating_ref(x, k)
+    torch.cuda.synchronize()
+    assert g.is_contiguous() and i.is_contiguous()
+    assert torch.equal(i, ir)
+    torch.testing.assert_close(g, gr, rtol=1e-5, atol=1e-6)
+    if kind == "tied_rows":
+        want = torch.arange(k, device="cuda", dtype=torch.int32)
+        assert torch.equal(i[::3], want.expand_as(i[::3]))
+
+
+def test_topk_kernel_takes_no_rows(gen):
+    g, i = ops.topk(torch.zeros((0, 64), device="cuda"), 8)
+    assert g.shape == (0, 8) and i.shape == (0, 8) and i.dtype == torch.int32
+
+
 def test_topk_wrapper_rejects_what_the_kernel_does_not_take(gen):
     with pytest.raises(TypeError):
         ops.topk(torch.zeros((4, 8), device="cuda", dtype=torch.float16), 2)
