@@ -28,8 +28,11 @@ the last line:
    tolerance, 2e-5:
    - `slot_ffn` at olmoe-1b-7b decode (batch 4), prefill (128 tokens), one
      32-token prefill chunk (every routed expert resident, and 16 of 64
-     experts resident as serving meets it) and a ragged shape, and at
-     DeepSeek-V2-Lite decode, prefill and chunk, tolerance 2e-2: with the
+     experts resident as serving meets it) and a ragged shape, at
+     DeepSeek-V2-Lite decode, prefill and chunk, and at the three Qwen
+     models' decode and chunk shapes (E = 60 top-4 at d 2048, f 1408; 64
+     top-8 at 3584, 2560; 128 top-8 at 4096, 1536), also with no expert
+     resident (an empty work list: every count 0), tolerance 2e-2: with the
      per-expert row counts `moe_slotbuf` passes (rows < counts checked,
      deterministic and equal to the all-rows call's; bound from the rows
      that hold tokens, the bound of reading and writing every row beside
@@ -38,13 +41,16 @@ the last line:
      routed expert resident and with 16 resident experts per layer (some
      routed ones absent), bias zeros and nonzero, at DeepSeek-V2-Lite
      decode (T=4, top-6, 416 slots) and at T=64 (up to 64 rows an expert,
-     each weight panel still read once an expert), and in f32 at T=4 and
-     T=128 (the f32 GEMM's wgmma route): ids equal, gates within
+     each weight panel still read once an expert), at the three Qwen
+     decode shapes (T=4; a routed quarter and 16 resident experts, and an
+     empty work list for qwen1.5 and qwen3: y and every gate 0), and in f32
+     at T=4 and T=128 (the f32 GEMM's wgmma route): ids equal, gates within
      1e-6, y within 2e-2 (f32: 2e-5), deterministic, with each of its three launches' device time
      from a `torch.profiler` trace (`launch_split`);
    - `fused_decode_attention` at B=4, Hq=Hkv=16, D=128, S=256 with cache
      lengths 0, 63, 128, 255, a wrapped ring (lengths >= S), GQA shapes
-     (G=4; G=16 at D=64 and D=256 with every length 0), S=130 (no multiple
+     (G=4; G=16 at D=64 and D=256 with every length 0; the Qwen groups at
+     D=128: G=7, Hq=28, Hkv=4, and G=16, Hq=64, Hkv=4), S=130 (no multiple
      of the 8 splits), S=2048 and one () length, softcap 0 and 30: new
      caches bitwise equal, out finite and within 2e-2, with the kernel's
      device time (profiler) and a clone + insert + SDPA yardstick
@@ -85,8 +91,12 @@ the last line:
    expert; every served request's tokens match those of the request
    decoded alone through the fully-resident path, teacher-forced, both in a
    state of the serving batch's width (request in row 0, the other rows
-   idle: the same shapes, so the same bits) and single-stream, unless the
-   reference's top two logits are within 5e-2 (a near-tie). The chunked run
+   idle: the same shapes, so the same bits) unless the reference's top two
+   logits are within 5e-2 (a near-tie), and single-stream unless a
+   near-tie or a router flip at a near-tie (see `router_flip`): batch-1
+   products round differently, and a last-bit difference can flip a
+   router's k-th choice, after which the logits move by more than a
+   near-tie. The chunked run
    also prints max |chunked - whole-prompt| prefill logits of one prompt
    (their greedy tokens must agree unless the top two are within 5e-2; the
    chunk's GEMMs and attention have other shapes, so the bits differ) and
@@ -106,11 +116,8 @@ the last line:
    unfused, `slot_ffn` once per MoE layer at least per prefill (chunk) and
    decode step; superkernel, per decode step `fused_mla_decode_attention`
    once per layer and `fused_moe_entry` once per MoE layer at least,
-   `slot_ffn` and `fused_decode_attention` never. The served streams are
-   checked against the request decoded alone at the batch's width; their
-   partings from single-stream decoding are reported, not checked (batch-1
-   products round differently, and across 26 routers that flips an expert
-   choice and moves logits past a near-tie);
+   `slot_ffn` and `fused_decode_attention` never, and the same checks of
+   the served streams;
 8. §3.4 cache-aware routing: the monolithic runs of olmoe-1b-7b (unfused
    and superkernel) and DeepSeek-V2-Lite (superkernel) again, with the
    same requests and route bias 1.0 (`EngineServingConfig.route_bias`,
@@ -129,11 +136,39 @@ the last line:
    stays 1.0 and its controller, never given one, stays at 0): one
    prompt's logits over prefill + 16 decode steps are bitwise equal to its
    fully-resident oracle and to the bias-off engine's;
-9. a `{"kernels": [...]}` line (per kernel: `launches` summed over the runs
-   whose path runs it, the kernel API's for `topk_gating` and
+10. the reference's Qwen MoE configs at their published widths, 16 expert
+   slots a layer, the eight-request recipe with every launch check and
+   oracle of phases 5-7 for its path: qwen1.5-moe-a2.7b (24 layers, MHA,
+   60 experts top-4 and 4 shared fused into one FFN of width 5632) unfused
+   and monolithic, and superkernel with 32-token chunks;
+   qwen2-moe-57b (GQA G = 7, 64 experts top-8, a shared FFN of 20480) and
+   qwen3-moe-235b-a22b (GQA G = 16 at head dim 128, qk-norm, 128 experts
+   top-8, normalised gates) superkernel and monolithic, with the same
+   checks of the served streams;
+11. faults and graceful degradation (`core/faults.py`), each run printing
+   its health counters, brownout deferrals, TTFT / TPOT p50 and swapped GB
+   beside the fault-free run of its path in this call: a disabled
+   `FaultPlan()` on olmoe superkernel gives one prompt's logits over
+   prefill + 16 decode steps bitwise equal to the fault-free engine's;
+   `FaultPlan.brownout_preset(seed=0)` served on olmoe superkernel and
+   DeepSeek-V2-Lite unfused (monolithic) emits every request's budget with
+   retries and link failures and sheds nothing; `FaultPlan.total_outage()`
+   on olmoe superkernel (no expert ever resident: every MoE work list
+   empty) emits every budget degraded, ends degraded at the degraded
+   strength, swaps nothing, and one prompt's logits are bitwise those of
+   the path's oracle with no expert resident; an outage in [0, 2) of the
+   link clock with `degraded_recover_streak=1` and 64 slots a layer
+   recovers, and a fresh population served on that engine then gives
+   logits traces bitwise equal to a never-faulted engine's;
+9. last, a `{"kernels": [...]}` line (per kernel: `launches` summed over
+   the runs whose path runs it, the kernel API's for `topk_gating` and
    `expert_ffn`, `launches_by_path` per run; times at the shape its entry
    names, every measured shape under `shapes`), the total time, then the
-   last line `{"ok": true, "device": {...}}`. No depth is cut.
+   last line `{"ok": true, "device": {...}}`.
+
+Depth cuts (no width is cut): qwen2-moe-57b at 12 of 28 layers and
+qwen3-moe-235b-a22b at 8 of 94, whose experts (98.7 GB and 454 GB) do not
+fit the host's memory (and qwen3's not the card's) at full depth.
 
 Exits with code 2 and prints no result without a CUDA device or outside a
 checkout of the repository.
@@ -144,6 +179,7 @@ runs phases 1-3 only (all six kernels, or the named ones), writes
 `chiprun_out/chip_smoke_kernels.json` and prints no result: the quick call
 for kernel work.
 """
+import dataclasses
 import gc
 import json
 import statistics
@@ -170,6 +206,21 @@ CHUNK = 32        # the chunked runs' prefill chunk (the serving default)
 TOL_CTX = 2e-4     # fused_mla_decode_attention's ctx: fp32, summation order
 ARCHS = ("olmoe-1b-7b", "deepseek-v2-lite")
 ROUTE_BIAS = 1.0   # the cache-aware runs' strength (the reference's value)
+# Depth cuts (widths stay as published): qwen2 and qwen3, whose experts
+# fit neither the host (101 GiB) nor the card at full depth: 98.7 GB and
+# 454 GB of bf16 experts.
+QWEN_DEPTH = {
+    "qwen2-moe-57b": (12, "its 28 layers' 98.7 GB of experts do not fit the "
+                          "host's memory beside the rest; 12 layers: 42.3 "
+                          "GB"),
+    "qwen3-moe-235b-a22b": (8, "its 94 layers' 454 GB of experts fit "
+                               "neither the host nor the card; 8 layers: "
+                               "38.7 GB")}
+# phase 10: (arch, superkernel, prefill chunk)
+QWEN_RUNS = (("qwen1.5-moe-a2.7b", False, 0),
+             ("qwen1.5-moe-a2.7b", True, CHUNK),
+             ("qwen2-moe-57b", True, 0),
+             ("qwen3-moe-235b-a22b", True, 0))
 # The launch floor beside phase 3's topk_gating rows: an empty kernel on
 # the same grid, enqueued the same way. Only this script builds it.
 EMPTY_KERNEL_CU = r"""
@@ -409,6 +460,24 @@ def slot_ffn_phase(torch, moe_mod, slot_gather, ref, g):
         # a prefill chunk's buffer (256 rows an expert): the wgmma route
         "f32_chunk": dict(B=1, T=CHUNK, k=8, E=64, D=2048, F=1024, S=256,
                           resident_frac=0.25, f32=True),
+        # the Qwen models' decode and chunk shapes (16 slots a layer over
+        # phase 10's depths), and an empty work list: no expert resident
+        "qwen15_decode": dict(B=4, T=1, k=4, E=60, D=2048, F=1408, S=384,
+                              resident_frac=0.25),
+        "qwen15_chunk": dict(B=1, T=CHUNK, k=4, E=60, D=2048, F=1408,
+                             S=384, resident_frac=0.25),
+        "qwen2_decode": dict(B=4, T=1, k=8, E=64, D=3584, F=2560, S=192,
+                             resident_frac=0.25),
+        "qwen2_chunk": dict(B=1, T=CHUNK, k=8, E=64, D=3584, F=2560, S=192,
+                            resident_frac=0.25),
+        "qwen3_decode": dict(B=4, T=1, k=8, E=128, D=4096, F=1536, S=128,
+                             resident_frac=0.25),
+        "qwen3_chunk": dict(B=1, T=CHUNK, k=8, E=128, D=4096, F=1536,
+                            S=128, resident_frac=0.25),
+        "qwen15_decode_empty": dict(B=4, T=1, k=4, E=60, D=2048, F=1408,
+                                    S=384, resident_frac=0.0, n_resident=0),
+        "qwen3_chunk_empty": dict(B=1, T=CHUNK, k=8, E=128, D=4096, F=1536,
+                                  S=128, resident_frac=0.0, n_resident=0),
     }
     results = {}
     for name, sh in shapes.items():
@@ -446,6 +515,8 @@ def slot_ffn_phase(torch, moe_mod, slot_gather, ref, g):
               f"slot_ffn rows < counts differ between runs or from the "
               f"all-rows call at {name}")
         rows = int(counts.sum())                      # rows holding tokens
+        check((rows == 0) == (sh.get("n_resident") == 0),
+              f"slot_ffn {name}: {rows} counted rows")
         distinct = int(torch.unique(routed_slots).numel())
         w_bytes = distinct * 3 * D * F * isz
         nbytes = rows * D * (isz + 4) + E * 8 + w_bytes
@@ -515,11 +586,20 @@ def moe_entry_phase(torch, dsk, ref, g):
     results.update(moe_entry_cases(torch, dsk, ref, g, T=128, d=2048, E=64,
                                    k=8, f=1024, S=256, prefix="f32_t128_",
                                    only_all_routed=True, f32=True))
+    # the Qwen models' decode shapes (E = 60 leaves padding entries in a
+    # route lane), with an empty work list (no expert resident, as under a
+    # total link outage) for the narrowest and the widest
+    for prefix, E, k, d, f, empty in (("qwen15_", 60, 4, 2048, 1408, True),
+                                      ("qwen2_", 64, 8, 3584, 2560, False),
+                                      ("qwen3_", 128, 8, 4096, 1536, True)):
+        results.update(moe_entry_cases(torch, dsk, ref, g, T=4, d=d, E=E,
+                                       k=k, f=f, S=E, prefix=prefix,
+                                       empty=empty))
     return results
 
 
 def moe_entry_cases(torch, dsk, ref, g, *, T, d, E, k, f, S, prefix,
-                    only_all_routed=False, f32=False):
+                    only_all_routed=False, f32=False, empty=False):
     import torch.nn.functional as Fn
     dev = "cuda"
 
@@ -559,6 +639,9 @@ def moe_entry_cases(torch, dsk, ref, g, *, T, d, E, k, f, S, prefix,
     }
     if only_all_routed:
         del cases["decode_16_resident"]
+    if empty:
+        cases["decode_empty"] = (torch.zeros(E, dtype=torch.bool, device=dev),
+                                 torch.zeros(E, device=dev))
     results = {}
     for name, (resident, bias) in cases.items():
         name = prefix + name
@@ -575,6 +658,9 @@ def moe_entry_cases(torch, dsk, ref, g, *, T, d, E, k, f, S, prefix,
         check(torch.allclose(y, yr, rtol=tol, atol=tol),
               f"fused_moe_entry y disagrees at {name}: max |err| {err}")
         check(torch.equal(y, y2), "fused_moe_entry not deterministic")
+        check(bool(resident.any()) or not (y.any() or gates.any()),
+              f"fused_moe_entry {name}: an empty work list gave a nonzero "
+              f"y or gate")
         live = soe[ids.long()] >= 0
         pairs = int(live.sum())
         distinct = int(torch.unique(ids[live]).numel())
@@ -646,7 +732,11 @@ def attention_phase(torch, dsk, ref, g):
              "one_length": (16, 16, 128, 256, 100),
              # the f32 path (the reference runs it in f32 too)
              "f32_decode": (16, 16, 128, 256, [0, 63, 128, 255]),
-             "f32_gqa_G4": (16, 4, 128, 256, [17, 255, 0, 90])}
+             "f32_gqa_G4": (16, 4, 128, 256, [17, 255, 0, 90]),
+             # the Qwen models' groups at head dim 128 (qwen1.5 is
+             # "decode"): qwen2 G = 7, qwen3 G = 16
+             "qwen2_G7": (28, 4, 128, 256, [0, 63, 128, 255]),
+             "qwen3_G16": (64, 4, 128, 256, [0, 63, 128, 255])}
     results = {}
     for name, (Hq, Hkv, D, S, clens) in cases.items():
         f32 = name.startswith("f32")
@@ -1123,36 +1213,84 @@ class BiasRecorder:
         return sum(int(torch.count_nonzero(b)) > 0 for b in self.biases)
 
 
-def serving_phase(torch, np, mods, *, arch: str, superkernel: bool,
-                  chunk: int, mono_outputs=None, route_bias: float = 0.0,
-                  base=None):
-    """One serving run: `chunk` = 0 admits monolithically, > 0 through
-    chunked prefill (then `mono_outputs`, the monolithic run's served
-    tokens on the same path, are compared with this run's). `route_bias`
-    > 0 serves with §3.4 cache-aware routing at that strength; `base` is
-    then the bias-off run of the same path and admission, whose counters
-    and streams this run's are printed beside and held against."""
-    path = "superkernel" if superkernel else "unfused"
-    admission = f"chunked {chunk}" if chunk else "monolithic"
-    tag = f"{arch} {path} {admission}" + (f" bias {route_bias}"
-                                          if route_bias else "")
+def model_at_depth(mods, arch, layers=None):
+    """The published config of `arch`, its depth cut to `layers` when
+    given (widths untouched)."""
     cfg = mods["get_config"](arch)
-    Model, SlotBufferEngine = mods["Model"], mods["SlotBufferEngine"]
-    model = Model(cfg)
-    torch.cuda.reset_peak_memory_stats()
-    t_phase = t0 = time.perf_counter()
+    if layers is not None and layers != cfg.num_layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    return cfg
+
+
+_PINNED_FOR = [None]   # the config of the last engine's pinned experts
+
+
+def build_engine(torch, mods, cfg, *, superkernel, slots=16, **kw):
+    """Weights drawn from SEED on the card, then the engine (its experts
+    move to pinned host memory). The cached pinned host memory is freed
+    first unless the last engine built was of the same config: pinning is
+    most of an engine's build, and an engine of the same config reuses
+    those blocks. Returns (engine, init s, engine s)."""
+    if _PINNED_FOR[0] != cfg and hasattr(torch._C, "_host_emptyCache"):
+        gc.collect()
+        torch._C._host_emptyCache()
+    _PINNED_FOR[0] = cfg
+    t0 = time.perf_counter()
+    model = mods["Model"](cfg)
     g = torch.Generator(device="cuda").manual_seed(SEED)
     params = model.init(g, device="cuda")
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     t0 = time.perf_counter()
-    eng = SlotBufferEngine(cfg, params, model, n_slots_per_layer=16,
-                           use_kernel=True, use_superkernel=superkernel,
-                           max_seq=256, device="cuda")
+    eng = mods["SlotBufferEngine"](
+        cfg, params, model, n_slots_per_layer=slots, use_kernel=True,
+        use_superkernel=superkernel, max_seq=256, device="cuda", **kw)
     del params                      # the experts now live in pinned memory
     torch.cuda.empty_cache()
-    t_engine = time.perf_counter() - t0
+    return eng, t_init, time.perf_counter() - t0
+
+
+def release(torch):
+    """Free the card's cached blocks between runs (the cached pinned host
+    memory goes when the next engine is of another config:
+    `build_engine`)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def the_requests(np, mods, cfg, seed=SEED):
+    """The serving runs' population: 8 greedy requests of 64-128 prompt
+    tokens and 16 new tokens, from `seed`."""
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, int(k))
+               for k in rng.integers(64, 129, 8)]
+    return prompts, [mods["Request"](p, max_new_tokens=16) for p in prompts]
+
+
+def serving_phase(torch, np, mods, *, arch: str, superkernel: bool,
+                  chunk: int, mono_outputs=None, route_bias: float = 0.0,
+                  base=None, layers=None, why_cut=""):
+    """One serving run: `chunk` = 0 admits monolithically, > 0 through
+    chunked prefill (then `mono_outputs`, the monolithic run's served
+    tokens on the same path and depth, are compared with this run's, where
+    given). `route_bias` > 0 serves with §3.4 cache-aware routing at that
+    strength; `base` is then the bias-off run of the same path and
+    admission, whose counters and streams this run's are printed beside and
+    held against. `layers` cuts the depth (`why_cut` says why)."""
+    path = "superkernel" if superkernel else "unfused"
+    admission = f"chunked {chunk}" if chunk else "monolithic"
+    tag = f"{arch} {path} {admission}" + (f" bias {route_bias}"
+                                          if route_bias else "")
+    cfg = model_at_depth(mods, arch, layers)
+    full_depth = mods["get_config"](arch).num_layers
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    eng, t_init, t_engine = build_engine(torch, mods, cfg,
+                                         superkernel=superkernel)
     n_moe = len(eng.moe_layer_ids)
+    if cfg.num_layers != full_depth:
+        log(f"serving [{tag}]: depth cut to {cfg.num_layers} of "
+            f"{full_depth} layers ({why_cut}); widths as published")
     log(f"serving [{tag}]: {cfg.num_layers} layers ({n_moe} MoE, "
         f"{cfg.attention} attention), d_model {cfg.d_model}, "
         f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k} + "
@@ -1162,11 +1300,7 @@ def serving_phase(torch, np, mods, *, arch: str, superkernel: bool,
         f"buffer {eng.n_slots} slots = "
         f"{eng.n_slots * cfg.expert_bytes() / 1e9:.2f} GB")
 
-    rng = np.random.default_rng(SEED)
-    prompts = [rng.integers(0, cfg.vocab_size, int(n))
-               for n in rng.integers(64, 129, 8)]
-    Request = mods["Request"]
-    reqs = [Request(p, max_new_tokens=16) for p in prompts]
+    prompts, reqs = the_requests(np, mods, cfg)
     srv = mods["ServingEngine"](eng, mods["EngineServingConfig"](
         max_batch=4, admission_cap=False, prefill_chunk=chunk,
         route_bias=route_bias or None))
@@ -1218,10 +1352,7 @@ def serving_phase(torch, np, mods, *, arch: str, superkernel: bool,
 
     summ = report.summary()
     n_layers = len(eng.specs)
-    attn_kernel = ("fused_mla_decode_attention" if cfg.attention == "mla"
-                   else "fused_decode_attention")
-    other_attn = ("fused_decode_attention" if cfg.attention == "mla"
-                  else "fused_mla_decode_attention")
+    on_path = on_path_kernels(cfg, superkernel)
     for r in reqs:
         check(len(r.output) == 16 and all(0 <= t < cfg.vocab_size
                                           for t in r.output),
@@ -1234,20 +1365,16 @@ def serving_phase(torch, np, mods, *, arch: str, superkernel: bool,
           f"[{tag}] slot_ffn launches per {pf_name} "
           f"{per_call('prefill', 'slot_ffn')} fall below {n_moe}")
     if superkernel:
-        for name, least in (("fused_moe_entry", n_moe),
-                            (attn_kernel, n_layers)):
+        for name, least in ((on_path[1], n_moe), (on_path[2], n_layers)):
             check(min(per_call("decode", name)) >= least,
                   f"[{tag}] {name} launches per decode step "
                   f"{per_call('decode', name)} fall below {least}")
-        for name in ("slot_ffn", other_attn):
-            check(max(per_call("decode", name)) == 0,
-                  f"[{tag}] decode steps launched {name}")
-        on_path = ("slot_ffn", "fused_moe_entry", attn_kernel)
+        check(max(per_call("decode", "slot_ffn")) == 0,
+              f"[{tag}] decode steps launched slot_ffn")
     else:
         check(min(per_call("decode", "slot_ffn")) >= n_moe,
               f"[{tag}] slot_ffn launches per decode step "
               f"{per_call('decode', 'slot_ffn')} fall below {n_moe}")
-        on_path = ("slot_ffn",)
     check(all(launches[n] > 0 for n in on_path),
           f"[{tag}] a kernel of the path was never launched: {launches}")
     check(all(launches[n] == 0 for n in KERNELS if n not in on_path),
@@ -1265,6 +1392,8 @@ def serving_phase(torch, np, mods, *, arch: str, superkernel: bool,
     serving = {
         "arch": arch, "path": path, "prefill_chunk": chunk,
         "layers": n_layers, "moe_layers": n_moe,
+        "published_layers": full_depth, "depth_cut_why": why_cut or None,
+        "attention": cfg.attention,
         "requests": len(reqs), "batch": 4,
         "prompt_tokens": [int(len(p)) for p in prompts],
         "new_tokens": 16, "wall_s": wall,
@@ -1384,15 +1513,18 @@ def serving_phase(torch, np, mods, *, arch: str, superkernel: bool,
         check(same or float(top2[0] - top2[1]) <= NEAR_TIE,
               f"[{tag}] chunked and whole-prompt prefill pick different "
               f"tokens past a near-tie (max |dlogit| {d})")
-        parted = [r.request_id for r, o in zip(reqs, mono_outputs)
-                  if list(r.output) != o]
+        parted = None if mono_outputs is None else [
+            r.request_id for r, o in zip(reqs, mono_outputs)
+            if list(r.output) != o]
         serving["chunked_vs_monolithic_prefill_max_abs"] = d
         serving["chunked_vs_monolithic_same_greedy"] = same
         serving["streams_parting_from_monolithic_run"] = parted
         log(f"oracle [{tag}]: prefill of request {reqs[0].request_id} "
             f"chunked vs whole, both fully resident: max |dlogit| {d:.4g}, "
-            f"same greedy token {same}; {len(parted)} of {len(reqs)} served "
-            f"streams differ from the monolithic run's {parted}")
+            f"same greedy token {same}"
+            + ("" if parted is None else
+               f"; {len(parted)} of {len(reqs)} served streams differ from "
+               f"the monolithic run's {parted}"))
     # served streams against single-request decoding, teacher-forced on
     # the served tokens:
     # - at the serving batch's width (the request alone in row 0 of a
@@ -1400,35 +1532,275 @@ def serving_phase(torch, np, mods, *, arch: str, superkernel: bool,
     #   the same shapes give the same bits, so every stream must match
     #   (a near-tie of the top two logits, 5e-2, is the only excuse);
     # - at batch 1 through the fully-resident reference, as phases 4-5
-    #   always did. Batch-1 products round differently from batch-4 ones;
-    #   on olmoe-1b-7b the streams still part only at near-ties and that is
-    #   checked; on DeepSeek-V2-Lite (26 routers of 64 experts) the last-bit
-    #   differences flip a router's 6th choice, which moves logits by more
-    #   than a near-tie, so those partings are reported, not checked.
-    checked_b1 = cfg.attention != "mla"
-    for width, step_fn, what_s, checked in (
-            (4, step_ref, what, True),
-            (1, eng.reference_decode_step, "the fully-resident reference",
-             checked_b1)):
+    #   always did. Batch-1 products round differently from batch-4 ones,
+    #   and a last-bit difference can flip a router's k-th choice, after
+    #   which the logits move by more than a near-tie (DeepSeek's 26
+    #   routers and qwen1.5's 24 do so on the card). So a stream may part
+    #   past a near-tie only after such a flip: `router_flip` finds the
+    #   first one between batch 1 and the path's oracle at the batch's
+    #   width, and the experts it swapped must lie within a near-tie of
+    #   each other in the router's logits at both widths.
+    by_id = {r.request_id: (r, p) for r, p in zip(reqs, prompts)}
+    for width, step_fn, what_s in (
+            (4, step_ref, what),
+            (1, eng.reference_decode_step, "the fully-resident reference")):
         parts = stream_partings(torch, np, eng, reqs, prompts, prefill_ref,
                                 step_fn, width, mods["DecodeState"])
-        if checked:
-            for rid, step, t, want, gap in parts:
-                check(gap <= NEAR_TIE,
-                      f"[{tag}] request {rid} step {step}: served {t}, "
-                      f"alone at batch {width} through {what_s} {want}, "
-                      f"top-2 gap {gap}")
+        flips = {}
+        for rid, step, t, want, gap in parts:
+            if gap <= NEAR_TIE:
+                continue
+            check(width == 1,
+                  f"[{tag}] request {rid} step {step}: served {t}, alone at "
+                  f"batch {width} through {what_s} {want}, top-2 gap {gap}")
+            r, p = by_id[rid]
+            flip = router_flip(torch, eng, mods["moe_mod"], prefill_ref,
+                               step_ref, p, r.output[:step],
+                               mods["DecodeState"])
+            check(flip is not None and flip["tie"] <= NEAR_TIE,
+                  f"[{tag}] request {rid} step {step}: served {t}, alone at "
+                  f"batch 1 {want}, top-2 gap {gap}, and no router flipped "
+                  f"at a near-tie before it: {flip}")
+            flips[rid] = flip
         serving[f"served_streams_part_at_batch_{width}"] = [
             [float(v) for v in x] for x in parts]
         log(f"oracle [{tag}]: served streams against each request decoded "
             f"alone at batch {width} through {what_s}: {len(parts)} "
             f"stream(s) part (request, step, top-2 gap: "
-            f"{[(x[0], x[1], round(float(x[4]), 4)) for x in parts]})"
-            + ("" if checked else " [reported, not checked]"))
+            f"{[(x[0], x[1], round(float(x[4]), 4)) for x in parts]})")
+        if flips:
+            serving["batch_1_router_flips"] = flips
+            log(f"oracle [{tag}]: each batch-1 parting past a near-tie "
+                f"follows a router flip at a near-tie (request: decode "
+                f"step, MoE layer, swapped experts, the swap's larger "
+                f"router-logit gap at the two widths, max |router-logit "
+                f"difference| there): "
+                + "; ".join(f"{rid}: {f['step']}, {f['layer']}, "
+                            f"{f['swapped']}, {f['tie']:.4g}, "
+                            f"{f['drift']:.4g}" for rid, f in flips.items()))
     eng.drop_resident_experts()
     serving["phase_s"] = time.perf_counter() - t_phase
     serving["oracle_bitwise"] = True
     return serving, launches
+
+
+# --------------------------------------------------------------- phase 11
+
+def on_path_kernels(cfg, superkernel):
+    """The serving kernels a path launches (prefill launches `slot_ffn` on
+    both paths)."""
+    if not superkernel:
+        return ("slot_ffn",)
+    attn = ("fused_mla_decode_attention" if cfg.attention == "mla"
+            else "fused_decode_attention")
+    return ("slot_ffn", "fused_moe_entry", attn)
+
+
+def fault_serve(torch, np, mods, eng, tag, *, superkernel, base=None,
+                seed=SEED, **serving_kw):
+    """Serve the eight-request population on `eng` (monolithic admission),
+    every kernel's count zeroed just before and read just after; hold every
+    request to its full budget and the path's kernels to launching (and
+    the others to not). Returns (run summary, launches)."""
+    cfg = eng.cfg
+    prompts, reqs = the_requests(np, mods, cfg, seed)
+    srv = mods["ServingEngine"](eng, mods["EngineServingConfig"](
+        max_batch=4, admission_cap=False, prefill_chunk=0, **serving_kw))
+    eng.stats.reset()
+    for n in KERNELS:
+        mods[n].launches = 0
+    t0 = time.perf_counter()
+    report = srv.serve(reqs)
+    eng.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counters(mods)
+    on_path = on_path_kernels(cfg, superkernel)
+    check(all(launches[n] > 0 for n in on_path)
+          and all(launches[n] == 0 for n in KERNELS if n not in on_path),
+          f"[{tag}] launches off the path's kernels: {launches}")
+    for r in reqs:
+        check(len(r.output) == 16 and all(0 <= t < cfg.vocab_size
+                                          for t in r.output),
+              f"[{tag}] request {r.request_id} output {r.output}")
+    st, summ = eng.stats, report.summary()
+    run = {"arch": cfg.name, "path": "superkernel" if superkernel
+           else "unfused", "prefill_chunk": 0, "layers": cfg.num_layers,
+           "attention": cfg.attention, "wall_s": wall,
+           "ttft_p50_s": summ["ttft_p50_s"], "tpot_p50_s": summ["tpot_p50_s"],
+           "throughput_tok_s": summ["throughput_tok_s"],
+           "swapped_bytes": st.swap_bytes, "copy_s": st.copy_s,
+           "demand_misses": st.demand_misses, "replays": st.replays,
+           "launches": launches,
+           "health": {k: summ[k] for k in ("n_link_failures", "n_retries",
+                                           "n_degraded_steps", "n_shed")},
+           "brownout_deferred": srv.batcher.stats.brownout_deferred,
+           "degraded_at_end": eng._degraded,
+           "watchdog_trips": (eng.watchdog.n_trips if eng.watchdog is not None
+                              else None),
+           "outputs": [list(r.output) for r in reqs],
+           "request_ids": [r.request_id for r in reqs]}
+    line = lambda r: (  # noqa: E731
+        f"TTFT p50 {r['ttft_p50_s'] * 1e3:.1f} ms, TPOT p50 "
+        f"{r['tpot_p50_s'] * 1e3:.1f} ms, swapped "
+        f"{r['swapped_bytes'] / 1e9:.2f} GB, demand misses "
+        f"{r['demand_misses']}")
+    log(f"faults [{tag}]: {len(reqs)} requests in {wall:.2f} s; health "
+        f"{run['health']}, brownout_deferred {run['brownout_deferred']}, "
+        f"degraded at the end {run['degraded_at_end']}, watchdog trips "
+        f"{run['watchdog_trips']}; {line(run)}; launches {launches}")
+    if base is not None:
+        log(f"faults [{tag}]: fault-free run of the path (same call): "
+            f"{line(base)}")
+    return run, srv, launches
+
+
+def slot_path_rows(eng, prompt, steps=16):
+    """One prompt prefilled and decoded greedily, single-stream, through
+    the engine's slot path: its logits over prefill + `steps` steps."""
+    lg, st = eng.prefill(prompt)
+    rows = [lg.cpu()]
+    for _ in range(steps):
+        lg, st = eng.decode_step(lg.argmax(-1), st)
+        rows.append(lg.cpu())
+    return rows
+
+
+def no_expert_oracle_rows(torch, eng, prompt, superkernel, DecodeState,
+                          steps=16):
+    """The path's fully-resident oracle with no expert resident (every
+    slot-table entry -1, as a total outage leaves it): prefill + `steps`
+    greedy decode steps, single-stream."""
+    full, ident = eng._full_experts, eng._ident_map
+    eng._full_experts = lambda li: eng.buffer
+    eng._ident_map = torch.full_like(ident, -1)
+    try:
+        step = ((lambda t, s: sk_reference_decode_step(eng, t, s,
+                                                       DecodeState))
+                if superkernel else eng.reference_decode_step)
+        lg, st = eng.reference_prefill(prompt)
+        rows = [lg.cpu()]
+        for _ in range(steps):
+            lg, st = step(lg.argmax(-1), st)
+            rows.append(lg.cpu())
+        return rows
+    finally:
+        eng._full_experts, eng._ident_map = full, ident
+
+
+def faults_phase(torch, np, mods, serving, launches):
+    """Phase 11: the fault plans on the card (see the module docstring)."""
+    FaultPlan, DecodeState = mods["FaultPlan"], mods["DecodeState"]
+    olmoe = model_at_depth(mods, "olmoe-1b-7b")
+    runs = {}
+    sk_base = serving["olmoe-1b-7b superkernel monolithic"]
+    prompts, _ = the_requests(np, mods, olmoe)
+    prompt = prompts[0][None, :]
+
+    # a disabled plan: exactly the fault-free engine
+    tag = "olmoe-1b-7b superkernel disabled plan"
+    eng, *_ = build_engine(torch, mods, olmoe, superkernel=True,
+                           faults=FaultPlan())
+    check(eng.faults is None and eng.watchdog is None,
+          f"[{tag}] a disabled plan built an injector or a watchdog")
+    rows = slot_path_rows(eng, prompt)
+    same = all(torch.equal(a, b) for a, b in zip(rows,
+                                                  sk_base["_oracle_rows"]))
+    check(same and len(rows) == len(sk_base["_oracle_rows"]),
+          f"[{tag}] logits differ from the fault-free engine's")
+    log(f"faults [{tag}]: one prompt's logits over prefill + 16 decode steps "
+        f"bitwise equal to the fault-free engine's")
+    runs[tag] = {"bitwise_to_fault_free": True}
+    del eng
+    release(torch)
+
+    # brownout: flaky transfers on a collapsed link
+    for arch, sk in (("olmoe-1b-7b", True), ("deepseek-v2-lite", False)):
+        path = "superkernel" if sk else "unfused"
+        tag = f"{arch} {path} monolithic brownout"
+        eng, *_ = build_engine(torch, mods, model_at_depth(mods, arch),
+                               superkernel=sk,
+                               faults=FaultPlan.brownout_preset(seed=0))
+        run, _, launches[tag] = fault_serve(
+            torch, np, mods, eng, tag, superkernel=sk,
+            base=serving[f"{arch} {path} monolithic"])
+        h = run["health"]
+        check(h["n_retries"] > 0 and h["n_link_failures"] > 0
+              and h["n_shed"] == 0, f"[{tag}] health {h}")
+        runs[tag] = run
+        del eng
+        release(torch)
+
+    # a total outage from t = 0: no expert ever resident, every MoE work
+    # list empty; served degraded, and bitwise the no-expert oracle
+    tag = "olmoe-1b-7b superkernel monolithic total outage"
+    # no backoff: every demand fails all its retries, and sleeping 7 ms
+    # for each of some 10^4 of them would only add idle time
+    eng, *_ = build_engine(torch, mods, olmoe, superkernel=True,
+                           faults=FaultPlan.total_outage(),
+                           retry_backoff_s=0.0)
+    run, _, launches[tag] = fault_serve(torch, np, mods, eng, tag,
+                                        superkernel=True, base=sk_base)
+    h = run["health"]
+    check(h["n_degraded_steps"] > 0 and eng._degraded
+          and eng._route_bias_strength() == eng.degraded_route_bias
+          and eng.stats.swap_experts == 0,
+          f"[{tag}] health {h}, degraded {eng._degraded}, strength "
+          f"{eng._route_bias_strength()}, swapped {eng.stats.swap_experts}")
+    got = slot_path_rows(eng, prompt)
+    want = no_expert_oracle_rows(torch, eng, prompt, True, DecodeState)
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          f"[{tag}] the slot path with no expert resident differs from the "
+          f"no-expert oracle")
+    log(f"faults [{tag}]: strength {eng._route_bias_strength()} (the "
+        f"degraded floor); one prompt's logits over prefill + 16 decode "
+        f"steps bitwise equal to the oracle with no expert resident")
+    run["no_expert_oracle_bitwise"] = True
+    runs[tag] = run
+    del eng
+    release(torch)
+
+    # recovery: the link is dead in [0, 2) of the link clock; one clean
+    # demand ends degraded routing; with every expert fitting (64 slots a
+    # layer) a fresh population served after is bitwise a never-faulted
+    # engine's, logits trace for logits trace
+    tag = "olmoe-1b-7b superkernel monolithic recovery"
+    eng, *_ = build_engine(torch, mods, olmoe, superkernel=True, slots=64,
+                           faults=FaultPlan(outage=((0.0, 2.0),)),
+                           degraded_recover_streak=1)
+    run, _, launches[tag] = fault_serve(torch, np, mods, eng, tag,
+                                        superkernel=True, base=sk_base)
+    check(run["health"]["n_link_failures"] > 0 and not eng._degraded
+          and eng._clock > 2.0, f"[{tag}] did not fault and recover: "
+          f"{run['health']}, degraded {eng._degraded}, clock {eng._clock}")
+    # brownout admission off for the comparison: the recovered engine's
+    # watchdog reads the wall clock, and a pause would batch the rows
+    # otherwise than the never-faulted server does
+    run_b, srv_b, launches[tag + " after"] = fault_serve(
+        torch, np, mods, eng, tag + " after", superkernel=True,
+        seed=SEED + 1, trace_logits=True, brownout_admission=False)
+    trace_b = [srv_b.logits_trace[r] for r in run_b["request_ids"]]
+    del eng, srv_b
+    release(torch)
+    eng, *_ = build_engine(torch, mods, olmoe, superkernel=True, slots=64)
+    run_c, srv_c, launches[tag + " never faulted"] = fault_serve(
+        torch, np, mods, eng, tag + " never faulted", superkernel=True,
+        seed=SEED + 1, trace_logits=True)
+    # request by request, in the order both populations were made
+    trace_c = [srv_c.logits_trace[r] for r in run_c["request_ids"]]
+    n_rows = sum(len(v) for v in trace_c)
+    check(len(trace_b) == len(trace_c) and all(
+        len(b) == len(c) and all(np.array_equal(x, y) for x, y in zip(b, c))
+        for b, c in zip(trace_b, trace_c)),
+        f"[{tag}] the recovered engine's logits trace differs from the "
+        f"never-faulted engine's")
+    log(f"faults [{tag}]: after recovery (watchdog tripped "
+        f"{run_b['watchdog_trips']} times), {len(trace_c)} requests' "
+        f"{n_rows} logits rows bitwise equal to a never-faulted engine's")
+    run["after_recovery_bitwise_rows"] = n_rows
+    runs[tag] = run
+    del eng, srv_c
+    release(torch)
+    return runs
 
 
 def log_beside(tag, run, base):
@@ -1445,6 +1817,18 @@ def log_beside(tag, run, base):
     log(f"serving [{tag}]: bias off (same call): {line(base)}")
 
 
+def alone(eng, prefill_fn, prompt, width, DecodeState):
+    """`prompt` prefilled through `prefill_fn`: its logits and a decode
+    state of `width` rows holding the request in row 0, the others empty
+    (width 1 is the plain single-stream state)."""
+    lr, st = prefill_fn(prompt[None, :])
+    if width > 1:
+        wide = eng.alloc_decode_state(width)
+        eng._commit_prefill_row(wide, 0, st.caches, st.pos)
+        st = DecodeState(wide.caches, wide.cache_len, pos=int(st.pos))
+    return lr, st
+
+
 def stream_partings(torch, np, eng, reqs, prompts, prefill_fn, step_fn,
                     width, DecodeState):
     """Each served request's tokens against greedy decoding of its prompt
@@ -1457,11 +1841,7 @@ def stream_partings(torch, np, eng, reqs, prompts, prefill_fn, step_fn,
     stream that parts, at the step where it first does."""
     parts = []
     for r, p in zip(reqs, prompts):
-        lr, st = prefill_fn(p[None, :])
-        if width > 1:
-            wide = eng.alloc_decode_state(width)
-            eng._commit_prefill_row(wide, 0, st.caches, st.pos)
-            st = DecodeState(wide.caches, wide.cache_len, pos=int(st.pos))
+        lr, st = alone(eng, prefill_fn, p, width, DecodeState)
         for step, t in enumerate(r.output):
             row = lr[0].float().cpu().numpy()
             want = int(row.argmax())
@@ -1474,6 +1854,66 @@ def stream_partings(torch, np, eng, reqs, prompts, prefill_fn, step_fn,
             tok[0] = t
             lr, st = step_fn(tok, st)
     return parts
+
+
+def router_flip(torch, eng, moe_mod, prefill_fn, wide_step, prompt, tokens,
+                DecodeState):
+    """The first routing decision that batch 1 and the serving batch's
+    width make differently for one request: its prompt prefilled through
+    `prefill_fn` and decoded teacher-forced on `tokens`, alone through the
+    fully-resident reference and in row 0 of a 4-row state through
+    `wide_step` (the path's oracle at the batch's width), each MoE layer's
+    routing of row 0 recorded (`_route_ffn_entry` unfused,
+    `moe_slotbuf_fused` on the superkernel path, whose router logits are
+    recomputed from its input). Returns None if every decode step routed
+    alike, else the step, the MoE layer, the swapped experts, `tie` (the
+    larger of the two widths' router-logit gaps between what each chose
+    and the other did not) and `drift` (max |router-logit difference| of
+    the two widths at that layer)."""
+    eng_mod = sys.modules[type(eng).__module__]
+    entry, fused = eng_mod._route_ffn_entry, moe_mod.moe_slotbuf_fused
+
+    def routed(step_fn, width):
+        rec, steps = [], []
+
+        def entry_hook(*a, **kw):
+            out = entry(*a, **kw)
+            rec.append((out[1].expert_ids[0].tolist(),
+                        out[1].logits[0].float().cpu()))
+            return out
+
+        def fused_hook(params, slot_weights, soe, x, moe, logit_bias=None):
+            out = fused(params, slot_weights, soe, x, moe, logit_bias)
+            lg = x[:1].float() @ params["router"].float()
+            if logit_bias is not None:
+                lg = lg + logit_bias.float()
+            rec.append((out[2][0].tolist(), lg[0].cpu()))
+            return out
+        _, st = alone(eng, prefill_fn, prompt, width, DecodeState)
+        eng_mod._route_ffn_entry, moe_mod.moe_slotbuf_fused = \
+            entry_hook, fused_hook
+        try:
+            for t in tokens:
+                tok = torch.zeros(width, dtype=torch.long, device=eng.device)
+                tok[0] = t
+                _, st = step_fn(tok, st)
+                steps.append(rec[:])
+                rec.clear()
+        finally:
+            eng_mod._route_ffn_entry, moe_mod.moe_slotbuf_fused = entry, fused
+        return steps
+
+    for step, (one, four) in enumerate(zip(
+            routed(eng.reference_decode_step, 1), routed(wide_step, 4))):
+        for layer, ((ids1, l1), (ids4, l4)) in enumerate(zip(one, four)):
+            a, b = sorted(set(ids1) - set(ids4)), sorted(set(ids4) - set(ids1))
+            if not a:
+                continue
+            tie = max(float(l1[a].min() - l1[b].max()),
+                      float(l4[b].min() - l4[a].max()))
+            return {"step": step, "layer": layer, "swapped": [a, b],
+                    "tie": tie, "drift": float((l1 - l4).abs().max())}
+    return None
 
 
 def main(argv) -> int:
@@ -1547,7 +1987,7 @@ def main(argv) -> int:
         out_dir.mkdir(exist_ok=True)
         (out_dir / "chip_smoke_kernels.json").write_text(json.dumps(
             {"gpu": smi[0], "kernels": kres, "build": build_info}, indent=1))
-        log("--kernels: phases 4-9 skipped, no result")
+        log("--kernels: phases 4-11 skipped, no result")
         return 0
 
     # ---- phase 4: the kernel API, the path of topk_gating and expert_ffn ----
@@ -1556,10 +1996,11 @@ def main(argv) -> int:
     launches["kernel API"].update(api_launches)
 
     # ---- phases 5-7: serving at published widths, oracles -----------------
+    from repro_torch.core.faults import FaultPlan
     mods = dict(get_config=get_config, Model=Model,
                 SlotBufferEngine=SlotBufferEngine, DecodeState=DecodeState,
                 Request=Request, ServingEngine=ServingEngine,
-                EngineServingConfig=EngineServingConfig,
+                EngineServingConfig=EngineServingConfig, FaultPlan=FaultPlan,
                 slot_ffn=slot_gather.slot_ffn,
                 fused_moe_entry=dsk.fused_moe_entry,
                 fused_decode_attention=dsk.fused_decode_attention,
@@ -1567,66 +2008,66 @@ def main(argv) -> int:
                 topk_gating=ops.topk, expert_ffn=ops.expert_ffn,
                 moe_mod=moe_mod)
     serving = {}
+
+    def run(tag, **kw):
+        serving[tag], launches[tag] = serving_phase(torch, np, mods, **kw)
+        release(torch)
+        log(f"[{tag}] done at {time.perf_counter() - t_start:.1f} s")
+
     for arch in ARCHS:
         for superkernel in (False, True):
-            mono = None
-            for chunk in (0, CHUNK):
-                serving_run, launches_run = serving_phase(
-                    torch, np, mods, arch=arch, superkernel=superkernel,
-                    chunk=chunk, mono_outputs=mono)
-                tag = (f"{arch} {serving_run['path']} "
-                       f"{'chunked' if chunk else 'monolithic'}")
-                serving[tag], launches[tag] = serving_run, launches_run
-                mono = serving_run["outputs"]
-                gc.collect()
-                torch.cuda.empty_cache()
-                if hasattr(torch._C, "_host_emptyCache"):
-                    torch._C._host_emptyCache()   # release cached pinned memory
-                log(f"[{tag}] done at {time.perf_counter() - t_start:.1f} s")
+            path = "superkernel" if superkernel else "unfused"
+            run(f"{arch} {path} monolithic", arch=arch,
+                superkernel=superkernel, chunk=0)
+            run(f"{arch} {path} chunked", arch=arch, superkernel=superkernel,
+                chunk=CHUNK,
+                mono_outputs=serving[f"{arch} {path} monolithic"]["outputs"])
     # §3.4 cache-aware routing: the monolithic runs again at route bias
     # ROUTE_BIAS, each beside its bias-off run of this call
     for arch, superkernel in (("olmoe-1b-7b", False), ("olmoe-1b-7b", True),
                               ("deepseek-v2-lite", True)):
         base = f"{arch} {'superkernel' if superkernel else 'unfused'} " \
                f"monolithic"
-        tag = f"{base} bias {ROUTE_BIAS}"
-        serving[tag], launches[tag] = serving_phase(
-            torch, np, mods, arch=arch, superkernel=superkernel, chunk=0,
-            route_bias=ROUTE_BIAS, base=serving[base])
-        gc.collect()
-        torch.cuda.empty_cache()
-        if hasattr(torch._C, "_host_emptyCache"):
-            torch._C._host_emptyCache()
-        log(f"[{tag}] done at {time.perf_counter() - t_start:.1f} s")
-    for run in serving.values():
-        run.pop("_oracle_rows", None)
+        run(f"{base} bias {ROUTE_BIAS}", arch=arch, superkernel=superkernel,
+            chunk=0, route_bias=ROUTE_BIAS, base=serving[base])
+
+    # ---- phase 10: the reference's Qwen MoE configs ------------------------
+    for arch, superkernel, chunk in QWEN_RUNS:
+        layers, why = QWEN_DEPTH.get(arch, (None, ""))
+        path = "superkernel" if superkernel else "unfused"
+        run(f"{arch} {path} {'chunked' if chunk else 'monolithic'}",
+            arch=arch, superkernel=superkernel, chunk=chunk, layers=layers,
+            why_cut=why)
+
+    # ---- phase 11: faults and graceful degradation --------------------------
+    fault_runs = faults_phase(torch, np, mods, serving, launches)
+    log(f"faults done at {time.perf_counter() - t_start:.1f} s")
+    for r in serving.values():
+        r.pop("_oracle_rows", None)
 
     src = "src/repro_torch/kernels/csrc/"
-    # (kernel, source, TPU kernel it replaces, the runs whose path runs it,
-    # the shape whose times head its entry)
-    sk_runs = [t for t in launches if "superkernel" in t]
+    # (kernel, source, TPU kernel it replaces, the shape whose times head
+    # its entry). Every run held the kernels off its path to 0 launches, so
+    # a kernel's launches summed over all runs are its path runs' launches.
     rows = [("slot_ffn", "slot_ffn.cu", "src/repro/kernels/slot_gather.py:72",
-             [t for t in launches if t != "kernel API"], "decode"),
+             "decode"),
             ("fused_moe_entry", "fused_moe_entry.cu",
-             "src/repro/kernels/decode_superkernel.py:141", sk_runs, "decode"),
+             "src/repro/kernels/decode_superkernel.py:141", "decode"),
             ("fused_decode_attention", "fused_decode_attention.cu",
-             "src/repro/kernels/decode_superkernel.py:259",
-             [t for t in sk_runs if t.startswith("olmoe")], "decode"),
+             "src/repro/kernels/decode_superkernel.py:259", "decode"),
             ("fused_mla_decode_attention", "fused_mla_decode_attention.cu",
-             "src/repro/kernels/decode_superkernel.py:344",
-             [t for t in sk_runs if t.startswith("deepseek")], "decode"),
+             "src/repro/kernels/decode_superkernel.py:344", "decode"),
             ("topk_gating", "topk_gating.cu",
-             "src/repro/kernels/topk_gating.py:56", ["kernel API"],
-             "olmoe_batch"),
+             "src/repro/kernels/topk_gating.py:56", "olmoe_batch"),
             ("expert_ffn", "expert_ffn.cu", "src/repro/kernels/moe_gemm.py:50",
-             ["kernel API"], "olmoe")]
+             "olmoe")]
     kernels = {"kernels": []}
-    for name, file, replaces, main_paths, shape in rows:
+    for name, file, replaces, shape in rows:
         r = kres[name][shape]
         kernels["kernels"].append({
             "name": name, "route": "cuda", "source": src + file,
             "replaces": replaces,
-            "launches": sum(launches[p][name] for p in main_paths),
+            "launches": sum(launches[p][name] for p in launches),
             "launches_by_path": {p: launches[p][name] for p in launches},
             "max_abs_err": max(v["max_abs_err"] for v in kres[name].values()),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -1637,7 +2078,7 @@ def main(argv) -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"gpu": smi[0], "kernels": kernels["kernels"], "serving": serving,
-         "kernel_api_max_abs_err": api_errs,
+         "faults": fault_runs, "kernel_api_max_abs_err": api_errs,
          "total_s": time.perf_counter() - t_start}, indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(kernels))

@@ -30,6 +30,13 @@ loop's default admission): each chunk runs the same per-MoE-layer sync
 sequence as a whole prompt, with the chunk's padding rows masked out of
 routing demand and the pre-gate.
 
+With a `core.faults.FaultPlan` the engine injects link faults in its host
+bookkeeping, as the reference does: each swap-in's outcome is drawn from
+the plan before any copy is issued (a failed demand is retried, then left
+non-resident, its tokens dropping through the dead slot, and routing
+degrades to the residency bias at a floor); the step watchdog collapses
+the horizon to 0 while tripped. A real CUDA error is never caught.
+
 Dense (non-MoE) layers, such as DeepSeek-V2's first, take one plain
 dispatch each on every path: they route nothing and have no slot map, and
 the MoE layer index `li` counts MoE layers only.
@@ -59,6 +66,7 @@ from repro_torch.core.cache import TwoLevelLRU
 from repro_torch.core.cache_aware import residency_logit_bias
 from repro_torch.core.expert_buffer import (HostExpertStore, SlotTable,
                                             make_buffer, swap_in_many)
+from repro_torch.core.faults import FaultInjector, FaultPlan, StepWatchdog
 from repro_torch.core.prefetcher import Prefetcher, TransferLink
 from repro_torch.core.step_size import StepSizeController
 from repro_torch.device import resolve_device
@@ -127,6 +135,10 @@ class SlotPathStats:
     steps: int = 0             # prefill / decode_step invocations
     spec_layers: int = 0       # MoE layers executed speculatively (no sync)
     replays: int = 0           # speculative windows rolled back on mispredict
+    link_failures: int = 0     # injected transfer failures observed
+    retries: int = 0           # demand swap-in retry attempts
+    degraded_steps: int = 0    # decode steps in degraded mode (resident-only
+                               # routing engaged or watchdog tripped)
 
     def snapshot(self) -> Dict[str, float]:
         return dataclasses.asdict(self)
@@ -195,14 +207,26 @@ class SlotBufferEngine:
     through bf16 per-slot einsums. `use_superkernel=True` decodes through
     the segment-fused path (`fused_decode_attention` + `fused_moe_entry`).
     `route_bias` > 0 turns on §3.4 cache-aware routing of decode
-    (`set_route_bias`). `device` defaults to CUDA; without CUDA the engine
-    raises unless the caller passes ``device="cpu"``."""
+    (`set_route_bias`). `faults` (a `core.faults.FaultPlan`) injects
+    transfer failures drawn from the plan, with bounded retries
+    (`retry_max`, backoff `retry_backoff_s` doubling), resident-only
+    degraded routing (the residency bias at no less than
+    `degraded_route_bias` until `degraded_recover_streak` clean demand
+    transfers in a row) and a `StepWatchdog` that collapses the
+    speculative horizon to 0 while tripped. `device` defaults to CUDA;
+    without CUDA the engine raises unless the caller passes
+    ``device="cpu"``."""
 
     def __init__(self, cfg: ModelConfig, params, model: Model,
                  n_slots_per_layer: int, *, use_kernel: bool = False,
                  max_seq: int = 256, step_size: Optional[int] = None,
                  pregate_margin: int = 2, use_superkernel: bool = False,
                  route_bias: float = 0.0, route_bias_adaptive: bool = False,
+                 faults: Optional[FaultPlan] = None, retry_max: int = 3,
+                 retry_backoff_s: float = 1e-3,
+                 degraded_route_bias: float = 4.0,
+                 degraded_recover_streak: int = 8,
+                 watchdog: Optional[StepWatchdog] = None,
                  device="cuda"):
         assert cfg.moe is not None
         self.device = resolve_device(device)
@@ -272,6 +296,26 @@ class SlotBufferEngine:
         self.route_bias_adaptive = False
         if route_bias:
             self.set_route_bias(route_bias, adaptive=route_bias_adaptive)
+        # graceful degradation under link faults (core.faults): failures
+        # drawn from the plan in host bookkeeping, bounded retries, degraded
+        # resident-only routing (the residency bias at a floor, so a dead
+        # link never deadlocks a step) and a step watchdog. None, or a
+        # disabled plan, leaves every call as it is without the feature.
+        self.faults: Optional[FaultInjector] = None
+        if faults is not None and faults.enabled:
+            self.faults = FaultInjector(faults)
+            # brownout, jitter and stalls shape the virtual link's timing,
+            # so late prefetches feed the controller as a slow link would
+            self.faults.attach_link(self.link)
+            if watchdog is None:
+                watchdog = StepWatchdog()
+        self.watchdog = watchdog
+        self.retry_max = int(retry_max)
+        self.retry_backoff_s = float(retry_backoff_s)
+        self.degraded_route_bias = float(degraded_route_bias)
+        self.degraded_recover_streak = int(degraded_recover_streak)
+        self._degraded = False
+        self._fault_ok_streak = 0
         # asynchronous swap-ins (CUDA): the copy stream, the copy-end event
         # each slot's FFN readers must wait on, and timing events not read yet
         self._copy_stream = (torch.cuda.Stream(self.device)
@@ -469,11 +513,67 @@ class SlotBufferEngine:
         self._clock += 1.0
         self.prefetcher.advance(self._clock)
 
+    # -- faults ----------------------------------------------------------------
+    def _fault_transfer_ok(self, key: Tuple[int, int], *,
+                           demand: bool) -> bool:
+        """Whether a swap-in of `key` goes through, drawn from the fault
+        plan (always True without one). A demand transfer gets up to
+        `retry_max` retries with doubling backoff; when they are spent the
+        engine degrades. A speculative fill gets one attempt and no
+        degradation: a failed guess costs nothing, the expert is demanded
+        later if needed."""
+        fi = self.faults
+        if fi is None:
+            return True
+        if not fi.transfer_fails(key, self._clock):
+            if demand:
+                self._note_transfer_ok()
+            return True
+        self.stats.link_failures += 1
+        if not demand:
+            return False
+        for attempt in range(self.retry_max):
+            self.stats.retries += 1
+            if self.retry_backoff_s > 0.0:
+                time.sleep(self.retry_backoff_s * (2.0 ** attempt))
+            if not fi.transfer_fails(key, self._clock):
+                self._note_transfer_ok()
+                return True
+            self.stats.link_failures += 1
+        self._enter_degraded()
+        return False
+
+    def _note_transfer_ok(self) -> None:
+        """A clean demand transfer; `degraded_recover_streak` in a row end
+        degraded routing (at route bias 0 decode then makes exactly the
+        calls of an engine that never degraded)."""
+        self._fault_ok_streak += 1
+        if self._degraded \
+                and self._fault_ok_streak >= self.degraded_recover_streak:
+            self._degraded = False
+
+    def _enter_degraded(self) -> None:
+        self._fault_ok_streak = 0
+        self._degraded = True
+
+    def _fault_step_end(self, step_s: float) -> None:
+        """At the end of a decode step: feed the watchdog the step's wall
+        time and count the step if it ran degraded or with the watchdog
+        tripped. Inert without faults and watchdog."""
+        if self.watchdog is not None:
+            self.watchdog.observe(step_s)
+        if self._degraded or (self.watchdog is not None
+                              and self.watchdog.tripped):
+            self.stats.degraded_steps += 1
+
     # -- residency -------------------------------------------------------------
     def ensure_resident(self, li: int, experts, *,
                         speculative: bool = False) -> int:
         """Swap in ALL missing experts for MoE layer li in one batched copy.
         Returns #experts swapped.
+
+        A demand transfer that the fault plan fails past its retries leaves
+        the expert non-resident (`_fault_transfer_ok`).
 
         The full needed set is pinned while inserting so a later insert can
         never evict an earlier-needed expert of the same layer; if the cache
@@ -499,7 +599,14 @@ class SlotBufferEngine:
                 if not speculative:
                     self.stats.demand_misses += 1
                     self.controller.record_stall()
+                    if not self._fault_transfer_ok(key, demand=True):
+                        # retries exhausted: the expert stays non-resident
+                        # this step, its tokens drop through the dead slot
+                        # (as on capacity overflow) and routing degrades
+                        continue
                     self.prefetcher.demand(key, self._clock)
+                elif not self._fault_transfer_ok(key, demand=False):
+                    continue
                 try:
                     victim = self.cache.insert(key)
                 except RuntimeError:     # every resident expert is needed NOW
@@ -567,6 +674,8 @@ class SlotBufferEngine:
                     key = (li, int(e))
                     if key in self.cache:
                         continue
+                    if not self._fault_transfer_ok(key, demand=False):
+                        continue     # a failed speculative fill: skip it
                     if self.cache.free_slots <= 0 and not any(
                             k not in self.cache.pinned
                             for k in self.cache.low):
@@ -669,12 +778,17 @@ class SlotBufferEngine:
                 self.controller.cfg, route_bias_max=self.route_bias)
 
     def _route_bias_strength(self) -> float:
-        """The perturbation strength now (router-logit units). Degraded
-        routing under link faults (a floor on the strength) comes with the
-        fault handling, which the port does not have yet."""
+        """The perturbation strength now (router-logit units). While
+        degraded (link faults) it is at least `degraded_route_bias`:
+        resident-only routing that stays a bounded perturbation (router KL
+        <= that many nats a layer), never a hard mask."""
         if self.route_bias_adaptive:
-            return float(min(self.controller.route_bias, self.route_bias))
-        return self.route_bias
+            base = float(min(self.controller.route_bias, self.route_bias))
+        else:
+            base = self.route_bias
+        if self._degraded:
+            return max(base, self.degraded_route_bias)
+        return base
 
     def _bias_to_device(self, bias: np.ndarray) -> torch.Tensor:
         """A host bias array onto the device, `non_blocking`: PyTorch adds
@@ -705,7 +819,14 @@ class SlotBufferEngine:
         return self.fixed_s if self.fixed_s is not None else self.controller.s
 
     def _horizon(self, li: int) -> int:
-        """Lookahead from MoE layer li, clamped to the remaining sweep."""
+        """Lookahead from MoE layer li, clamped to the remaining sweep; 0
+        while the step watchdog is tripped (a sync at every MoE layer until
+        its hysteresis lets go) or the fault plan blacks the predictor out."""
+        if self.watchdog is not None and self.watchdog.tripped:
+            return 0
+        if self.faults is not None \
+                and self.faults.predictor_blackout(self._clock):
+            return 0
         remaining = len(self.moe_layer_ids) - (li + 1)
         if self.fixed_s is not None:
             return max(0, min(self.fixed_s, remaining))
@@ -1008,8 +1129,9 @@ class SlotBufferEngine:
         if self.use_superkernel:
             return self._decode_step_superkernel(tok, state, active_dev)
         # cache-aware routing is switched by the ceiling, not the strength
-        # now: an adaptive engine at strength 0 routes with a zero bias
-        ca = self.route_bias > 0.0
+        # now: an adaptive engine at strength 0 routes with a zero bias;
+        # degraded routing (link faults) takes the same biased calls
+        ca = self.route_bias > 0.0 or self._degraded
         t0 = time.perf_counter()
         self.stats.steps += 1
         tok = torch.as_tensor(tok, device=self.device)
@@ -1133,6 +1255,7 @@ class SlotBufferEngine:
         logits = self._dispatch(self._logits, x)
         step_s = time.perf_counter() - t0
         self.controller.update_layer_time(step_s / max(len(self.specs), 1))
+        self._fault_step_end(step_s)
         return logits, self._advance(state, caches, active_dev)
 
     @staticmethod
@@ -1227,8 +1350,9 @@ class SlotBufferEngine:
         With cache-aware routing each segment's residency bias goes into
         `fused_moe_entry`'s logit-bias operand and its horizon's into the
         pre-gate, both built from the residency the segment finds (so a
-        replay is rebuilt from the residency at that point)."""
-        ca = self.route_bias > 0.0
+        replay is rebuilt from the residency at that point). Degraded
+        routing (link faults) takes the biased calls too."""
+        ca = self.route_bias > 0.0 or self._degraded
         t0 = time.perf_counter()
         self.stats.steps += 1
         tok = torch.as_tensor(tok, device=self.device)
@@ -1368,6 +1492,7 @@ class SlotBufferEngine:
             max(1, min(self._s_eff(), len(self.moe_layer_ids))))
         step_s = time.perf_counter() - t0
         self.controller.update_layer_time(step_s / max(len(self.specs), 1))
+        self._fault_step_end(step_s)
         return logits, self._advance(state, caches, active_dev)
 
     # -- fully-resident decode oracle ---------------------------------------

@@ -73,8 +73,11 @@ class EngineServingConfig:
     # wins; None = never shed)
     deadline_s: Optional[float] = None
     # brownout admission: admissions pause while the single-replica
-    # StragglerPolicy drains (decode-step EWMA past threshold x baseline)
-    brownout_admission: bool = False
+    # StragglerPolicy drains (decode-step EWMA past threshold x baseline),
+    # or while the engine is fault-degraded or its watchdog tripped; the
+    # queue head still enters an empty batch. None = on iff the engine was
+    # built with a fault plan
+    brownout_admission: Optional[bool] = None
     brownout_threshold: float = 4.0
     brownout_recovery: float = 1.5
 
@@ -103,10 +106,12 @@ class ServingEngine:
         self.straggler = StragglerPolicy(
             1, threshold=self.cfg.brownout_threshold,
             recovery=self.cfg.brownout_recovery)
+        brown = self.cfg.brownout_admission
+        if brown is None:
+            brown = engine.faults is not None
         self.batcher = ContinuousBatcher(
             self.cfg.max_batch, admission=admission,
-            brownout=(lambda: self.straggler.draining(0))
-            if self.cfg.brownout_admission else None)
+            brownout=self._browned_out if brown else None)
         self.seed = seed
         self.logits_trace: Dict[int, List[np.ndarray]] = {}
         # per-row sampling state
@@ -117,6 +122,14 @@ class ServingEngine:
         self._prefills: List = []
         self._chunked = (self.cfg.prefill_chunk > 0
                          and engine.chunked_prefill_supported)
+
+    def _browned_out(self) -> bool:
+        """The admission brownout signal: the straggler policy drains this
+        (single) replica, or the engine runs degraded (link faults) or with
+        its step watchdog tripped."""
+        eng = self.engine
+        return (self.straggler.draining(0) or eng._degraded
+                or (eng.watchdog is not None and eng.watchdog.tripped))
 
     # -- admission-control working-set estimate -----------------------------
     def predict_working_set(self, req: Request) -> float:
@@ -227,6 +240,10 @@ class ServingEngine:
         for r in pending:
             if self.batcher.admission is not None and r.predicted_ws is None:
                 r.predicted_ws = self.predict_working_set(r)
+        # the engine's health counters are cumulative: diff around this run
+        failures0 = eng.stats.link_failures
+        retries0 = eng.stats.retries
+        degraded0 = eng.stats.degraded_steps
         self._t0 = time.perf_counter()
         it = 0
 
@@ -308,5 +325,8 @@ class ServingEngine:
 
         report.makespan_s = now()
         report.mean_occupancy = self.batcher.stats.mean_occupancy
+        report.n_link_failures = eng.stats.link_failures - failures0
+        report.n_retries = eng.stats.retries - retries0
+        report.n_degraded_steps = eng.stats.degraded_steps - degraded0
         report.n_shed = self.batcher.stats.shed
         return report

@@ -874,3 +874,152 @@ def test_f32_gemm_keeps_a_nan_of_any_payload(gen, shape):
     assert torch.isfinite(got[~nan_rows]).all()
     torch.testing.assert_close(got, want, rtol=TOL_F32, atol=TOL_F32,
                                equal_nan=True)
+
+
+# ---------------------------------------------------------------------------
+# the reference's Qwen MoE configs: the serving kernels at their shapes, and
+# an empty work list (no routed expert resident, as under a total outage)
+# ---------------------------------------------------------------------------
+
+QWEN_ATTN = {
+    # name: (cache lengths; S, Hq, Hkv, D): decode at batch 4
+    "qwen2_G7": ([0, 63, 128, 255], 256, 28, 4, 128),
+    "qwen3_G16": ([0, 63, 128, 255], 256, 64, 4, 128),
+    "qwen3_G16_wrapped": ([256, 300, 511, 1000], 256, 64, 4, 128),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", list(QWEN_ATTN))
+def test_fused_decode_attention_at_qwen_groups(gen, case, dtype):
+    args = _attn_args(gen, *QWEN_ATTN[case], dtype=dtype)
+    old = [a.clone() for a in args[3:5]]
+    _nan_fill_allocator()
+    o, kc, vc = dsk.fused_decode_attention(*args)
+    o2, _, _ = dsk.fused_decode_attention(*args)
+    orf, kr, vr = fused_decode_attention_ref(*args)
+    torch.cuda.synchronize()
+    tol = TOL if dtype == torch.bfloat16 else TOL_F32
+    assert torch.isfinite(o).all()
+    assert torch.equal(kc, kr) and torch.equal(vc, vr)
+    assert torch.equal(args[3], old[0]) and torch.equal(args[4], old[1])
+    torch.testing.assert_close(o.float(), orf.float(), rtol=tol, atol=tol)
+    assert torch.equal(o, o2), "the kernel must be deterministic"
+
+
+QWEN_MOE = {
+    # name: (T, d, E, f, slots, resident, k): decode at batch 4
+    "qwen15_16_resident": (4, 2048, 60, 1408, 16, 16, 4),
+    "qwen15_all_resident": (4, 2048, 60, 1408, 60, 60, 4),
+    "qwen2_16_resident": (4, 3584, 64, 2560, 16, 16, 8),
+    "qwen2_all_resident": (4, 3584, 64, 2560, 64, 64, 8),
+    "qwen3_16_resident": (4, 4096, 128, 1536, 16, 16, 8),
+    "qwen3_all_resident": (4, 4096, 128, 1536, 128, 128, 8),
+}
+
+
+@pytest.mark.parametrize("case", list(QWEN_MOE))
+def test_fused_moe_entry_at_qwen_shapes(gen, case):
+    T, d, E, f, S, n_res, k = QWEN_MOE[case]
+    args = _moe_args(gen, T, d, E, f, S, n_res)
+    _nan_fill_allocator()
+    y, g, i = dsk.fused_moe_entry(*args, top_k=k)
+    y2, g2, i2 = dsk.fused_moe_entry(*args, top_k=k)
+    yr, gr, ir = fused_moe_entry_ref(*args, top_k=k)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all()
+    assert torch.equal(i, ir)
+    torch.testing.assert_close(g, gr, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(y, yr, rtol=TOL, atol=TOL)
+    assert torch.equal(y, y2) and torch.equal(g, g2) and torch.equal(i, i2)
+
+
+@pytest.mark.parametrize("shape", [(4, 1, 4, 60, 2048, 1408, 64),
+                                   (1, 32, 4, 60, 2048, 1408, 64),
+                                   (4, 1, 8, 64, 3584, 2560, 64),
+                                   (1, 32, 8, 64, 3584, 2560, 64),
+                                   (4, 1, 8, 128, 4096, 1536, 128),
+                                   (1, 32, 8, 128, 4096, 1536, 128)],
+                         ids=["qwen15_decode", "qwen15_chunk", "qwen2_decode",
+                              "qwen2_chunk", "qwen3_decode", "qwen3_chunk"])
+def test_slot_ffn_with_counts_at_qwen_shapes(gen, shape):
+    args, counts = _routed_inputs(gen, *shape)
+    got = slot_gather.slot_ffn(*args, counts=counts)
+    again = slot_gather.slot_ffn(*args, counts=counts)
+    want = slot_ffn_ref(*args, counts=counts)
+    torch.cuda.synchronize()
+    live = (torch.arange(args[0].shape[1], device="cuda")[None, :]
+            < counts.long()[:, None])[..., None]
+    assert int(counts.sum()) > 0
+    counted = lambda y: torch.where(live, y, 0)  # noqa: E731
+    torch.testing.assert_close(counted(got), want, rtol=TOL, atol=TOL)
+    assert torch.equal(counted(got), counted(again)), "not deterministic"
+
+
+def _cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _cpu(v) for k, v in tree.items()}
+    return tree.cpu()
+
+
+def _qwen_moe_layer(g, arch, T):
+    """A Qwen layer's MoE params at its published width (qwen1.5 with its
+    fused shared experts, qwen3 with none), tokens, and an empty slot
+    buffer's table: no routed expert resident."""
+    cfg = get_config(arch)
+    d = cfg.d_model
+    params = moe.init_moe_params(d, cfg.moe, torch.bfloat16, generator=g,
+                                 device="cuda")
+    slots = {k: params[k][:16].contiguous()
+             for k in ("w_gate", "w_up", "w_down")}
+    x = torch.randn((T, d), generator=g, device="cuda").bfloat16()
+    soe = torch.full((cfg.moe.num_experts,), -1, dtype=torch.int32,
+                     device="cuda")
+    return cfg, params, slots, x, soe
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-moe-a2.7b", "qwen3-moe-235b-a22b"])
+@pytest.mark.parametrize("T", [4, 32], ids=["decode", "chunk"])
+def test_slot_ffn_path_with_an_empty_work_list(gen, arch, T):
+    """Every row count 0: `slot_ffn` launches, reads no weights and writes
+    nothing, and the MoE layer is its shared experts alone (zero without
+    them), bitwise, over NaN-filled memory: nothing stale is read."""
+    cfg, params, slots, x, soe = _qwen_moe_layer(gen, arch, T)
+    before = slot_gather.slot_ffn.launches
+    _nan_fill_allocator()
+    out, r = moe.moe_slotbuf(params, slots, soe, x, cfg.moe,
+                             capacity=T * cfg.moe.top_k, use_kernel=True)
+    shared_only = moe._add_shared(params, x, torch.zeros_like(x))
+    plain, _ = moe.moe_slotbuf(_cpu(params), _cpu(slots), soe.cpu(),
+                               x.cpu(), cfg.moe, capacity=T * cfg.moe.top_k,
+                               use_kernel=True)
+    torch.cuda.synchronize()
+    assert slot_gather.slot_ffn.launches == before + 1
+    assert torch.equal(out, shared_only)
+    if not cfg.moe.num_shared_experts:
+        assert not out.any()
+    torch.testing.assert_close(out.float().cpu(), plain.float(), rtol=TOL,
+                               atol=TOL)
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-moe-a2.7b", "qwen3-moe-235b-a22b"])
+def test_fused_moe_entry_with_an_empty_work_list(gen, arch):
+    """No routed expert resident: the route launch builds an empty work
+    list, the expert passes compute nothing, y is 0 and every gate 0, and
+    the layer is its shared experts alone, bitwise, over NaN-filled
+    scratch; the plain version agrees."""
+    cfg, params, slots, x, soe = _qwen_moe_layer(gen, arch, 4)
+    bias = torch.zeros(cfg.moe.num_experts, device="cuda")
+    args = (x, params["router"], bias, soe, slots["w_gate"], slots["w_up"],
+            slots["w_down"])
+    before = dsk.fused_moe_entry.launches
+    _nan_fill_allocator()
+    y, g, i = dsk.fused_moe_entry(*args, top_k=cfg.moe.top_k)
+    yr, gr, ir = fused_moe_entry_ref(*args, top_k=cfg.moe.top_k)
+    out, _, _ = moe.moe_slotbuf_fused(params, slots, soe, x, cfg.moe)
+    torch.cuda.synchronize()
+    assert dsk.fused_moe_entry.launches == before + 2
+    assert not y.any() and not g.any() and not yr.any()
+    assert torch.equal(i, ir)
+    assert torch.equal(out, moe._add_shared(params, x, torch.zeros_like(x)))
