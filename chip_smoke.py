@@ -138,8 +138,9 @@ the last line:
    fully-resident oracle and to the bias-off engine's;
 10. the reference's Qwen MoE configs at their published widths, 16 expert
    slots a layer, the eight-request recipe with every launch check and
-   oracle of phases 5-7 for its path: qwen1.5-moe-a2.7b (24 layers, MHA,
-   60 experts top-4 and 4 shared fused into one FFN of width 5632) unfused
+   oracle of phases 5-7 for its path: qwen1.5-moe-a2.7b (24 layers, cut
+   to 6, MHA, 60 experts top-4 and 4 shared fused into one FFN of width
+   5632) unfused
    and monolithic, and superkernel with 32-token chunks;
    qwen2-moe-57b (GQA G = 7, 64 experts top-8, a shared FFN of 20480) and
    qwen3-moe-235b-a22b (GQA G = 16 at head dim 128, qk-norm, 128 experts
@@ -160,15 +161,69 @@ the last line:
    link clock with `degraded_recover_streak=1` and 64 slots a layer
    recovers, and a fresh population served on that engine then gives
    logits traces bitwise equal to a never-faulted engine's;
+12. the disk tier (`core/expert_tiers.py`, `core/integrity.py`): each
+   model's experts drawn from the seed on the card layer by layer (in
+   `Model.init`'s order, so the weights are the earlier phases'), written
+   as expert shards into one temporary directory (`tempfile.mkdtemp()`,
+   outside the checkout; each layer file fsync'd and dropped from the page
+   cache; removed at the end, also on SIGTERM), served through a
+   demand-only `TieredExpertStore` (a fixed page-locked pool of host
+   records; `TIER_PREFETCH`) with 16 slots a layer, each run printing the
+   tier's snapshot, host hits and misses, disk stall, the integrity
+   counters, the bytes read from the shards and their rate, CRC seconds,
+   TTFT / TPOT p50 and swapped GB beside the pre-staged run of its config
+   and path in this call:
+   - olmoe-1b-7b unfused and DeepSeek-V2-Lite superkernel (`verify=
+     "promote"`), monolithic, full depth, phase 5's traffic, a host budget
+     of a third of the shards: host evictions, no corruption detected, one
+     prompt single-stream (prefill + 16 decode steps) bitwise equal to the
+     path's oracle (its experts read from the shards), every served
+     stream equal to the pre-staged run's or parting only at a near-tie of
+     this run's top two logits (and then held by the rules of phases 5-7);
+   - before DeepSeek's run, `io_probe`: a verified promotion batch's
+     records read and CRC-32'd in the tier's 2 MiB tasks against one task
+     a record, every CRC equal to its manifest's;
+   - olmoe-1b-7b superkernel on the same shards under
+     `FaultPlan.corrupt_flaky(seed=0)` (`verify="scrub"`) and
+     `corrupt_disk(seed=0)` (`verify="promote"`): every budget emitted,
+     corruption detected (and quarantined under `corrupt_disk`), the
+     episode invariant, no quarantined expert resident, and every occupied
+     device slot's bytes, copied back, with its shard record's CRC-32;
+   - qwen2-moe-57b superkernel, monolithic, from disk shards of as many of
+     its 28 layers as the disk's free bytes and what is left of the run's
+     write allowance (`DISK_WRITE_LIMIT`) after olmoe's and DeepSeek's
+     shards hold (2 GB to spare), a host budget of 35 % of its shards (32
+     GiB at 28 layers), 2 greedy requests of 64 prompt tokens and 8 new
+     tokens at batch 2: every budget, finite logits, host misses,
+     promotions and evictions, and up to 64 occupied slots drawn from the
+     seed holding their shard records' bytes;
 9. last, a `{"kernels": [...]}` line (per kernel: `launches` summed over
    the runs whose path runs it, the kernel API's for `topk_gating` and
    `expert_ffn`, `launches_by_path` per run; times at the shape its entry
    names, every measured shape under `shapes`), the total time, then the
-   last line `{"ok": true, "device": {...}}`.
+   last line `{"ok": true, "device": {...}}`. Before them the card is
+   synchronized, the cached device and page-locked host memory freed,
+   and no thread but the main one may be left (a check).
+
+The script reaps every process it starts, however deep
+(PR_SET_CHILD_SUBREAPER): on its way out, pass or fail, any that is
+still there is ended (SIGTERM, SIGKILL after 5 s) and named on stderr.
 
 Depth cuts (no width is cut): qwen2-moe-57b at 12 of 28 layers and
-qwen3-moe-235b-a22b at 8 of 94, whose experts (98.7 GB and 454 GB) do not
-fit the host's memory (and qwen3's not the card's) at full depth.
+qwen3-moe-235b-a22b at 8 of 94 in phase 10, whose experts (98.7 GB and
+454 GB) do not fit the host's memory (and qwen3's not the card's) at full
+depth; in phase 12 qwen2 at the depth the shard disk and the run's write
+allowance hold after olmoe's and DeepSeek's 41.7 GB (its 28 layers'
+shards are 98.65 GB; 1 layer under a 45 GiB allowance),
+which it prints with the free bytes and the allowance it had; so that
+phase 12 fits the run's time, the chunked runs of phases 5-7 at 5 of
+olmoe's 16 layers and 6 of DeepSeek-V2-Lite's 27 (`CHUNKED_DEPTH`; their
+monolithic runs keep full depth, and a cut chunked run is not compared
+with the monolithic run's streams). Every other run is at full depth.
+Runs of one config follow each other, so that its experts are pinned
+once (`build_engine`): phases 5-8 run olmoe's monolithic, cache-aware and
+chunked runs, then DeepSeek-V2-Lite's; phase 11 runs olmoe's plans, then
+DeepSeek-V2-Lite's brownout.
 
 Exits with code 2 and prints no result without a CUDA device or outside a
 checkout of the repository.
@@ -178,6 +233,13 @@ checkout of the repository.
 runs phases 1-3 only (all six kernels, or the named ones), writes
 `chiprun_out/chip_smoke_kernels.json` and prints no result: the quick call
 for kernel work.
+
+    python3 chip_smoke.py --disk
+
+runs phase 1 and measures the disk phase 12 writes its shards to (free
+bytes, write rate, read rates after POSIX_FADV_DONTNEED and from the page
+cache, zlib.crc32's rate on one thread and on 8) into
+`chiprun_out/chip_smoke_disk.json`, and prints no result.
 """
 import dataclasses
 import gc
@@ -186,6 +248,7 @@ import statistics
 import subprocess
 import sys
 import time
+from collections.abc import Mapping
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -206,6 +269,8 @@ CHUNK = 32        # the chunked runs' prefill chunk (the serving default)
 TOL_CTX = 2e-4     # fused_mla_decode_attention's ctx: fp32, summation order
 ARCHS = ("olmoe-1b-7b", "deepseek-v2-lite")
 ROUTE_BIAS = 1.0   # the cache-aware runs' strength (the reference's value)
+# the paths served again at ROUTE_BIAS (superkernel or not), per model
+BIASED = {"olmoe-1b-7b": (False, True), "deepseek-v2-lite": (True,)}
 # Depth cuts (widths stay as published): qwen2 and qwen3, whose experts
 # fit neither the host (101 GiB) nor the card at full depth: 98.7 GB and
 # 454 GB of bf16 experts.
@@ -216,6 +281,42 @@ QWEN_DEPTH = {
     "qwen3-moe-235b-a22b": (8, "its 94 layers' 454 GB of experts fit "
                                "neither the host nor the card; 8 layers: "
                                "38.7 GB")}
+# phase 12: the tiered runs' host budget (a third of the shards), qwen2's
+# host budget at its full 28 layers (32 GiB, 35 % of 98.65 GB of shards;
+# at a cut depth the same share of its shards), its traffic (requests,
+# prompt tokens, new tokens), and the bytes left free on the shard disk
+# when qwen2's depth is chosen
+TIER_BUDGET_SHARE = 1 / 3
+QWEN_TIER_BUDGET = 32 * 2 ** 30
+QWEN_TIER_REQUESTS = (2, 64, 8)
+DISK_MARGIN = 2e9
+# Bytes a run may write to the shard disk: the H100 machine this script
+# runs on ends a run that has written more than 45 GiB to its disk
+# (deleted files count). Every shard goes to one temporary directory
+# (`tempfile.mkdtemp()`, under TMPDIR): olmoe's and DeepSeek's first
+# (12.88 + 28.79 GB, never cut), then qwen2's, as deep as what is left
+# of this allowance holds.
+DISK_WRITE_LIMIT = 45 * 2 ** 30
+# Phase 12's tiers promote on demand only (`TieredExpertStore(prefetch=
+# False)`): at the tier's default disk bandwidth, 2e9 bytes a link-clock
+# unit (one MoE layer dispatch), the reference's S_disk prefetcher takes
+# the disk to land some 160 olmoe records a layer and keeps the host tier
+# churning far past the run's time. The CPU tests hold the prefetcher's
+# decisions to the reference's; on the card it is not exercised yet.
+TIER_PREFETCH = False
+# decode steps of phase 12's single-stream oracle (as phases 5-7's)
+TIER_ORACLE_STEPS = 16
+# records of the per-record against chunked read + CRC probe (phase 12)
+IO_PROBE_RECORDS = 24
+# Depth cuts of the chunked runs of phases 5-7 (widths as published), so
+# that phase 12 fits the run's time: (layers, why)
+# (at least 5 MoE layers: their 80 slots hold a chunk's 64 routed experts,
+# which the oracle needs)
+CHUNKED_DEPTH = {
+    "olmoe-1b-7b": (5, "phase 12's disk tier needs the time; the "
+                       "monolithic runs keep all 16 layers"),
+    "deepseek-v2-lite": (6, "phase 12's disk tier needs the time; the "
+                            "monolithic runs keep all 27 layers")}
 # phase 10: (arch, superkernel, prefill chunk)
 QWEN_RUNS = (("qwen1.5-moe-a2.7b", False, 0),
              ("qwen1.5-moe-a2.7b", True, CHUNK),
@@ -240,6 +341,89 @@ def log(*a):
 def check(cond, what):
     if not cond:
         raise SystemExit(f"chip_smoke FAILED: {what}")
+
+
+def adopt_orphans():
+    """Make this process the reaper of every process it starts, however
+    deep: a process whose parent ended before it is handed to this one,
+    not to init, so `stop_children` finds it (Linux; elsewhere a no-op)."""
+    import ctypes
+    try:
+        ctypes.CDLL(None).prctl(36, 1, 0, 0, 0)   # PR_SET_CHILD_SUBREAPER
+    except (OSError, AttributeError):
+        pass
+
+
+def _children():
+    """{pid: command line} of this process's live or unreaped children."""
+    import os
+    me, out = os.getpid(), {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            stat = Path(f"/proc/{d}/stat").read_text()
+            if int(stat.rsplit(")", 1)[1].split()[1]) != me:
+                continue
+            cmd = Path(f"/proc/{d}/cmdline").read_bytes()
+            out[int(d)] = (cmd.replace(b"\0", b" ").decode(errors="replace")
+                           .strip() or stat.split("(", 1)[1].rsplit(")")[0])
+        except (OSError, IndexError, ValueError):
+            pass
+    return out
+
+
+def stop_children(grace=5.0):
+    """End and reap every process this one started that is still there
+    (none should be: each nvcc, nvidia-smi and cuobjdump call is waited
+    for), SIGTERM first, SIGKILL after `grace` seconds; returns
+    {pid: command line} of those found."""
+    import os
+    import signal
+    found = {}
+    for _ in range(10):              # a stopped child's children come next
+        kids = _children()
+        if not kids:
+            break
+        found.update(kids)
+        for pid in kids:
+            try:
+                os.kill(pid, signal.SIGTERM)
+            except ProcessLookupError:
+                pass
+        deadline = time.monotonic() + grace
+        pending = set(kids)
+        while pending:
+            for pid in list(pending):
+                try:
+                    if os.waitpid(pid, os.WNOHANG)[0]:
+                        pending.discard(pid)
+                except ChildProcessError:
+                    pending.discard(pid)
+            if pending and time.monotonic() > deadline:
+                for pid in pending:
+                    try:
+                        os.kill(pid, signal.SIGKILL)
+                        os.waitpid(pid, 0)
+                    except (ProcessLookupError, ChildProcessError):
+                        pass
+                pending.clear()
+            time.sleep(0.05)
+    return found
+
+
+def teardown(torch):
+    """Before the result: wait for the card, free its cached blocks and the
+    cached page-locked host memory, and check that no thread but this one
+    is left, so the process ends as soon as it has printed."""
+    import threading
+    gc.collect()
+    torch.cuda.synchronize()
+    torch._C._host_emptyCache()
+    torch.cuda.empty_cache()
+    left = [t.name for t in threading.enumerate()
+            if t is not threading.main_thread() and not t.daemon]
+    check(not left, f"threads still running at the end: {left}")
 
 
 def time_ms(torch, fn, reps=5, inner=5):
@@ -283,6 +467,105 @@ def launch_split(torch, fn, reps=20):
         name = m.group(1) + (m.group(2) or "").replace(" ", "")
         split[name] = split.get(name, 0.0) + t / reps / 1e3
     return split
+
+
+def mount_of(path):
+    """(mount point, filesystem type) holding `path`, from /proc/mounts."""
+    import os
+    path = os.path.realpath(path)
+    best = ("", "?")
+    try:
+        with open("/proc/mounts") as f:
+            for line in f:
+                parts = line.split()
+                mnt, fstype = parts[1], parts[2]
+                if (path == mnt or path.startswith(mnt.rstrip("/") + "/")) \
+                        and len(mnt) > len(best[0]):
+                    best = (mnt, fstype)
+    except OSError:
+        pass
+    return best
+
+
+def threaded(fn, items, workers=8):
+    """`fn` over `items` on `workers` threads (file reads and zlib's CRC
+    release the GIL); results in order."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(workers) as ex:
+        return list(ex.map(fn, items))
+
+
+def disk_probe(np, gb=16.0, record=55_050_240):
+    """The shard disk's rates: free bytes of the temporary directory (where
+    phase 12 writes its shards), `gb` GB written in 64 MiB blocks and
+    fsync'd, then read back after POSIX_FADV_DONTNEED (from the disk, not
+    the page cache) record by record (`record` bytes, a qwen2 expert) on
+    one thread and on 8, and again on 8 from the page cache; zlib.crc32 over
+    such records on one thread and on 8."""
+    import os
+    import shutil
+    import tempfile
+    import zlib
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_disk_")
+    out = {"tmpdir": tmp, "mount": mount_of(tmp),
+           "free_GB": shutil.disk_usage(tmp).free / 1e9,
+           "repo_free_GB": shutil.disk_usage(ROOT).free / 1e9,
+           "cpus": os.cpu_count()}
+    with open("/proc/meminfo") as f:
+        mem = dict(line.split(":", 1) for line in f)
+    out["mem_total_GB"] = int(mem["MemTotal"].split()[0]) * 1024 / 1e9
+    out["mem_available_GB"] = \
+        int(mem["MemAvailable"].split()[0]) * 1024 / 1e9
+    log(f"disk: {json.dumps(out)}")
+    try:
+        block = np.random.default_rng(SEED).integers(
+            0, 256, 64 << 20, dtype=np.uint8)
+        n_blocks = int(gb * 1e9) // block.size
+        path = os.path.join(tmp, "probe.bin")
+        t0 = time.perf_counter()
+        with open(path, "wb") as f:
+            for _ in range(n_blocks):
+                f.write(memoryview(block))
+            f.flush()
+            os.fsync(f.fileno())
+        nbytes = n_blocks * block.size
+        out["write_GBps"] = nbytes / (time.perf_counter() - t0) / 1e9
+        fd = os.open(path, os.O_RDONLY)
+        n_rec = nbytes // record
+        bufs = [np.empty(record, np.uint8) for _ in range(8)]
+
+        def read(i, buf):
+            got = os.preadv(fd, [memoryview(buf)], i * record)
+            assert got == record, got
+
+        def drop():
+            os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+
+        def rate(fn):
+            t0 = time.perf_counter()
+            fn()
+            return n_rec * record / (time.perf_counter() - t0) / 1e9
+        drop()
+        out["read_cold_1_GBps"] = rate(
+            lambda: [read(i, bufs[0]) for i in range(n_rec)])
+        drop()
+        out["read_cold_8_GBps"] = rate(lambda: threaded(
+            lambda i: read(i, bufs[i % 8]), range(n_rec)))
+        out["read_warm_8_GBps"] = rate(lambda: threaded(
+            lambda i: read(i, bufs[i % 8]), range(n_rec)))
+        drop()
+        os.close(fd)
+        t0 = time.perf_counter()
+        for b in bufs:
+            zlib.crc32(b)
+        out["crc32_1_GBps"] = 8 * record / (time.perf_counter() - t0) / 1e9
+        t0 = time.perf_counter()
+        threaded(zlib.crc32, bufs * 4)
+        out["crc32_8_GBps"] = 32 * record / (time.perf_counter() - t0) / 1e9
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"disk: {json.dumps(out)}")
+    return out
 
 
 def bound(nbytes, ops):
@@ -1540,6 +1823,21 @@ def serving_phase(torch, np, mods, *, arch: str, superkernel: bool,
     #   first one between batch 1 and the path's oracle at the batch's
     #   width, and the experts it swapped must lie within a near-tie of
     #   each other in the router's logits at both widths.
+    hold_streams(torch, np, mods, eng, reqs, prompts, prefill_ref, step_ref,
+                 what, tag, serving)
+    eng.drop_resident_experts()
+    serving["phase_s"] = time.perf_counter() - t_phase
+    serving["oracle_bitwise"] = True
+    return serving, launches
+
+
+def hold_streams(torch, np, mods, eng, reqs, prompts, prefill_ref, step_ref,
+                 what, tag, serving):
+    """The served streams of `reqs` held by the rules of phases 5-7 (see
+    `serving_phase`): alone at the batch's width through the path's oracle
+    `step_ref` a stream may part only at a near-tie; alone at batch 1
+    through the fully-resident reference only at a near-tie or after a
+    router flip at a near-tie. Writes what it finds into `serving`."""
     by_id = {r.request_id: (r, p) for r, p in zip(reqs, prompts)}
     for width, step_fn, what_s in (
             (4, step_ref, what),
@@ -1578,10 +1876,6 @@ def serving_phase(torch, np, mods, *, arch: str, superkernel: bool,
                 + "; ".join(f"{rid}: {f['step']}, {f['layer']}, "
                             f"{f['swapped']}, {f['tie']:.4g}, "
                             f"{f['drift']:.4g}" for rid, f in flips.items()))
-    eng.drop_resident_experts()
-    serving["phase_s"] = time.perf_counter() - t_phase
-    serving["oracle_bitwise"] = True
-    return serving, launches
 
 
 # --------------------------------------------------------------- phase 11
@@ -1713,22 +2007,10 @@ def faults_phase(torch, np, mods, serving, launches):
     del eng
     release(torch)
 
-    # brownout: flaky transfers on a collapsed link
-    for arch, sk in (("olmoe-1b-7b", True), ("deepseek-v2-lite", False)):
-        path = "superkernel" if sk else "unfused"
-        tag = f"{arch} {path} monolithic brownout"
-        eng, *_ = build_engine(torch, mods, model_at_depth(mods, arch),
-                               superkernel=sk,
-                               faults=FaultPlan.brownout_preset(seed=0))
-        run, _, launches[tag] = fault_serve(
-            torch, np, mods, eng, tag, superkernel=sk,
-            base=serving[f"{arch} {path} monolithic"])
-        h = run["health"]
-        check(h["n_retries"] > 0 and h["n_link_failures"] > 0
-              and h["n_shed"] == 0, f"[{tag}] health {h}")
-        runs[tag] = run
-        del eng
-        release(torch)
+    # brownout: flaky transfers on a collapsed link (olmoe's here; the
+    # olmoe runs go first, so that they share one config's pinned host
+    # memory: `build_engine`)
+    brownout(torch, np, mods, serving, launches, runs, "olmoe-1b-7b", True)
 
     # a total outage from t = 0: no expert ever resident, every MoE work
     # list empty; served degraded, and bitwise the no-expert oracle
@@ -1800,7 +2082,547 @@ def faults_phase(torch, np, mods, serving, launches):
     runs[tag] = run
     del eng, srv_c
     release(torch)
+    brownout(torch, np, mods, serving, launches, runs, "deepseek-v2-lite",
+             False)
     return runs
+
+
+def brownout(torch, np, mods, serving, launches, runs, arch, sk):
+    """`FaultPlan.brownout_preset(seed=0)` served on `arch` at full depth:
+    retries and link failures, nothing shed."""
+    path = "superkernel" if sk else "unfused"
+    tag = f"{arch} {path} monolithic brownout"
+    eng, *_ = build_engine(torch, mods, model_at_depth(mods, arch),
+                           superkernel=sk,
+                           faults=mods["FaultPlan"].brownout_preset(seed=0))
+    run, _, launches[tag] = fault_serve(
+        torch, np, mods, eng, tag, superkernel=sk,
+        base=serving[f"{arch} {path} monolithic"])
+    h = run["health"]
+    check(h["n_retries"] > 0 and h["n_link_failures"] > 0
+          and h["n_shed"] == 0, f"[{tag}] health {h}")
+    runs[tag] = run
+    del eng
+    release(torch)
+
+
+# --------------------------------------------------------------- phase 12
+
+class SeededModel(Mapping):
+    """`Model.init`'s draws from SEED on the card, layer by layer and in its
+    order (so the weights are phase 5-10's), without ever holding every
+    expert: indexing it by MoE layer (in order, as the shard writer does)
+    draws the layers up to that one and hands back its experts on the host;
+    everything else stays on the card. `params()` draws what is left and
+    returns the param tree without experts. Peak: one layer's experts."""
+
+    def __init__(self, torch, mods, cfg):
+        tr = mods["transformer"]
+        self.torch, self.tr, self.cfg = torch, tr, cfg
+        model = mods["Model"](cfg)
+        self.specs, self.dtype = list(model.specs), model.dtype
+        self.moe_ids = [i for i, s in enumerate(self.specs) if s.is_moe]
+        self.kw = dict(generator=torch.Generator(device="cuda").manual_seed(
+            SEED), device=torch.device("cuda"))
+        dt, d = self.dtype, cfg.d_model
+        self.tree = {
+            "embed": tr.embed_init(cfg.vocab_size, d, dt, **self.kw),
+            "final_norm": torch.ones((d,), dtype=dt, device="cuda"),
+            "lm_head": tr.dense_init(d, cfg.vocab_size, dt, **self.kw),
+            "layers": []}
+
+    def _draw(self):
+        i = len(self.tree["layers"])
+        p = self.tr.init_layer(self.cfg, self.specs[i], self.dtype, **self.kw)
+        experts = None
+        if self.specs[i].is_moe:
+            moe = p["moe"]
+            # to the host through page-locked buffers (a fast copy; the
+            # caching host allocator reuses them layer after layer)
+            experts = tuple(
+                self.torch.empty(w.shape, dtype=w.dtype,
+                                 pin_memory=True).copy_(w)
+                for w in (moe.pop(k) for k in ("w_gate", "w_up", "w_down")))
+        self.tree["layers"].append(p)
+        return experts
+
+    def __len__(self):
+        return len(self.moe_ids)
+
+    def __iter__(self):
+        return iter(range(len(self.moe_ids)))
+
+    def __getitem__(self, li):
+        target = self.moe_ids[li]
+        assert len(self.tree["layers"]) <= target, "layers in order only"
+        while True:
+            experts = self._draw()
+            if len(self.tree["layers"]) == target + 1:
+                return experts
+
+    def params(self):
+        while len(self.tree["layers"]) < len(self.specs):
+            self._draw()
+        return self.tree
+
+
+def export_seeded(torch, mods, cfg, out_dir):
+    """Shards of `cfg`'s experts drawn from SEED, written, fsync'd and
+    dropped from the page cache; returns (non-expert params on the card,
+    export seconds, bytes written)."""
+    t0 = time.perf_counter()
+    seeded = SeededModel(torch, mods, cfg)
+    mods["export_expert_shards"](seeded, out_dir, drop_cache=True)
+    params = seeded.params()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    gc.collect()                 # free the page-locked staging buffers
+    torch._C._host_emptyCache()
+    nbytes = sum(f.stat().st_size for f in Path(out_dir).glob("*.bin"))
+    log(f"tier [{cfg.name}]: exported {len(seeded)} MoE layers' experts, "
+        f"{nbytes / 1e9:.2f} GB, to {out_dir} in {secs:.1f} s "
+        f"({nbytes / secs / 1e9:.3f} GB/s drawn on the card, written, "
+        f"fsync'd, dropped from the page cache)")
+    return params, secs, nbytes
+
+
+def slot_crcs(torch, eng, slots):
+    """CRC-32 of each device slot's (w_gate | w_up | w_down) bytes, copied
+    back: the bytes a shard record holds."""
+    import zlib
+
+    def crc(s):
+        c = 0
+        for name in ("w_gate", "w_up", "w_down"):
+            w = eng.buffer[name][s].cpu().contiguous()
+            c = zlib.crc32(w.view(torch.uint8).numpy(), c)
+        return c
+    eng.synchronize()
+    return threaded(crc, list(slots))
+
+
+def check_slots(torch, eng, tag, slots=None):
+    """Every occupied device slot (or the given ones) holds its shard
+    record's bytes. Returns how many were checked."""
+    occupied = [s for s, k in enumerate(eng.table.key_of_slot)
+                if k is not None]
+    slots = occupied if slots is None else slots
+    got = slot_crcs(torch, eng, slots)
+    rd = eng.tiers.reader
+    bad = [(s, eng.table.key_of_slot[s]) for s, c in zip(slots, got)
+           if c != rd.record_crc(*eng.table.key_of_slot[s])]
+    check(not bad, f"[{tag}] device slots whose bytes differ from their "
+                   f"shard record: {bad[:8]} ({len(bad)} of {len(slots)})")
+    return len(slots)
+
+
+def tier_engine(torch, mods, cfg, params, sdir, *, superkernel, budget,
+                verify="off", **kw):
+    """A `SlotBufferEngine` on a `TieredExpertStore` over `sdir` (16 slots a
+    layer, `slot_ffn` on). Returns (engine, store, build seconds)."""
+    gc.collect()
+    t0 = time.perf_counter()
+    store = mods["TieredExpertStore"](sdir, host_budget_bytes=budget,
+                                      verify=verify, prefetch=TIER_PREFETCH)
+    eng = mods["SlotBufferEngine"](
+        cfg, params, mods["Model"](cfg), n_slots_per_layer=16,
+        use_kernel=True, use_superkernel=superkernel, max_seq=256,
+        device="cuda", store=store, **kw)
+    return eng, store, time.perf_counter() - t0
+
+
+def tier_serve(torch, np, mods, eng, tag, *, superkernel, prompts,
+               new_tokens=16, batch=4, base=None):
+    """Serve `prompts` greedily on a tiered engine (monolithic admission,
+    logits traced), every kernel's count zeroed just before and read just
+    after; hold every request to its budget, every logit finite, the
+    path's kernels to launching (and the others to not). Prints the tier's
+    counters beside `base`, the pre-staged run of the same config and path
+    in this call. Returns (run summary, requests, server, launches)."""
+    cfg, store = eng.cfg, eng.tiers
+    reqs = [mods["Request"](p, max_new_tokens=new_tokens) for p in prompts]
+    srv = mods["ServingEngine"](eng, mods["EngineServingConfig"](
+        max_batch=batch, admission_cap=False, prefill_chunk=0,
+        trace_logits=True))
+    eng.stats.reset()
+    for n in KERNELS:
+        mods[n].launches = 0
+    io0, snap0 = store.io_stats(), store.snapshot()
+    t0 = time.perf_counter()
+    report = srv.serve(reqs)
+    eng.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counters(mods)
+    on_path = on_path_kernels(cfg, superkernel)
+    check(all(launches[n] > 0 for n in on_path)
+          and all(launches[n] == 0 for n in KERNELS if n not in on_path),
+          f"[{tag}] launches off the path's kernels: {launches}")
+    for r in reqs:
+        check(len(r.output) == new_tokens
+              and all(0 <= t < cfg.vocab_size for t in r.output),
+              f"[{tag}] request {r.request_id} output {r.output}")
+        rows = srv.logits_trace[r.request_id]
+        check(len(rows) == new_tokens
+              and all(np.isfinite(x).all() for x in rows),
+              f"[{tag}] request {r.request_id}: non-finite logits")
+    st, summ = eng.stats, report.summary()
+    io = {k: v - io0[k] for k, v in store.io_stats().items()}
+    snap = store.snapshot()
+    g = store.guard
+    run = {"arch": cfg.name, "path": "superkernel" if superkernel
+           else "unfused", "layers": cfg.num_layers,
+           "requests": len(reqs), "batch": batch,
+           "prompt_tokens": [int(len(p)) for p in prompts],
+           "new_tokens": new_tokens, "wall_s": wall,
+           "ttft_p50_s": summ["ttft_p50_s"], "tpot_p50_s": summ["tpot_p50_s"],
+           "throughput_tok_s": summ["throughput_tok_s"],
+           "swapped_bytes": st.swap_bytes, "copy_s": st.copy_s,
+           "demand_misses": st.demand_misses, "replays": st.replays,
+           "host_hits": st.host_hits, "host_misses": st.host_misses,
+           "disk_stall_s": st.disk_stall_s,
+           "tier_snapshot": snap,
+           "tier_snapshot_delta": {k: snap[k] - snap0[k] for k in snap},
+           "report_tier": {k: summ[k] for k in (
+               "n_host_hits", "n_host_misses", "disk_stall_s",
+               "n_corrupt_detected", "n_requarantined", "n_scrubbed",
+               "n_quarantined_experts")},
+           "n_episodes": g.n_episodes, "healing": len(g.healing),
+           "quarantined": sorted(g.quarantined),
+           "io": io, "pool_GB": store.nbytes / 1e9,
+           "pool_records": store.capacity,
+           "host_budget_GB": store.model.host_budget_bytes / 1e9,
+           "launches": launches,
+           "outputs": [list(r.output) for r in reqs]}
+    rd = io["read_s"]
+    log(f"tier [{tag}]: {len(reqs)} requests in {wall:.2f} s; TTFT p50 "
+        f"{run['ttft_p50_s'] * 1e3:.1f} ms, TPOT p50 "
+        f"{run['tpot_p50_s'] * 1e3:.1f} ms, swapped "
+        f"{st.swap_bytes / 1e9:.2f} GB, demand misses {st.demand_misses}; "
+        f"host hits {st.host_hits}, misses {st.host_misses}, disk stall "
+        f"{st.disk_stall_s:.4g} (link clock); read "
+        f"{io['bytes_read'] / 1e9:.2f} GB from the shards "
+        f"({io['bytes_read'] / rd / 1e9 if rd else float('nan'):.2f} GB/s a "
+        f"thread, {io['bytes_read'] / wall / 1e9:.2f} GB/s over the run, "
+        f"{io['read_wait_s']:.2f} s waited), CRC "
+        f"{io['crc_s']:.2f} s; launches {launches}")
+    log(f"tier [{tag}]: snapshot {json.dumps(snap)}; integrity "
+        f"{json.dumps(run['report_tier'])}, episodes {g.n_episodes}")
+    if base is not None:
+        log(f"tier [{tag}]: pre-staged run of the path (same call): TTFT "
+            f"p50 {base['ttft_p50_s'] * 1e3:.1f} ms, TPOT p50 "
+            f"{base['tpot_p50_s'] * 1e3:.1f} ms, swapped "
+            f"{base['swapped_bytes'] / 1e9:.2f} GB, demand misses "
+            f"{base['demand_misses']}, {base.get('layers')} layers")
+    return run, reqs, srv, launches
+
+
+def path_oracle(mods, eng, superkernel):
+    """(decode-step oracle, what it is) of the engine's path."""
+    if superkernel:
+        DecodeState = mods["DecodeState"]
+        return ((lambda tok, s: sk_reference_decode_step(eng, tok, s,
+                                                         DecodeState)),
+                "the segment functions over every expert")
+    return eng.reference_decode_step, "the fully-resident reference"
+
+
+def tier_oracles(torch, np, mods, eng, tag, run, reqs, srv, prompts, base,
+                 superkernel):
+    """A tiered run of a phase 5-7 config held to that phase's rules: one
+    prompt single-stream through the slot path bitwise equal to the path's
+    oracle (its experts read from the shards); every served stream equal to
+    the pre-staged run's token for token, or parting only where this run's
+    top two logits lie within NEAR_TIE (the serving loop reads the wall
+    clock), and every parted stream held by the rules of phases 5-7."""
+    step_ref, what = path_oracle(mods, eng, superkernel)
+    prompt = prompts[0][None, :]
+    lg, s_slot = eng.prefill(prompt)
+    lr, s_ref = eng.reference_prefill(prompt)
+    worst = float((lg - lr).abs().max())
+    for _ in range(TIER_ORACLE_STEPS):
+        tok = lr.argmax(-1)
+        lg, s_slot = eng.decode_step(tok, s_slot)
+        lr, s_ref = step_ref(tok, s_ref)
+        worst = max(worst, float((lg - lr).abs().max()))
+    check(worst == 0.0, f"[{tag}] slot path through the tier differs from "
+                        f"{what}: max |dlogit| {worst}")
+    log(f"oracle [{tag}]: single-stream slot path through the tier bitwise "
+        f"equal to {what} (experts read from the shards) over prefill + "
+        f"{TIER_ORACLE_STEPS} decode steps")
+    partings = []
+    for r, want in zip(reqs, base["outputs"]):
+        got = list(r.output)
+        if got == want:
+            continue
+        step = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+        row = np.sort(srv.logits_trace[r.request_id][step].reshape(-1))
+        gap = float(row[-1] - row[-2])
+        check(gap <= NEAR_TIE, f"[{tag}] request {r.request_id} parts from "
+                               f"the pre-staged run at step {step} with a "
+                               f"top-2 gap of {gap}")
+        partings.append((r.request_id, step, gap))
+    run["partings_from_prestaged"] = partings
+    log(f"oracle [{tag}]: served streams against the pre-staged run's: "
+        f"{len(partings)} of {len(reqs)} part (request, step, top-2 gap: "
+        f"{partings})")
+    if partings:
+        ids = {rid for rid, _, _ in partings}
+        sel = [(r, p) for r, p in zip(reqs, prompts) if r.request_id in ids]
+        hold_streams(torch, np, mods, eng, [r for r, _ in sel],
+                     [p for _, p in sel], eng.reference_prefill, step_ref,
+                     what, tag, run)
+    eng.drop_resident_experts()
+
+
+def _terminate(signum, frame):
+    raise SystemExit(128 + signum)
+
+
+def tier_phase(torch, np, mods, serving, launches):
+    """Phase 12: the disk tier (see the module docstring)."""
+    import shutil
+    import signal
+    import tempfile
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_shards_"))
+    runs = {"shard_dir": str(root), "mount": mount_of(root)}
+    log(f"tier: shards under {root} ({runs['mount']}, "
+        f"{shutil.disk_usage(root).free / 1e9:.1f} GB free)")
+    written = 0                  # bytes written to the disk in this phase
+    gc.collect()                 # the last pre-staged engine's pinned blocks
+    torch._C._host_emptyCache()
+    _PINNED_FOR[0] = None
+    # a termination signal ends the run through the `finally` below, which
+    # removes the shards
+    old_handler = signal.signal(signal.SIGTERM, _terminate)
+    try:
+        # D.1 olmoe unfused and D.3 olmoe superkernel under corruption,
+        # on one set of shards; D.2 DeepSeek superkernel, verified
+        for arch, superkernel, verify in (
+                ("olmoe-1b-7b", False, "off"),
+                ("deepseek-v2-lite", True, "promote")):
+            cfg = model_at_depth(mods, arch)
+            sdir = str(root / arch)
+            params, secs, nbytes = export_seeded(torch, mods, cfg, sdir)
+            written += nbytes
+            if verify != "off":
+                runs["io_probe"] = io_probe(torch, mods, sdir)
+            path = "superkernel" if superkernel else "unfused"
+            tag = f"{arch} {path} monolithic tiered"
+            base = serving[f"{arch} {path} monolithic"]
+            eng, store, t_build = tier_engine(
+                torch, mods, cfg, params, sdir, superkernel=superkernel,
+                budget=store_bytes(sdir) * TIER_BUDGET_SHARE, verify=verify)
+            budget = store.model.host_budget_bytes
+            log(f"tier [{tag}]: host budget {budget / 1e9:.2f} GB of "
+                f"{store.total_expert_bytes / 1e9:.2f} GB, pool "
+                f"{store.capacity} records = {store.nbytes / 1e9:.2f} GB "
+                f"pinned, verify {store.verify}; engine {t_build:.1f} s")
+            prompts, _ = the_requests(np, mods, cfg)
+            run, reqs, srv, launches[tag] = tier_serve(
+                torch, np, mods, eng, tag, superkernel=superkernel,
+                prompts=prompts, base=base)
+            snap = run["tier_snapshot"]
+            check(snap["evictions"] > 0 and run["host_misses"] > 0,
+                  f"[{tag}] no host churn: {snap}")
+            check(run["report_tier"]["n_corrupt_detected"] == 0,
+                  f"[{tag}] corruption detected on a clean disk: {snap}")
+            tier_oracles(torch, np, mods, eng, tag, run, reqs, srv, prompts,
+                         base, superkernel)
+            run.update(export_s=secs, export_bytes=nbytes, build_s=t_build)
+            runs[tag] = run
+            store.close()
+            del eng, srv
+            release(torch)
+            if arch == "olmoe-1b-7b":
+                integrity_runs(torch, np, mods, cfg, params, sdir, runs,
+                               launches, serving)
+            del params
+            release(torch)
+            shutil.rmtree(sdir)
+        qwen_tier(torch, np, mods, root, written, runs, launches, serving)
+    finally:
+        signal.signal(signal.SIGTERM, old_handler)
+        shutil.rmtree(root, ignore_errors=True)
+    return runs
+
+
+def io_probe(torch, mods, sdir):
+    """How a verified promotion batch's bytes move best: `n` records of a
+    shard set just written and dropped from the page cache, read and
+    CRC-32'd into page-locked memory on the tier's 8 I/O threads, in 2 MiB
+    tasks whose CRCs are combined (the tier's way: `TieredExpertStore.
+    _read`) and in one task a record (one read, one zlib.crc32), each on
+    layers of its own in ABBA order; then one record alone the same two
+    ways. Every CRC must equal its manifest's. Returns the seconds."""
+    import zlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.core import expert_tiers as et
+    rd = et.ExpertShardReader(sdir)
+    rec, layers = rd.record_nbytes(0), rd.layers()
+    n = min(IO_PROBE_RECORDS, rd.num_experts(0))
+    buf = torch.empty((n, rec), dtype=torch.uint8, pin_memory=True).numpy()
+    spans = [(lo, min(rec, lo + et.READ_CHUNK))
+             for lo in range(0, rec, et.READ_CHUNK)]
+
+    def chunk(layer, e, lo, hi):
+        rd.read_into(layer, e, buf[e, lo:hi], lo)
+        return zlib.crc32(buf[e, lo:hi])
+
+    def record(layer, e):
+        rd.read_into(layer, e, buf[e])
+        return zlib.crc32(buf[e])
+
+    def chunked(ex, layer, count):
+        futs = [[ex.submit(chunk, layer, e, lo, hi) for lo, hi in spans]
+                for e in range(count)]
+        return [et.chunked_crc32((f.result(), hi - lo)
+                                 for f, (lo, hi) in zip(fs, spans))
+                for fs in futs]
+
+    def per_record(ex, layer, count):
+        return list(ex.map(lambda e: record(layer, e), range(count)))
+
+    out = {"chunked": [], "per_record": [], "chunked_1": [],
+           "per_record_1": []}
+    with ThreadPoolExecutor(et.IO_THREADS) as ex:
+        order = [("chunked", chunked, n), ("per_record", per_record, n),
+                 ("per_record", per_record, n), ("chunked", chunked, n),
+                 ("chunked_1", chunked, 1), ("per_record_1", per_record, 1),
+                 ("per_record_1", per_record, 1), ("chunked_1", chunked, 1)]
+        for i, (name, fn, count) in enumerate(order):
+            layer = layers[i % len(layers)]
+            t0 = time.perf_counter()
+            got = fn(ex, layer, count)
+            out[name].append(time.perf_counter() - t0)
+            want = [rd.record_crc(layer, e) for e in range(count)]
+            check(got == want, f"[io probe] {name} CRCs of layer {layer} "
+                               f"differ from the manifest's")
+    rd.close()
+    res = {k: statistics.mean(v) for k, v in out.items()}
+    res.update(records=n, record_bytes=rec)
+    log(f"tier [io probe]: {n} records of {rec / 1e6:.1f} MB read + CRC-32 "
+        f"on {et.IO_THREADS} threads after POSIX_FADV_DONTNEED: "
+        f"{res['chunked'] * 1e3:.1f} ms in 2 MiB tasks "
+        f"({n * rec / res['chunked'] / 1e9:.2f} GB/s), "
+        f"{res['per_record'] * 1e3:.1f} ms one task a record "
+        f"({n * rec / res['per_record'] / 1e9:.2f} GB/s); one record "
+        f"{res['chunked_1'] * 1e3:.1f} ms against "
+        f"{res['per_record_1'] * 1e3:.1f} ms")
+    return res
+
+
+def store_bytes(sdir):
+    return sum(f.stat().st_size for f in Path(sdir).glob("*.bin"))
+
+
+def integrity_runs(torch, np, mods, cfg, params, sdir, runs, launches,
+                   serving):
+    """D.3: olmoe superkernel on D.1's shards under corruption plans."""
+    FaultPlan = mods["FaultPlan"]
+    base = serving["olmoe-1b-7b superkernel monolithic"]
+    for plan, verify in (("corrupt_flaky", "scrub"),
+                         ("corrupt_disk", "promote")):
+        tag = f"olmoe-1b-7b superkernel monolithic tiered {plan}"
+        eng, store, t_build = tier_engine(
+            torch, mods, cfg, params, sdir, superkernel=True,
+            budget=store_bytes(sdir) * TIER_BUDGET_SHARE, verify=verify,
+            faults=getattr(FaultPlan, plan)(seed=0))
+        prompts, _ = the_requests(np, mods, cfg)
+        run, reqs, srv, launches[tag] = tier_serve(
+            torch, np, mods, eng, tag, superkernel=True, prompts=prompts,
+            base=base)
+        rt, g = run["report_tier"], store.guard
+        check(rt["n_corrupt_detected"] > 0,
+              f"[{tag}] no corruption detected: {rt}")
+        check(plan != "corrupt_disk" or rt["n_quarantined_experts"] > 0,
+              f"[{tag}] nothing quarantined: {rt}")
+        check(g.n_episodes == g.n_requarantined + len(g.quarantined)
+              + len(g.healing), f"[{tag}] episode invariant broken: "
+              f"{g.n_episodes} != {g.n_requarantined} + "
+              f"{len(g.quarantined)} + {len(g.healing)}")
+        bad = [k for k in g.quarantined
+               if eng.table.slot_of[k] >= 0 or store.host_resident(k)]
+        check(not bad, f"[{tag}] quarantined experts resident: {bad}")
+        run["slots_checked"] = check_slots(torch, eng, tag)
+        log(f"tier [{tag}]: every request emitted its budget; episodes "
+            f"{g.n_episodes} = {g.n_requarantined} healed + "
+            f"{len(g.quarantined)} quarantined + {len(g.healing)} open; "
+            f"all {run['slots_checked']} occupied device slots hold their "
+            f"shard records' bytes; no quarantined expert resident")
+        run["build_s"] = t_build
+        runs[tag] = run
+        store.close()
+        del eng, srv
+        release(torch)
+
+
+def qwen_tier(torch, np, mods, root, written, runs, launches, serving):
+    """D.4: qwen2-moe-57b, superkernel, from disk shards of as many of its
+    28 layers as the disk's free bytes and the run's write allowance
+    (`DISK_WRITE_LIMIT`, less the `written` bytes) hold, DISK_MARGIN to
+    spare: all of them where both have room. Its host budget is
+    QWEN_TIER_BUDGET's share of the full depth's shards (35 %)."""
+    import shutil
+    arch = "qwen2-moe-57b"
+    full = mods["get_config"](arch)
+    layer_bytes = (full.moe.num_experts * full.expert_bytes())
+    free = shutil.disk_usage(root).free
+    room = min(free, DISK_WRITE_LIMIT - written) - DISK_MARGIN
+    layers = max(0, min(full.num_layers, int(room // layer_bytes)))
+    why = ""
+    if layers < full.num_layers:
+        why = (f"{full.num_layers} layers' shards are "
+               f"{full.num_layers * layer_bytes / 1e9:.1f} GB; the shard "
+               f"disk had {free / 1e9:.1f} GB free and the run may write "
+               f"{(DISK_WRITE_LIMIT - written) / 1e9:.1f} GB more to it, "
+               f"{DISK_MARGIN / 1e9:.0f} GB to spare: {layers} layers, "
+               f"{layers * layer_bytes / 1e9:.1f} GB")
+    check(layers >= 1, f"[{arch}] the shard disk holds no layer")
+    cfg = model_at_depth(mods, arch, layers)
+    budget = QWEN_TIER_BUDGET * layers / full.num_layers
+    tag = f"{arch} superkernel monolithic tiered"
+    if why:
+        log(f"tier [{tag}]: depth cut to {layers} of {full.num_layers} "
+            f"layers: {why}")
+    sdir = str(root / arch)
+    params, secs, nbytes = export_seeded(torch, mods, cfg, sdir)
+    eng, store, t_build = tier_engine(torch, mods, cfg, params, sdir,
+                                      superkernel=True, budget=budget)
+    log(f"tier [{tag}]: {layers} layers, {nbytes / 1e9:.2f} GB of shards; "
+        f"host budget {budget / 2**30:.2f} GiB = "
+        f"{store.budget_records} records "
+        f"({budget / store.total_expert_bytes:.0%}), pool "
+        f"{store.capacity} records = {store.nbytes / 1e9:.2f} GB pinned; "
+        f"slots {eng.n_slots} = {eng.n_slots * cfg.expert_bytes() / 1e9:.2f}"
+        f" GB; engine {t_build:.1f} s")
+    n_req, n_prompt, n_new = QWEN_TIER_REQUESTS
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, n_prompt)
+               for _ in range(n_req)]
+    run, reqs, srv, launches[tag] = tier_serve(
+        torch, np, mods, eng, tag, superkernel=True, prompts=prompts,
+        new_tokens=n_new, batch=n_req,
+        base=serving.get(f"{arch} superkernel monolithic"))
+    snap = run["tier_snapshot"]
+    check(run["host_misses"] > 0 and snap["promotions"] > 0
+          and snap["evictions"] > 0, f"[{tag}] no host churn: {snap}")
+    occupied = [s for s, k in enumerate(eng.table.key_of_slot)
+                if k is not None]
+    pick = sorted(np.random.default_rng(SEED).choice(
+        occupied, size=min(64, len(occupied)), replace=False).tolist())
+    run["slots_checked"] = check_slots(torch, eng, tag, pick)
+    log(f"tier [{tag}]: every request emitted its budget with finite "
+        f"logits; {run['slots_checked']} occupied device slots drawn from "
+        f"the seed hold their shard records' bytes")
+    run.update(export_s=secs, export_bytes=nbytes, build_s=t_build,
+               published_layers=full.num_layers, depth_cut_why=why or None,
+               free_disk_GB=free / 1e9)
+    runs[tag] = run
+    store.close()
+    del eng, srv, params
+    release(torch)
+    shutil.rmtree(sdir)
 
 
 def log_beside(tag, run, base):
@@ -1918,8 +2740,11 @@ def router_flip(torch, eng, moe_mod, prefill_fn, wide_step, prompt, tokens,
 
 def main(argv) -> int:
     only = None            # --kernels[=a,b]: phases 1-3 only, no result
+    disk_only = False      # --disk: phase 1 and the disk probe, no result
     for a in argv:
-        if a == "--kernels" or a.startswith("--kernels="):
+        if a == "--disk":
+            disk_only = True
+        elif a == "--kernels" or a.startswith("--kernels="):
             only = [n for n in a.partition("=")[2].split(",") if n]
             bad = set(only) - set(KERNELS)
             if bad:
@@ -1951,6 +2776,13 @@ def main(argv) -> int:
     log(smi[0])
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    if disk_only:
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_disk.json").write_text(json.dumps(
+            {"gpu": smi[0], "disk": disk_probe(np)}, indent=1))
+        log("--disk: phases 2-12 skipped, no result")
+        return 0
 
     # ---- phase 2: build ------------------------------------------------------
     from repro_torch.kernels import build
@@ -1987,7 +2819,7 @@ def main(argv) -> int:
         out_dir.mkdir(exist_ok=True)
         (out_dir / "chip_smoke_kernels.json").write_text(json.dumps(
             {"gpu": smi[0], "kernels": kres, "build": build_info}, indent=1))
-        log("--kernels: phases 4-11 skipped, no result")
+        log("--kernels: phases 4-12 skipped, no result")
         return 0
 
     # ---- phase 4: the kernel API, the path of topk_gating and expert_ffn ----
@@ -1996,8 +2828,13 @@ def main(argv) -> int:
     launches["kernel API"].update(api_launches)
 
     # ---- phases 5-7: serving at published widths, oracles -----------------
+    from repro_torch.core.expert_tiers import (TieredExpertStore,
+                                               export_expert_shards)
     from repro_torch.core.faults import FaultPlan
-    mods = dict(get_config=get_config, Model=Model,
+    from repro_torch.models import transformer
+    mods = dict(get_config=get_config, Model=Model, transformer=transformer,
+                TieredExpertStore=TieredExpertStore,
+                export_expert_shards=export_expert_shards,
                 SlotBufferEngine=SlotBufferEngine, DecodeState=DecodeState,
                 Request=Request, ServingEngine=ServingEngine,
                 EngineServingConfig=EngineServingConfig, FaultPlan=FaultPlan,
@@ -2014,22 +2851,29 @@ def main(argv) -> int:
         release(torch)
         log(f"[{tag}] done at {time.perf_counter() - t_start:.1f} s")
 
+    # Runs of one config follow each other (the monolithic runs, their
+    # cache-aware runs, then the chunked runs at their cut depth), so that
+    # each config's experts are pinned once (`build_engine`).
     for arch in ARCHS:
         for superkernel in (False, True):
             path = "superkernel" if superkernel else "unfused"
             run(f"{arch} {path} monolithic", arch=arch,
                 superkernel=superkernel, chunk=0)
+        # §3.4 cache-aware routing (phase 8): the monolithic runs again at
+        # route bias ROUTE_BIAS, each beside its bias-off run of this call
+        for superkernel in BIASED[arch]:
+            base = f"{arch} {'superkernel' if superkernel else 'unfused'} " \
+                   f"monolithic"
+            run(f"{base} bias {ROUTE_BIAS}", arch=arch,
+                superkernel=superkernel, chunk=0, route_bias=ROUTE_BIAS,
+                base=serving[base])
+        for superkernel in (False, True):
+            path = "superkernel" if superkernel else "unfused"
+            layers, why = CHUNKED_DEPTH.get(arch, (None, ""))
             run(f"{arch} {path} chunked", arch=arch, superkernel=superkernel,
-                chunk=CHUNK,
-                mono_outputs=serving[f"{arch} {path} monolithic"]["outputs"])
-    # §3.4 cache-aware routing: the monolithic runs again at route bias
-    # ROUTE_BIAS, each beside its bias-off run of this call
-    for arch, superkernel in (("olmoe-1b-7b", False), ("olmoe-1b-7b", True),
-                              ("deepseek-v2-lite", True)):
-        base = f"{arch} {'superkernel' if superkernel else 'unfused'} " \
-               f"monolithic"
-        run(f"{base} bias {ROUTE_BIAS}", arch=arch, superkernel=superkernel,
-            chunk=0, route_bias=ROUTE_BIAS, base=serving[base])
+                chunk=CHUNK, layers=layers, why_cut=why,
+                mono_outputs=None if layers else
+                serving[f"{arch} {path} monolithic"]["outputs"])
 
     # ---- phase 10: the reference's Qwen MoE configs ------------------------
     for arch, superkernel, chunk in QWEN_RUNS:
@@ -2042,8 +2886,13 @@ def main(argv) -> int:
     # ---- phase 11: faults and graceful degradation --------------------------
     fault_runs = faults_phase(torch, np, mods, serving, launches)
     log(f"faults done at {time.perf_counter() - t_start:.1f} s")
+
+    # ---- phase 12: the disk tier and expert integrity -----------------------
+    tier_runs = tier_phase(torch, np, mods, serving, launches)
+    log(f"tier done at {time.perf_counter() - t_start:.1f} s")
     for r in serving.values():
         r.pop("_oracle_rows", None)
+    teardown(torch)
 
     src = "src/repro_torch/kernels/csrc/"
     # (kernel, source, TPU kernel it replaces, the shape whose times head
@@ -2078,7 +2927,8 @@ def main(argv) -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"gpu": smi[0], "kernels": kernels["kernels"], "serving": serving,
-         "faults": fault_runs, "kernel_api_max_abs_err": api_errs,
+         "faults": fault_runs, "tier": tier_runs,
+         "kernel_api_max_abs_err": api_errs,
          "total_s": time.perf_counter() - t_start}, indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(kernels))
@@ -2089,4 +2939,12 @@ def main(argv) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    adopt_orphans()
+    try:
+        rc = main(sys.argv[1:])
+    finally:
+        left = stop_children()
+        if left:
+            print(f"chip_smoke: stopped processes it had left running: "
+                  f"{left}", file=sys.stderr, flush=True)
+    sys.exit(rc)

@@ -27,9 +27,9 @@ a decision drawn from the plan before any copy is issued, never a caught
 CUDA error: a real launch or copy error still raises.
 
 The port's own copy of the reference's module, draw for draw. The disk
-and corrupt scopes have no caller in the port until its tiered expert
-store; they are kept, and held against the reference, so that the store
-finds them as the reference's does.
+and corrupt scopes are the tiered expert store's (`core.expert_tiers`,
+through `disk_view`): its disk link's faults and the bytes its checks
+see flipped.
 """
 from __future__ import annotations
 
@@ -324,11 +324,8 @@ class FaultInjector:
     # --------------------------------------------------------- disk scope
     # Same machinery as the device link, on salts 3/4/5 so the two links'
     # draws are independent: one plan can fail a transfer on disk but not
-    # PCIe for the same (key, attempt), and vice versa.
-    # Parity-only: nothing in the port calls this scope, the corruption
-    # draws or `_DiskFaultView` until the tiered expert store takes them
-    # (ROADMAP.md queue 1, item 5); tests/test_torch_faults.py holds them
-    # against the reference meanwhile.
+    # PCIe for the same (key, attempt), and vice versa. The tiered expert
+    # store takes this scope and the corruption draws through `disk_view`.
     def disk_transfer_fails(self, key, now: float) -> bool:
         attempt = self._next_attempt(3, key)
         if _in_window(self.plan.disk_outage, now):

@@ -139,6 +139,9 @@ class SlotPathStats:
     retries: int = 0           # demand swap-in retry attempts
     degraded_steps: int = 0    # decode steps in degraded mode (resident-only
                                # routing engaged or watchdog tripped)
+    host_hits: int = 0         # demanded experts already staged in host tier
+    host_misses: int = 0       # demanded experts promoted disk->host first
+    disk_stall_s: float = 0.0  # exposed disk-link stall (link-clock units)
 
     def snapshot(self) -> Dict[str, float]:
         return dataclasses.asdict(self)
@@ -213,7 +216,11 @@ class SlotBufferEngine:
     degraded routing (the residency bias at no less than
     `degraded_route_bias` until `degraded_recover_streak` clean demand
     transfers in a row) and a `StepWatchdog` that collapses the
-    speculative horizon to 0 while tripped. `device` defaults to CUDA;
+    speculative horizon to 0 while tripped. `store` (a
+    `core.expert_tiers.TieredExpertStore`) serves the experts from disk
+    shards through its byte-budgeted host tier instead of a pre-staged
+    host store; the params' MoE layers then need no experts, and the
+    oracles read the shards. `device` defaults to CUDA;
     without CUDA the engine raises unless the caller passes
     ``device="cpu"``."""
 
@@ -227,7 +234,7 @@ class SlotBufferEngine:
                  degraded_route_bias: float = 4.0,
                  degraded_recover_streak: int = 8,
                  watchdog: Optional[StepWatchdog] = None,
-                 device="cuda"):
+                 store: Optional[Any] = None, device="cuda"):
         assert cfg.moe is not None
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -245,16 +252,30 @@ class SlotBufferEngine:
         self._dispatch = Dispatcher(self.stats)
         self.use_superkernel = use_superkernel
         self._sk_segs: Optional[Tuple[List[List[int]], List[int]]] = None
-        # experts live in the host store (pinned on CUDA); everything else
-        # moves to the device once
-        self.store = HostExpertStore(pin=self.device.type == "cuda")
+        # experts live in the host store (pinned on CUDA), or in a
+        # caller's TieredExpertStore (core.expert_tiers) whose host
+        # residency the demand/prefetch paths guarantee first: its params
+        # need not carry the experts. Everything else moves to the device
+        # once.
+        self.tiers = store if hasattr(store, "demand_host") else None
+        if store is None:
+            self.store = HostExpertStore(pin=self.device.type == "cuda")
+        else:
+            self.store = store
+            if self.tiers is not None:
+                tm = self.tiers.model
+                assert (tm.L, tm.E) == (L, E), (
+                    f"shard store shape ({tm.L},{tm.E}) != model ({L},{E})")
+                self.tiers.attach(self.n_slots,
+                                  pin_memory=self.device.type == "cuda")
         self._p: List[Dict[str, Any]] = []
         for i, lp in enumerate(params["layers"]):
             lp = dict(lp)
             if self.specs[i].is_moe:
                 moe = lp["moe"]
-                self.store.add_layer(self.moe_layer_ids.index(i),
-                                     *(moe[k] for k in _EXPERT_KEYS))
+                if store is None:
+                    self.store.add_layer(self.moe_layer_ids.index(i),
+                                         *(moe[k] for k in _EXPERT_KEYS))
                 lp["moe"] = {k: v for k, v in moe.items()
                              if k not in _EXPERT_KEYS}
             self._p.append(_to_device(lp, self.device))
@@ -316,13 +337,21 @@ class SlotBufferEngine:
         self.degraded_recover_streak = int(degraded_recover_streak)
         self._degraded = False
         self._fault_ok_streak = 0
+        # tiered store: share the adaptive controller (its layer-time /
+        # stall signals size the disk horizon S_disk) and the fault plan's
+        # disk scope (independent draws from the device link's)
+        if self.tiers is not None:
+            if self.tiers.model.controller is None:
+                self.tiers.model.controller = self.controller
+            if self.faults is not None:
+                self.tiers.set_faults(self.faults, retry_max=self.retry_max)
         # asynchronous swap-ins (CUDA): the copy stream, the copy-end event
         # each slot's FFN readers must wait on, and timing events not read yet
         self._copy_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
         self._slot_ready: Dict[int, Any] = {}
         self._copy_timers: List[Tuple[Any, Any, float]] = []
-        self._resident: Optional[List[Dict[str, torch.Tensor]]] = None
+        self._resident: Dict[int, Dict[str, torch.Tensor]] = {}
 
     # -- per-layer functions -------------------------------------------------
     def _embed(self, tokens: torch.Tensor):
@@ -427,19 +456,22 @@ class SlotBufferEngine:
 
     def _full_experts(self, li: int) -> Dict[str, torch.Tensor]:
         """All of MoE layer li's experts on the device (the oracle's
-        weights). On CUDA the first call copies every layer from the host
-        store; `drop_resident_experts` frees them."""
-        if self.device.type == "cpu":
+        weights), copied from the host store at a layer's first call (on
+        the CPU the store's own tensors); `drop_resident_experts` frees
+        them. A tiered store's come from its shards through its reader,
+        never through the host tier, so the oracle does not depend on the
+        tier's residency."""
+        if self.tiers is None and self.device.type == "cpu":
             return dict(zip(_EXPERT_KEYS, self.store.layer(li)))
-        if self._resident is None:
-            self._resident = [
-                {k: w.to(self.device) for k, w in
-                 zip(_EXPERT_KEYS, self.store.layer(j))}
-                for j in range(len(self.moe_layer_ids))]
+        if li not in self._resident:
+            ws = (self.tiers.reader.read_layer(li) if self.tiers is not None
+                  else self.store.layer(li))
+            self._resident[li] = {k: w.to(self.device)
+                                  for k, w in zip(_EXPERT_KEYS, ws)}
         return self._resident[li]
 
     def drop_resident_experts(self) -> None:
-        self._resident = None
+        self._resident = {}
 
     # -- asynchronous swap-ins -------------------------------------------------
     def _wait_slots(self, slot_map: np.ndarray, fused: bool = False) -> None:
@@ -478,6 +510,9 @@ class SlotBufferEngine:
         for s in slots:
             self._slot_ready[s] = timing[1]
         self._copy_timers.append((timing[0], timing[1], nbytes))
+        if self.tiers is not None:
+            # the host records these copies read stay until they end
+            self.tiers.note_copies(keys, timing[1])
 
     def _note_copy(self, nbytes: float, seconds: float) -> None:
         self.stats.copy_s += seconds
@@ -509,9 +544,61 @@ class SlotBufferEngine:
         self._read_copy_timers()
 
     def _advance_clock(self) -> None:
-        """One virtual link-clock tick per MoE-layer dispatch."""
+        """One virtual link-clock tick per MoE-layer dispatch: the device
+        prefetcher lands arrivals; with a tiered store the disk link lands
+        promotions, the popularity-driven S_disk prefetcher issues the
+        next disk window, and the integrity scrubber (when configured)
+        spends its idle-paced budget re-verifying host-resident copies."""
         self._clock += 1.0
         self.prefetcher.advance(self._clock)
+        if self.tiers is not None:
+            self.tiers.advance(self._clock)
+            n_moe = max(len(self.moe_layer_ids), 1)
+            self.tiers.auto_prefetch(self._clock, int(self._clock) % n_moe)
+            self.tiers.scrub_tick(self._clock)
+
+    # -- host tier (core.expert_tiers) ---------------------------------------
+    def _tier_demand(self, key: Tuple[int, int]) -> bool:
+        """Guarantee host-tier residency for a demanded expert (always True
+        on a pre-staged store). A host miss blocks on the disk link and
+        records a stall just like a device miss; returns False only when
+        injected disk faults defeat every retry (or the expert is
+        quarantined) — the caller then drops the expert's tokens and
+        degrades (never deadlocks)."""
+        if self.tiers is None:
+            return True
+        r = self.tiers.demand_host(key, self._clock)
+        if r is None:
+            self.stats.host_misses += 1
+            self._enter_degraded()
+            return False
+        stall, was_hit = r
+        if was_hit:
+            self.stats.host_hits += 1
+        else:
+            self.stats.host_misses += 1
+            self.stats.disk_stall_s += stall
+        return True
+
+    def _tier_ready(self, key: Tuple[int, int]) -> bool:
+        """Speculative fills only proceed for host-resident experts; a
+        host-absent key queues a disk->host promotion instead of blocking
+        the window."""
+        if self.tiers is None:
+            return True
+        if self.tiers.host_resident(key):
+            return True
+        self.tiers.request_host(key, self._clock)
+        return False
+
+    def integrity_counters(self) -> Dict[str, float]:
+        """The tier's integrity-guard health counters (zeros without a
+        tiered store), which `ServingEngine` mirrors into the
+        `ServingReport`."""
+        if self.tiers is None:
+            return dict(n_corrupt_detected=0, n_requarantined=0,
+                        n_scrubbed=0, n_quarantined_experts=0)
+        return self.tiers.guard.counters()
 
     # -- faults ----------------------------------------------------------------
     def _fault_transfer_ok(self, key: Tuple[int, int], *,
@@ -584,6 +671,11 @@ class SlotBufferEngine:
         prediction accounting is deferred to `_settle_prediction` when the
         layer's actual routing is verified."""
         keys = [(li, int(e)) for e in experts]
+        if self.tiers is not None and not speculative:
+            # host-tier demand-size EWMA: the n_e term of S_disk
+            self.tiers.note_layer_demand(len(keys))
+            # the bytes of this batch's likely promotions start moving now
+            self.tiers.read_ahead([k for k in keys if k not in self.cache])
         for key in keys:
             self.cache.pin(key)
         missing: List[Tuple[int, int]] = []
@@ -591,6 +683,8 @@ class SlotBufferEngine:
         try:
             for key in keys:
                 if self.cache.touch(key):
+                    if self.tiers is not None and not speculative:
+                        self.tiers.note_access(key)
                     if not speculative and key in self._prefetch_pending:
                         self._prefetch_pending.discard(key)
                         self._settle_hit(
@@ -604,9 +698,18 @@ class SlotBufferEngine:
                         # this step, its tokens drop through the dead slot
                         # (as on capacity overflow) and routing degrades
                         continue
+                    if not self._tier_demand(key):
+                        # the disk link defeated the promotion: degrade
+                        # exactly like an exhausted device demand above
+                        continue
                     self.prefetcher.demand(key, self._clock)
-                elif not self._fault_transfer_ok(key, demand=False):
-                    continue
+                else:
+                    if not self._fault_transfer_ok(key, demand=False):
+                        continue
+                    if not self._tier_ready(key):
+                        # speculative fills never block on the disk: the
+                        # promotion is queued, a later window takes it
+                        continue
                 try:
                     victim = self.cache.insert(key)
                 except RuntimeError:     # every resident expert is needed NOW
@@ -620,6 +723,9 @@ class SlotBufferEngine:
                 if victim is not None:
                     self._evict(victim)
                 slots.append(self.table.assign(li, key[1]))
+                if self.tiers is not None:
+                    # slot residency pins the host copy
+                    self.tiers.pin(key)
                 missing.append(key)
         finally:
             for key in keys:
@@ -644,6 +750,8 @@ class SlotBufferEngine:
         controller's overfetch signal — unless its layer is mid-window, in
         which case verification settles it."""
         self.table.release(*victim)
+        if self.tiers is not None:
+            self.tiers.unpin(victim)
         self.stats.evictions += 1
         deferred = False
         if victim in self._prefetch_pending:
@@ -667,6 +775,11 @@ class SlotBufferEngine:
         never the high tier holding demand residency. Returns #issued."""
         slots: List[int] = []
         issued: List[Tuple[int, int]] = []
+        if self.tiers is not None:
+            # predictor output feeds the disk tier's popularity stats even
+            # for keys the device window cannot take this round
+            self.tiers.note_predicted(
+                [(li, int(e)) for li, experts in plan for e in experts])
         try:
             for li, experts in plan:
                 stop = False
@@ -676,6 +789,8 @@ class SlotBufferEngine:
                         continue
                     if not self._fault_transfer_ok(key, demand=False):
                         continue     # a failed speculative fill: skip it
+                    if not self._tier_ready(key):
+                        continue     # host-absent: promotion queued instead
                     if self.cache.free_slots <= 0 and not any(
                             k not in self.cache.pinned
                             for k in self.cache.low):
@@ -689,6 +804,8 @@ class SlotBufferEngine:
                     self.cache.pin(key)
                     issued.append(key)
                     slots.append(self.table.assign(li, int(e)))
+                    if self.tiers is not None:
+                        self.tiers.pin(key)
                     self._prefetch_pending.add(key)
                 if stop:
                     break

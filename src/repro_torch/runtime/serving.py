@@ -244,6 +244,10 @@ class ServingEngine:
         failures0 = eng.stats.link_failures
         retries0 = eng.stats.retries
         degraded0 = eng.stats.degraded_steps
+        host_hits0 = eng.stats.host_hits
+        host_misses0 = eng.stats.host_misses
+        disk_stall0 = eng.stats.disk_stall_s
+        integ0 = eng.integrity_counters()
         self._t0 = time.perf_counter()
         it = 0
 
@@ -329,4 +333,12 @@ class ServingEngine:
         report.n_retries = eng.stats.retries - retries0
         report.n_degraded_steps = eng.stats.degraded_steps - degraded0
         report.n_shed = self.batcher.stats.shed
+        report.n_host_hits = eng.stats.host_hits - host_hits0
+        report.n_host_misses = eng.stats.host_misses - host_misses0
+        report.disk_stall_s = eng.stats.disk_stall_s - disk_stall0
+        integ = eng.integrity_counters()
+        for k in ("n_corrupt_detected", "n_requarantined", "n_scrubbed"):
+            setattr(report, k, int(integ[k] - integ0[k]))
+        # quarantine is permanent: report the gauge, not a diff
+        report.n_quarantined_experts = int(integ["n_quarantined_experts"])
         return report

@@ -1023,3 +1023,93 @@ def test_fused_moe_entry_with_an_empty_work_list(gen, arch):
     assert not y.any() and not g.any() and not yr.any()
     assert torch.equal(i, ir)
     assert torch.equal(out, moe._add_shared(params, x, torch.zeros_like(x)))
+
+
+# ---------------------------------------------------------------------------
+# the disk tier: page-locked pool, record reuse, engine through the tier
+# ---------------------------------------------------------------------------
+
+def _olmoe_shards(gen, tmp_path, slots=4, **kw):
+    from repro_torch.core.expert_tiers import export_expert_shards
+    cfg = get_smoke_config("olmoe-1b-7b")
+    model = Model(cfg)
+    params = model.init(gen, device="cuda")
+    eng = SlotBufferEngine(cfg, params, model, n_slots_per_layer=slots,
+                           use_kernel=True, **kw)
+    return cfg, model, params, eng, export_expert_shards(
+        eng.store, str(tmp_path / "shards"))
+
+
+def test_tier_pool_records_are_page_locked(gen, tmp_path):
+    from repro_torch.core.expert_tiers import TieredExpertStore
+    *_, sdir = _olmoe_shards(gen, tmp_path)
+    store = TieredExpertStore(sdir)
+    store.attach(n_pins=8, pin_memory=True)
+    assert store._blocks and all(b.is_pinned() for b in store._blocks)
+    assert all(r.is_pinned() for r in store._records)
+    assert store.demand_host((1, 3), 0.0) is not None
+    assert all(w.is_pinned() for w in store.expert(1, 3))
+    store.close()
+
+
+def test_record_refilled_while_a_copy_from_it_is_queued(gen, tmp_path,
+                                                       monkeypatch):
+    """A host record dropped and refilled from disk while a host->device
+    copy from it is still queued: the slot ends up with the first record's
+    bytes (the refill waits for the copy's end event). No read-ahead
+    spares, so the refill takes the dropped record."""
+    from repro_torch.core import expert_tiers
+    from repro_torch.core.expert_buffer import make_buffer, swap_in_many
+    from repro_torch.core.expert_tiers import TieredExpertStore
+    monkeypatch.setattr(expert_tiers, "READ_AHEAD", 0)
+    cfg, *_, sdir = _olmoe_shards(gen, tmp_path)
+    store = TieredExpertStore(sdir, host_budget_bytes=TieredExpertStore(
+        sdir).expert_nbytes)
+    store.attach(n_pins=0, pin_memory=True)
+    assert store.capacity == 2
+    a, b = (0, 1), (0, 2)
+    assert store.demand_host(a, 0.0) is not None
+    want = [w.clone() for w in store.expert(*a)]
+    buf = make_buffer(cfg, 1, torch.bfloat16, "cuda")
+    copy_stream = torch.cuda.Stream()
+    torch.cuda._sleep(int(1e9))          # the copy waits behind this
+    _, end = swap_in_many(buf, [0], store, [a], copy_stream)
+    store.note_copies([a], end)
+    assert not end.query(), "the copy ran before the record was refilled"
+    assert store.demand_host(b, 1.0) is not None     # evicts a, reuses
+    assert not store.host_resident(a)
+    refilled = store.expert(*b)
+    torch.cuda.synchronize()
+    for name, w in zip(("w_gate", "w_up", "w_down"), want):
+        assert torch.equal(buf[name][0].cpu(), w)
+    assert not torch.equal(refilled[0], want[0])
+    store.close()
+
+
+@pytest.mark.parametrize("superkernel", [False, True])
+def test_tiered_engine_bitwise_to_prestaged_on_the_card(gen, tmp_path,
+                                                        superkernel):
+    from repro_torch.core.expert_tiers import TieredExpertStore
+    cfg, model, params, staged, sdir = _olmoe_shards(
+        gen, tmp_path, use_superkernel=superkernel, step_size=1)
+    store = TieredExpertStore(sdir, host_budget_bytes=0.5 * TieredExpertStore(
+        sdir).total_expert_bytes)
+    eng = SlotBufferEngine(cfg, params, model, n_slots_per_layer=4,
+                           use_kernel=True, use_superkernel=superkernel,
+                           step_size=1, store=store)
+    rng = np.random.default_rng(0)
+    for _ in range(2):
+        prompt = rng.integers(0, cfg.vocab_size, (2, 9))
+        lg, st = eng.prefill(prompt)
+        lr, sr = staged.prefill(prompt)
+        assert torch.equal(lg, lr)
+        tok = lr.argmax(-1)
+        for _ in range(8):
+            lg, st = eng.decode_step(tok, st)
+            lr, sr = staged.decode_step(tok, sr)
+            assert torch.equal(lg, lr)
+            tok = lr.argmax(-1)
+    eng.synchronize()
+    assert store.snapshot()["evictions"] > 0
+    assert eng.stats.host_misses > 0 and eng.stats.copy_s > 0
+    store.close()

@@ -1,7 +1,10 @@
 """The port stands alone: no module of it (nor the card's smoke script)
-imports JAX or the reference package, and its entry points run on CUDA
-unless the caller asks for the CPU."""
+imports JAX or the reference package, nor any third-party package but
+torch and numpy (the card's machine has no other: no `ml_dtypes`, no
+`safetensors`), and its entry points run on CUDA unless the caller asks
+for the CPU."""
 import ast
+import sys
 from pathlib import Path
 
 import pytest
@@ -38,6 +41,20 @@ FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
 def test_no_jax_or_reference_imports(path):
     bad = [n for n in _imports(path) if _forbidden(n)]
     assert not bad, f"{path.name} imports {bad}"
+
+
+ALLOWED = {"repro_torch", "torch", "numpy"}
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_imports_only_torch_numpy_and_the_standard_library(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    relative = [n.module for n in ast.walk(tree)
+                if isinstance(n, ast.ImportFrom) and n.level]
+    assert not relative, f"{path.name} has relative imports {relative}"
+    bad = sorted({n.split(".")[0] for n in _imports(path)}
+                 - ALLOWED - set(sys.stdlib_module_names))
+    assert not bad, f"{path.name} imports third-party packages {bad}"
 
 
 def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
