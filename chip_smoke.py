@@ -174,12 +174,13 @@ the last line:
    TTFT / TPOT p50 and swapped GB beside the pre-staged run of its config
    and path in this call:
    - olmoe-1b-7b unfused and DeepSeek-V2-Lite superkernel (`verify=
-     "promote"`), monolithic, full depth, phase 5's traffic, a host budget
-     of a third of the shards: host evictions, no corruption detected, one
-     prompt single-stream (prefill + 16 decode steps) bitwise equal to the
-     path's oracle (its experts read from the shards), every served
-     stream equal to the pre-staged run's or parting only at a near-tie of
-     this run's top two logits (and then held by the rules of phases 5-7);
+     "promote"`; at 9 of 27 layers, `TIER_DEPTH`), monolithic, phase 5's
+     traffic, a host budget of a third of the shards: host evictions, no
+     corruption detected, one prompt single-stream (prefill + 16 decode
+     steps) bitwise equal to the path's oracle (its experts read from the
+     shards), every served stream equal to the pre-staged run's or parting
+     only at a near-tie of this run's top two logits (and then held by the
+     rules of phases 5-7; a cut run's streams by those rules alone);
    - before DeepSeek's run, `io_probe`: a verified promotion batch's
      records read and CRC-32'd in the tier's 2 MiB tasks against one task
      a record, every CRC equal to its manifest's;
@@ -197,6 +198,39 @@ the last line:
      tokens at batch 2: every budget, finite logits, host misses,
      promotions and evictions, and up to 64 occupied slots drawn from the
      seed holding their shard records' bytes;
+13. the adaptive horizon's knobs, trace collection, the forest, the
+   simulators and the serving CLI (`runtime/engine.py`'s `Engine` and
+   `SlotBufferEngine(prefetch=, link_bandwidth=, controller=)`,
+   `core/{trace,forest,predictor,coordinator}.py`, `simulator/`,
+   `launch/serve.py`):
+   - (c) `Engine(get_config("olmoe-1b-7b"))` on the card, the whole model
+     resident (the reference's plain grouped MoE: no kernel), collects the
+     traces of `make_workload("poisson", 8, seed=0, mean_decode=16)` (the
+     serving CLI's recipe, at most 16 steps a request): every step records
+     16 MoE layers of ids in [0, 64), and a rerun of request 0 gives the
+     same ids and tokens bitwise. `ForestPredictor` fits the first
+     `FOREST_REQUESTS` requests' samples in a process of its own (numpy
+     on the host) while the card runs (a), (b), (d) and (e); then
+     `simulate_serving` replays all 8 traces under `baseline`,
+     `pregate_fixed(2)`, `promoe_like(2)` and `expertflow()` on
+     `PLATFORMS["h100"]` (16 slots a layer, batch 4), printing each
+     policy's modeled stall, TTFT, TPOT, hit rate and occupancy;
+   - (a) olmoe-1b-7b superkernel, monolithic, phase 5's traffic, with
+     `prefetch=False`: the no-prefetch baseline, nothing prefetched and no
+     layer run speculatively (a segment that finds a routed expert absent
+     still replays: routing runs inside it), held to phase 5's oracles
+     and printed beside phase 5's prefetch-on run;
+   - (b) one stream of prefill + 16 decode steps on the superkernel path
+     with the reference test's controller (stall threshold 40, no capacity
+     guard), a starved link (`link_bandwidth=1.0`) against a fast one
+     (64e9): final S, its history and the late hits, every step's logits
+     bitwise the path's oracle;
+   - (d) `Engine` on the olmoe and DeepSeek smoke configs on the card
+     against the same params on the CPU: ids equal until a router
+     near-tie, tokens until such a parting or a top-two near-tie;
+   - (e) `launch/serve.py`'s `main` in process, `--backend engine` and
+     `--backend sim` on `--platform h100` (the default arch's smoke
+     config): both return, with the same report keys;
 9. last, a `{"kernels": [...]}` line (per kernel: `launches` summed over
    the runs whose path runs it, the kernel API's for `topk_gating` and
    `expert_ffn`, `launches_by_path` per run; times at the shape its entry
@@ -213,9 +247,14 @@ Depth cuts (no width is cut): qwen2-moe-57b at 12 of 28 layers and
 qwen3-moe-235b-a22b at 8 of 94 in phase 10, whose experts (98.7 GB and
 454 GB) do not fit the host's memory (and qwen3's not the card's) at full
 depth; in phase 12 qwen2 at the depth the shard disk and the run's write
-allowance hold after olmoe's and DeepSeek's 41.7 GB (its 28 layers'
-shards are 98.65 GB; 1 layer under a 45 GiB allowance),
+allowance hold after olmoe's and DeepSeek's shards (its 28 layers'
+shards are 98.65 GB; 6 layers under a 45 GiB allowance after olmoe's
+12.88 GB and DeepSeek's 8.86 GB at 9 layers),
 which it prints with the free bytes and the allowance it had; so that
+the run fits its 1200 s with phase 13, phase 12's DeepSeek-V2-Lite run at
+9 of its 27 layers (`TIER_DEPTH`; its host budget still a third of its
+shards, its streams held by the rules of phases 5-7 instead of against
+the full-depth pre-staged run's); so that
 phase 12 fits the run's time, the chunked runs of phases 5-7 at 5 of
 olmoe's 16 layers and 6 of DeepSeek-V2-Lite's 27 (`CHUNKED_DEPTH`; their
 monolithic runs keep full depth, and a cut chunked run is not compared
@@ -240,6 +279,12 @@ runs phase 1 and measures the disk phase 12 writes its shards to (free
 bytes, write rate, read rates after POSIX_FADV_DONTNEED and from the page
 cache, zlib.crc32's rate on one thread and on 8) into
 `chiprun_out/chip_smoke_disk.json`, and prints no result.
+
+    python3 chip_smoke.py --horizon
+
+runs phases 1-2, phase 5's olmoe-1b-7b superkernel monolithic run (the
+prefetch-on row phase 13 prints beside its own) and phase 13, writes
+`chiprun_out/chip_smoke_horizon.json` and prints no result.
 """
 import dataclasses
 import gc
@@ -306,6 +351,14 @@ DISK_WRITE_LIMIT = 45 * 2 ** 30
 TIER_PREFETCH = False
 # decode steps of phase 12's single-stream oracle (as phases 5-7's)
 TIER_ORACLE_STEPS = 16
+# Depth cuts of phase 12's pre-staged-config runs (widths as published;
+# the host budget stays a third of the cut model's shards): arch ->
+# (layers, why). A cut run's streams are held by phases 5-7's rules
+# instead of against the full-depth pre-staged run's.
+TIER_DEPTH = {
+    "deepseek-v2-lite": (9, "the run's 1200 s: with phase 13 the run took "
+                            "1216.1 s at full depth"),
+}
 # records of the per-record against chunked read + CRC probe (phase 12)
 IO_PROBE_RECORDS = 24
 # Depth cuts of the chunked runs of phases 5-7 (widths as published), so
@@ -1552,24 +1605,28 @@ def the_requests(np, mods, cfg, seed=SEED):
 
 def serving_phase(torch, np, mods, *, arch: str, superkernel: bool,
                   chunk: int, mono_outputs=None, route_bias: float = 0.0,
-                  base=None, layers=None, why_cut=""):
+                  base=None, layers=None, why_cut="", prefetch=True):
     """One serving run: `chunk` = 0 admits monolithically, > 0 through
     chunked prefill (then `mono_outputs`, the monolithic run's served
     tokens on the same path and depth, are compared with this run's, where
     given). `route_bias` > 0 serves with §3.4 cache-aware routing at that
     strength; `base` is then the bias-off run of the same path and
     admission, whose counters and streams this run's are printed beside and
-    held against. `layers` cuts the depth (`why_cut` says why)."""
+    held against. `layers` cuts the depth (`why_cut` says why).
+    `prefetch=False` serves the no-prefetch baseline (horizon 0, no
+    pre-gate): nothing may be prefetched or run speculatively."""
     path = "superkernel" if superkernel else "unfused"
     admission = f"chunked {chunk}" if chunk else "monolithic"
     tag = f"{arch} {path} {admission}" + (f" bias {route_bias}"
-                                          if route_bias else "")
+                                          if route_bias else "") \
+        + ("" if prefetch else " prefetch off")
     cfg = model_at_depth(mods, arch, layers)
     full_depth = mods["get_config"](arch).num_layers
     torch.cuda.reset_peak_memory_stats()
     t_phase = time.perf_counter()
     eng, t_init, t_engine = build_engine(torch, mods, cfg,
-                                         superkernel=superkernel)
+                                         superkernel=superkernel,
+                                         prefetch=prefetch)
     n_moe = len(eng.moe_layer_ids)
     if cfg.num_layers != full_depth:
         log(f"serving [{tag}]: depth cut to {cfg.num_layers} of "
@@ -1665,6 +1722,10 @@ def serving_phase(torch, np, mods, *, arch: str, superkernel: bool,
     check(st.swap_experts > 0 and st.evictions > 0,
           f"[{tag}] no churn: swapped {st.swap_experts}, evicted "
           f"{st.evictions}")
+    if not prefetch:
+        check(st.prefetched == 0 and st.spec_layers == 0,
+              f"[{tag}] prefetched {st.prefetched} experts and ran "
+              f"{st.spec_layers} layers speculatively with prefetch off")
     biased_calls = rec.nonzero_calls(torch)
     check((biased_calls > 0) == bool(route_bias),
           f"[{tag}] {biased_calls} of {len(rec.biases)} routing calls saw a "
@@ -2349,6 +2410,13 @@ def tier_oracles(torch, np, mods, eng, tag, run, reqs, srv, prompts, base,
     log(f"oracle [{tag}]: single-stream slot path through the tier bitwise "
         f"equal to {what} (experts read from the shards) over prefill + "
         f"{TIER_ORACLE_STEPS} decode steps")
+    if base["layers"] != eng.cfg.num_layers:
+        # a cut run against a full-depth one: held by phases 5-7's rules
+        run["partings_from_prestaged"] = None
+        hold_streams(torch, np, mods, eng, reqs, prompts,
+                     eng.reference_prefill, step_ref, what, tag, run)
+        eng.drop_resident_experts()
+        return
     partings = []
     for r, want in zip(reqs, base["outputs"]):
         got = list(r.output)
@@ -2400,8 +2468,13 @@ def tier_phase(torch, np, mods, serving, launches):
         for arch, superkernel, verify in (
                 ("olmoe-1b-7b", False, "off"),
                 ("deepseek-v2-lite", True, "promote")):
-            cfg = model_at_depth(mods, arch)
+            layers, why = TIER_DEPTH.get(arch, (None, ""))
+            cfg = model_at_depth(mods, arch, layers)
             sdir = str(root / arch)
+            if layers is not None:
+                log(f"tier [{arch}]: depth cut to {layers} of "
+                    f"{mods['get_config'](arch).num_layers} layers ({why}); "
+                    f"widths as published")
             params, secs, nbytes = export_seeded(torch, mods, cfg, sdir)
             written += nbytes
             if verify != "off":
@@ -2738,12 +2811,411 @@ def router_flip(torch, eng, moe_mod, prefill_fn, wide_step, prompt, tokens,
     return None
 
 
+# --------------------------------------------------------------- phase 13
+
+# (b): the reference test's controller settings for the starved link
+HORIZON_CTRL = dict(capacity_guard=False, stall_threshold=40,
+                    overfetch_threshold=10 ** 9)
+HORIZON_LINKS = (("starved", 1.0), ("fast", 64e9))
+HORIZON_STEPS = 16
+# (c): the forest fits the first FOREST_REQUESTS requests' traces in a
+# process of its own while the card runs (a), (b), (d) and (e): numpy on
+# one core, it takes about a minute at olmoe's widths for 4 requests (16
+# layers, 64 experts, 1,106 features, 16 trees of depth 12) and about
+# twice that for all 8
+FOREST_REQUESTS = 4
+TRACE_REQUESTS = 8
+TRACE_NEW = 16
+FOREST_FIT = """
+import pickle, sys, time
+sys.path.insert(0, sys.argv[1])
+from repro_torch.core import FeatureSpec, ForestPredictor, TraceLog
+log = TraceLog.load(sys.argv[2])
+spec = FeatureSpec(*pickle.loads(bytes.fromhex(sys.argv[3])))
+t0 = time.perf_counter()
+forest = ForestPredictor(spec)
+mse = forest.fit(log)
+with open(sys.argv[4], "wb") as f:
+    pickle.dump((forest, mse, time.perf_counter() - t0), f)
+"""
+
+
+def collect_traces(torch, np, mods, cfg, tag):
+    """(c): `Engine` on the card, the CLI's recipe at full width: each
+    request of a poisson workload generated greedily, its prompt padded to
+    a multiple of 16; checks each step's ids and layer count, and a rerun of
+    request 0. Returns (requests, trace log of the first FOREST_REQUESTS,
+    routers, summary)."""
+    E, k = cfg.moe.num_experts, cfg.moe.top_k
+    t0 = time.perf_counter()
+    eng = mods["Engine"](cfg, generator=torch.Generator(
+        device="cuda").manual_seed(SEED), max_seq=256, device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    L = len(eng.moe_layer_ids)
+    specs = mods["make_workload"]("poisson", TRACE_REQUESTS, seed=SEED,
+                                  mean_decode=TRACE_NEW)
+    rng = np.random.default_rng(SEED)
+    reqs, logs, first = [], mods["TraceLog"](), None
+    for n in KERNELS:
+        mods[n].launches = 0
+    t0 = time.perf_counter()
+    for i, sr in enumerate(specs):
+        n_steps = max(2, min(sr.decode_len, TRACE_NEW))
+        toks = mods["pad_to_bucket"](mods["prompt_tokens"](
+            sr, cfg.vocab_size, rng))
+        out, trace, log_ = eng.generate(toks[None, :], n_steps=n_steps)
+        check(len(trace.steps) == n_steps
+              and all(len(st.assignments) == L for st in trace.steps),
+              f"[{tag}] request {i}: {len(trace.steps)} steps, layers "
+              f"{[len(st.assignments) for st in trace.steps]}")
+        check(all(a.min() >= 0 and a.max() < E and a.shape[-1] == k
+                  for st in trace.steps for a in st.assignments),
+              f"[{tag}] request {i}: expert ids outside [0, {E})")
+        if i < FOREST_REQUESTS:
+            logs.extend(log_.samples)
+        if i == 0:
+            first = (toks, out, trace)
+        reqs.append(mods["ServingRequest"](
+            prompt_len=sr.prompt_len, max_new_tokens=n_steps,
+            steps=trace.steps, arrival_s=sr.arrival_s,
+            request_id=sr.request_id, topic=sr.topic))
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    launches = counters(mods)
+    toks, out, trace = first
+    out2, trace2, _ = eng.generate(toks[None, :], n_steps=len(trace.steps))
+    same = np.array_equal(out, out2) and all(
+        np.array_equal(a, b) for s1, s2 in zip(trace.steps, trace2.steps)
+        for a, b in zip(s1.assignments, s2.assignments))
+    check(same, f"[{tag}] a rerun of request 0 gave other ids or tokens")
+    routers = eng.routers()
+    del eng
+    release(torch)
+    n_steps = sum(r.max_new_tokens for r in reqs)
+    summ = {"init_s": t_init, "generate_s": t_gen, "requests": len(reqs),
+            "decode_steps": n_steps, "samples": len(logs.samples),
+            "forest_requests": FOREST_REQUESTS, "launches": launches,
+            "prompt_tokens": [int(r.prompt_len) for r in reqs],
+            "rerun_bitwise": True}
+    log(f"trace [{tag}]: Engine at full width on the card ({t_init:.1f} s "
+        f"init): {len(reqs)} requests, {n_steps} steps of {L} MoE layers in "
+        f"{t_gen:.2f} s; ids in [0, {E}), {L} layers a step; a rerun of "
+        f"request 0 bitwise; {len(logs.samples)} samples of the first "
+        f"{FOREST_REQUESTS} requests for the forest; launches {launches}")
+    return reqs, logs, routers, summ
+
+
+def start_forest_fit(mods, logs, spec):
+    """Fit `ForestPredictor(spec)` on `logs` in a child process (numpy on
+    the host, while the card runs). Returns a function that waits for it
+    and returns (forest, mse, fit seconds)."""
+    import os
+    import pickle
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_forest_")
+    path, out = os.path.join(tmp, "trace.jsonl"), os.path.join(tmp, "f.pkl")
+    logs.save(path)
+    arg = pickle.dumps(dataclasses.astuple(spec)).hex()
+    proc = subprocess.Popen([sys.executable, "-c", FOREST_FIT, str(SRC),
+                             path, arg, out])
+
+    def wait():
+        try:
+            rc = proc.wait()
+            check(rc == 0, f"forest fit exited {rc}")
+            with open(out, "rb") as f:
+                return pickle.load(f)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            shutil.rmtree(tmp, ignore_errors=True)
+    return wait
+
+
+def horizon_links(torch, mods, cfg, prompt):
+    """(b): one stream, prefill + HORIZON_STEPS greedy decode steps on the
+    superkernel path, starved link against a fast one, each with the
+    reference test's controller: every step's logits bitwise the path's
+    oracle (teacher-forced on the slot path's tokens afterwards, so no
+    oracle launch is counted), the kernels of the path launched. Returns
+    {link: summary}."""
+    DecodeState = mods["DecodeState"]
+    out = {}
+    for name, bw in HORIZON_LINKS:
+        tag = f"{cfg.name} superkernel single-stream link {name}"
+        ctrl = mods["StepSizeController"](
+            cfg=mods["StepSizeConfig"](**HORIZON_CTRL), s=2)
+        eng, _, _ = build_engine(torch, mods, cfg, superkernel=True,
+                                 link_bandwidth=bw, controller=ctrl)
+        for n in KERNELS:
+            mods[n].launches = 0
+        t0 = time.perf_counter()
+        lg, st = eng.prefill(prompt)
+        rows, toks = [lg], []
+        for _ in range(HORIZON_STEPS):
+            tok = lg.argmax(-1)
+            toks.append(tok)
+            lg, st = eng.decode_step(tok, st)
+            rows.append(lg)
+        eng.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counters(mods)
+        on_path = on_path_kernels(cfg, True)
+        check(all(launches[n] > 0 for n in on_path)
+              and all(launches[n] == 0 for n in KERNELS if n not in on_path),
+              f"[{tag}] launches off the path's kernels: {launches}")
+        lr, sr = eng.reference_prefill(prompt)
+        worst = float((rows[0] - lr).abs().max())
+        for tok, row in zip(toks, rows[1:]):
+            lr, sr = sk_reference_decode_step(eng, tok, sr, DecodeState)
+            worst = max(worst, float((row - lr).abs().max()))
+        check(worst == 0.0, f"[{tag}] differs from the segment functions "
+                            f"over every expert: max |dlogit| {worst}")
+        s_ = eng.stats
+        out[name] = {
+            "link_bandwidth": bw, "final_s": ctrl.s,
+            "s_history": list(ctrl.s_history), "late_hits": s_.late_hits,
+            "demand_misses": s_.demand_misses,
+            "prefetch_hits": s_.prefetch_hits, "prefetched": s_.prefetched,
+            "replays": s_.replays, "spec_layers": s_.spec_layers,
+            "host_syncs": s_.host_syncs, "guard_hits": ctrl.guard_hits,
+            "wall_s": wall, "launches": launches, "oracle_bitwise": True}
+        log(f"horizon [{tag}]: final S {ctrl.s}, S history "
+            f"{ctrl.s_history}, late hits {s_.late_hits}, demand misses "
+            f"{s_.demand_misses}, prefetch hits {s_.prefetch_hits}, "
+            f"replays {s_.replays}, host syncs {s_.host_syncs} over prefill "
+            f"+ {HORIZON_STEPS} decode steps in {wall:.2f} s; bitwise the "
+            f"segment functions over every expert; launches {launches}")
+        eng.drop_resident_experts()
+        del eng
+        release(torch)
+    return out
+
+
+def engine_card_vs_cpu(torch, np, mods, arch, n_steps=8):
+    """(d): `Engine` on a smoke config on the card against the same params
+    on the CPU, one prompt of 2 rows: the recorded ids equal until a
+    router near-tie (the first parting's swapped experts within NEAR_TIE
+    of each other in the CPU's router logits), the tokens equal until
+    such a parting or a near-tie of the CPU's top two logits."""
+    cfg = mods["get_smoke_config"](arch)
+    card = mods["Engine"](cfg, generator=torch.Generator(
+        device="cuda").manual_seed(SEED), max_seq=64, device="cuda")
+    cpu = mods["Engine"](cfg, max_seq=64, device="cpu")
+    cpu.params = _tree_to(card.params, "cpu")
+    prompt = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (2, 12))
+    got = {}
+    for name, eng in (("card", card), ("cpu", cpu)):
+        seen = []
+        for fn in ("_prefill_collect", "_decode_collect"):
+            orig = getattr(eng, fn)
+
+            def hook(*a, _o=orig):
+                res = _o(*a)
+                seen.append(([p.float().cpu() for _, p in res[2]],
+                             res[0].float().cpu()))
+                return res
+            setattr(eng, fn, hook)
+        out, trace, _ = eng.generate(prompt, n_steps=n_steps)
+        got[name] = (out, trace, seen)
+    k = cfg.moe.top_k
+    (out_g, tr_g, _), (out_c, tr_c, seen_c) = got["card"], got["cpu"]
+    parted = None
+    for s in range(n_steps):
+        for li, (a, b) in enumerate(zip(tr_g.steps[s].assignments,
+                                        tr_c.steps[s].assignments)):
+            rows = [t for t in range(a.shape[0])
+                    if set(a[t].tolist()) != set(b[t].tolist())]
+            if not rows:
+                continue
+            lp = torch.log(seen_c[s][0][li][rows[0]])
+            top = lp.sort(descending=True).values
+            gap = float(top[k - 1] - top[k])
+            check(gap <= NEAR_TIE, f"[{arch} Engine] step {s} layer {li}: "
+                                   f"ids part at a router gap of {gap}")
+            parted = ("ids", s, li, gap)
+            break
+        if parted:
+            break
+        if not np.array_equal(out_g[:, s], out_c[:, s]):
+            row = seen_c[s][1][int(np.flatnonzero(out_g[:, s]
+                                                  != out_c[:, s])[0])]
+            top2 = row.topk(2).values
+            gap = float(top2[0] - top2[1])
+            check(gap <= NEAR_TIE, f"[{arch} Engine] step {s}: tokens part "
+                                   f"at a top-2 gap of {gap}")
+            parted = ("tokens", s, None, gap)
+            break
+    log(f"trace [{arch} smoke Engine]: card against the CPU over prefill + "
+        f"{n_steps - 1} decode steps: "
+        + ("every id and token equal" if parted is None else
+           f"{parted[0]} part at step {parted[1]} (layer {parted[2]}) at a "
+           f"near-tie, gap {parted[3]:.4g}; equal before it"))
+    return {"parted": parted, "steps": n_steps}
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def cli_runs(torch, mods):
+    """(e): the port's serving CLI in process, both backends on the h100
+    spec (its default arch's smoke config on the card). Returns {backend:
+    summary}."""
+    out = {}
+    for backend in ("engine", "sim"):
+        for n in KERNELS:
+            mods[n].launches = 0
+        t0 = time.perf_counter()
+        res = mods["serve_main"](["--backend", backend, "--platform", "h100",
+                                  "--device", "cuda"])
+        wall = time.perf_counter() - t0
+        reps = ([res["report"]] if backend == "engine"
+                else list(res["reports"].values()))
+        out[backend] = {"wall_s": wall, "launches": counters(mods),
+                        "keys": sorted(reps[0].summary()),
+                        "summaries": [r.summary() for r in reps]}
+        log(f"cli [{backend}]: exited in {wall:.2f} s, {len(reps)} "
+            f"report(s), launches {out[backend]['launches']}")
+        release(torch)
+    check(out["engine"]["keys"] == out["sim"]["keys"],
+          f"the CLI's backends report different keys: "
+          f"{set(out['engine']['keys']) ^ set(out['sim']['keys'])}")
+    log(f"cli: both backends exited 0 with the same "
+        f"{len(out['engine']['keys'])} report keys")
+    return out
+
+
+def horizon_phase(torch, np, mods, serving, launches):
+    """Phase 13: the adaptive horizon's knobs and the simulator on the card
+    (see the module docstring)."""
+    runs = {}
+    olmoe = model_at_depth(mods, "olmoe-1b-7b")
+    # (c) traces at full width; the forest fits while the card runs on
+    tag = "olmoe-1b-7b Engine"
+    t0 = time.perf_counter()
+    reqs, logs, routers, runs["trace"] = collect_traces(torch, np, mods,
+                                                        olmoe, tag)
+    launches[f"{tag} traces"] = runs["trace"]["launches"]
+    L, M = len(routers), olmoe.moe.num_experts
+    spec = mods["FeatureSpec"](olmoe.vocab_size, 16, L, M,
+                               include_pregate=True)
+    forest_done = start_forest_fit(mods, logs, spec)
+    # (a) the no-prefetch baseline beside phase 5's prefetch-on run
+    base = serving["olmoe-1b-7b superkernel monolithic"]
+    atag = "olmoe-1b-7b superkernel monolithic prefetch off"
+    serving[atag], launches[atag] = serving_phase(
+        torch, np, mods, arch="olmoe-1b-7b", superkernel=True, chunk=0,
+        prefetch=False)
+    release(torch)
+    a = serving[atag]
+
+    def row(r):
+        return (f"wall {r['wall_s']:.2f} s, TTFT p50 "
+                f"{r['ttft_p50_s'] * 1e3:.1f} ms, TPOT p50 "
+                f"{r['tpot_p50_s'] * 1e3:.1f} ms, swapped "
+                f"{r['swapped_bytes'] / 1e9:.2f} GB ({r['copy_s']:.2f} s, "
+                f"{r['h2d_GBps']:.2f} GB/s), demand misses "
+                f"{r['demand_misses']}, host syncs a step "
+                f"{r['host_syncs_per_decode_step']:.2f}, replays a step "
+                f"{r['replays_per_decode_step']:.2f}, prefetched "
+                f"{r['prefetched']}, speculative layers {r['spec_layers']}")
+    log(f"horizon [{atag}]: {row(a)}")
+    log(f"horizon [{atag}]: prefetch on (phase 5, same call): {row(base)}")
+    # (b) starved against fast link, one stream
+    prompts, _ = the_requests(np, mods, olmoe)
+    runs["links"] = horizon_links(torch, mods, olmoe, prompts[0][None, :])
+    for name, r in runs["links"].items():
+        launches[f"olmoe-1b-7b superkernel single-stream link {name}"] = \
+            r.pop("launches")
+    # (d) Engine on the smoke configs, card against the CPU
+    runs["engine_card_vs_cpu"] = {
+        arch: engine_card_vs_cpu(torch, np, mods, arch) for arch in ARCHS}
+    # (e) the CLI
+    runs["cli"] = cli_runs(torch, mods)
+    for backend, r in runs["cli"].items():
+        launches[f"cli {backend}"] = r["launches"]
+    # (c) the modeled policy comparison on the card's traces
+    forest, mse, fit_s = forest_done()
+    runs["forest"] = {"mse": mse, "fit_s": fit_s,
+                      "samples": len(logs.samples), "features":
+                      spec.feature_dim}
+    log(f"trace [{tag}]: forest fit on {len(logs.samples)} samples "
+        f"({spec.feature_dim} features) in {fit_s:.1f} s (its own process, "
+        f"beside the card's runs), mse {mse:.4f}")
+    hw = mods["PLATFORMS"]["h100"]
+    sim = mods["SimSpec"](
+        expert_bytes=mods["expert_bytes"](olmoe),
+        layer_time_s=mods["layer_time_decode"](olmoe, hw, 4, 64),
+        capacity_experts=16 * L)
+    wl_args = (L, M, olmoe.moe.top_k, routers)
+    runs["modeled"] = {}
+    for pol in (mods["baseline"](), mods["pregate_fixed"](2),
+                mods["promoe_like"](2), mods["expertflow"]()):
+        wl = mods["ServingWorkload"](*wl_args, reqs, model=olmoe.name,
+                                     name="poisson")
+        t1 = time.perf_counter()
+        rep = mods["simulate_serving"](wl, sim, hw, pol, forest=forest,
+                                       cfg=mods["ServingConfig"](max_batch=4))
+        s_ = rep.summary()
+        runs["modeled"][s_["policy"]] = dict(s_, sim_s=time.perf_counter()
+                                             - t1)
+        log(f"modeled [{s_['policy']}] (h100 spec, 16 slots a layer, batch "
+            f"4; not measured): stall {s_['stall_s'] * 1e3:.3f} ms, TTFT "
+            f"p50 {s_['ttft_p50_s'] * 1e3:.3f} ms, TPOT p50 "
+            f"{s_['tpot_p50_s'] * 1e3:.3f} ms, hit {s_['hit_rate']:.3f}, "
+            f"occupancy {s_['mean_occupancy']:.2f}")
+    runs["phase_s"] = time.perf_counter() - t0
+    log(f"horizon: phase 13 in {runs['phase_s']:.1f} s")
+    return runs
+
+
+def horizon_mods():
+    """The port's modules phase 13 drives, imported after the build."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import (FeatureSpec, TraceLog, baseline,
+                                  expertflow, pregate_fixed, promoe_like)
+    from repro_torch.core.step_size import (StepSizeConfig,
+                                            StepSizeController)
+    from repro_torch.data.workloads import make_workload, prompt_tokens
+    from repro_torch.launch import serve
+    from repro_torch.runtime.engine import Engine
+    from repro_torch.simulator.events import SimSpec
+    from repro_torch.simulator.hardware import (PLATFORMS, expert_bytes,
+                                                layer_time_decode)
+    from repro_torch.simulator.serving import (ServingConfig,
+                                               ServingRequest,
+                                               ServingWorkload,
+                                               simulate_serving)
+    return dict(
+        get_smoke_config=get_smoke_config, FeatureSpec=FeatureSpec,
+        TraceLog=TraceLog, baseline=baseline, expertflow=expertflow,
+        pregate_fixed=pregate_fixed, promoe_like=promoe_like,
+        StepSizeConfig=StepSizeConfig, StepSizeController=StepSizeController,
+        make_workload=make_workload, prompt_tokens=prompt_tokens,
+        pad_to_bucket=serve._pad_to_bucket, serve_main=serve.main,
+        Engine=Engine, SimSpec=SimSpec, PLATFORMS=PLATFORMS,
+        expert_bytes=expert_bytes, layer_time_decode=layer_time_decode,
+        ServingConfig=ServingConfig, ServingRequest=ServingRequest,
+        ServingWorkload=ServingWorkload, simulate_serving=simulate_serving)
+
+
 def main(argv) -> int:
     only = None            # --kernels[=a,b]: phases 1-3 only, no result
     disk_only = False      # --disk: phase 1 and the disk probe, no result
+    horizon_only = False   # --horizon: phases 1-2, 5's base and 13
     for a in argv:
         if a == "--disk":
             disk_only = True
+        elif a == "--horizon":
+            horizon_only = True
         elif a == "--kernels" or a.startswith("--kernels="):
             only = [n for n in a.partition("=")[2].split(",") if n]
             bad = set(only) - set(KERNELS)
@@ -2812,7 +3284,8 @@ def main(argv) -> int:
         "fused_mla_decode_attention": lambda: mla_phase(torch, dsk, ref, g),
         "topk_gating": lambda: topk_phase(torch, ops, ref, g, floor_lib),
         "expert_ffn": lambda: expert_ffn_phase(torch, ops, ref, g)}
-    kres = {n: phases[n]() for n in only or KERNELS}
+    kres = {n: phases[n]() for n in
+            ([] if horizon_only else only or KERNELS)}
     log(f"kernels done at {time.perf_counter() - t_start:.1f} s")
     if only is not None:
         out_dir = ROOT / "chiprun_out"
@@ -2824,8 +3297,10 @@ def main(argv) -> int:
 
     # ---- phase 4: the kernel API, the path of topk_gating and expert_ffn ----
     launches = {"kernel API": dict.fromkeys(KERNELS, 0)}
-    api_launches, api_errs = kernel_api_phase(torch, ops, ref, moe_mod, g)
-    launches["kernel API"].update(api_launches)
+    if not horizon_only:
+        api_launches, api_errs = kernel_api_phase(torch, ops, ref, moe_mod,
+                                                  g)
+        launches["kernel API"].update(api_launches)
 
     # ---- phases 5-7: serving at published widths, oracles -----------------
     from repro_torch.core.expert_tiers import (TieredExpertStore,
@@ -2844,12 +3319,31 @@ def main(argv) -> int:
                 fused_mla_decode_attention=dsk.fused_mla_decode_attention,
                 topk_gating=ops.topk, expert_ffn=ops.expert_ffn,
                 moe_mod=moe_mod)
+    mods.update(horizon_mods())
     serving = {}
 
     def run(tag, **kw):
         serving[tag], launches[tag] = serving_phase(torch, np, mods, **kw)
         release(torch)
         log(f"[{tag}] done at {time.perf_counter() - t_start:.1f} s")
+
+    if horizon_only:
+        run("olmoe-1b-7b superkernel monolithic", arch="olmoe-1b-7b",
+            superkernel=True, chunk=0)
+        res = horizon_phase(torch, np, mods, serving, launches)
+        for r in serving.values():
+            r.pop("_oracle_rows", None)
+        teardown(torch)
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_horizon.json").write_text(json.dumps(
+            {"gpu": smi[0], "serving": serving, "horizon": res,
+             "launches": launches,
+             "total_s": time.perf_counter() - t_start}, indent=1,
+            default=str))
+        log(f"--horizon: phases 3-12 skipped, no result "
+            f"({time.perf_counter() - t_start:.1f} s)")
+        return 0
 
     # Runs of one config follow each other (the monolithic runs, their
     # cache-aware runs, then the chunked runs at their cut depth), so that
@@ -2890,6 +3384,10 @@ def main(argv) -> int:
     # ---- phase 12: the disk tier and expert integrity -----------------------
     tier_runs = tier_phase(torch, np, mods, serving, launches)
     log(f"tier done at {time.perf_counter() - t_start:.1f} s")
+
+    # ---- phase 13: the adaptive horizon's knobs, traces, the simulator ----
+    horizon_runs = horizon_phase(torch, np, mods, serving, launches)
+    log(f"horizon done at {time.perf_counter() - t_start:.1f} s")
     for r in serving.values():
         r.pop("_oracle_rows", None)
     teardown(torch)
@@ -2927,7 +3425,7 @@ def main(argv) -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"gpu": smi[0], "kernels": kernels["kernels"], "serving": serving,
-         "faults": fault_runs, "tier": tier_runs,
+         "faults": fault_runs, "tier": tier_runs, "horizon": horizon_runs,
          "kernel_api_max_abs_err": api_errs,
          "total_s": time.perf_counter() - t_start}, indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -19,7 +19,9 @@ Two mechanisms, both keyed on expert residency:
 
    (m_i = 1 for non-resident experts, Z/Z' in [1, e^delta]), so router
    divergence is at most `delta` nats whatever the residency pattern.
-   `residency_logit_bias` builds the bias from a host residency mask.
+   `residency_logit_bias` builds the bias from a host residency mask;
+   `bias_reroute` is its trace-level numpy mirror for the serving
+   simulator, so both backends apply one policy.
 """
 from __future__ import annotations
 
@@ -95,3 +97,43 @@ def residency_logit_bias(resident_mask, strength: float):
                 * torch.tensor(strength, dtype=torch.float32))
     m = np.asarray(resident_mask)
     return (m.astype(np.float32) - np.float32(1.0)) * np.float32(strength)
+
+
+def bias_reroute(assignments: np.ndarray, logits: np.ndarray,
+                 resident: Set[int], strength: float
+                 ) -> Tuple[np.ndarray, int]:
+    """Trace-level mirror of the engine's biased routing for the simulator.
+
+    assignments: (T, k) expert ids from the unbiased trace; logits: (E,)
+    router-logit estimate for this layer (the simulator uses pre-gate
+    log-probabilities: traces carry no per-layer logits). Each
+    non-resident assignment is swapped to the best resident expert not
+    already in its row whose logit is within `strength` of the original:
+    exactly the swaps the biased top-k on the device could make, so the
+    simulated miss reduction tracks the engine's. Returns
+    (new_assignments, n_rerouted)."""
+    a = np.asarray(assignments)
+    if a.ndim == 1:
+        a = a.reshape(-1, 1)
+    lg = np.asarray(logits, np.float64)
+    E = lg.shape[0]
+    if strength <= 0.0 or not resident or len(resident) >= E:
+        return a, 0
+    res_ids = np.asarray(sorted(resident), np.int64)
+    out = a.copy()
+    n_rerouted = 0
+    for t in range(out.shape[0]):
+        row = out[t]
+        for j in range(row.shape[0]):
+            e = int(row[j])
+            if e in resident:
+                continue
+            # resident candidates not already in this row, within the
+            # bias window of the displaced expert's logit
+            cand = [c for c in res_ids
+                    if c not in row and lg[c] >= lg[e] - strength]
+            if not cand:
+                continue
+            row[j] = max(cand, key=lambda c: lg[c])
+            n_rerouted += 1
+    return out, n_rerouted

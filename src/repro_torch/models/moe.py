@@ -285,10 +285,12 @@ def moe_grouped(params, x: torch.Tensor, moe,
     weights: the reference's single-device `moe_grouped`, which computes
     exactly the slot path's einsum branch under the identity slot table.
     x: (T, d), or (G, Tg, d) with one dispatch (and capacity) per group.
-    Returns (out, router output of the last group)."""
+    Returns (out, router output), the latter over every token (G * Tg
+    rows, group-major)."""
     if x.dim() == 3:
         outs = [moe_grouped(params, xg, moe, capacity) for xg in x]
-        return torch.stack([o for o, _ in outs]), outs[-1][1]
+        r = RouterOutput(*(torch.cat(f) for f in zip(*(o[1] for o in outs))))
+        return torch.stack([o for o, _ in outs]), r
     if capacity is None:
         capacity = max(1, int(x.shape[0] * moe.top_k / moe.num_experts
                               * moe.capacity_factor))

@@ -140,10 +140,12 @@ def init_layer(cfg: ModelConfig, spec: LayerSpec, dtype, **kw):
 # ---------------------------------------------------------------------------
 
 def _ffn_part(p, cfg: ModelConfig, x: torch.Tensor,
-              capacity: Optional[int] = None) -> torch.Tensor:
+              capacity: Optional[int] = None,
+              router_sink: Optional[list] = None) -> torch.Tensor:
     """x + FFN: MoE (capacity-buffer grouped over the layer's own experts,
     shared experts included) or dense SwiGLU. x: (B, T, d). FFN-stripped
-    params pass x through."""
+    params pass x through. A MoE layer without a `capacity` appends its
+    router output (every token's) to `router_sink` when one is given."""
     if "ffn_norm" not in p:
         return x
     h2 = rms_norm(x, p["ffn_norm"], cfg.norm_eps)
@@ -151,7 +153,9 @@ def _ffn_part(p, cfg: ModelConfig, x: torch.Tensor,
         f = p["ffn"]
         return x + swiglu(h2, f["w_gate"], f["w_up"], f["w_down"])
     if capacity is None:
-        ff, _ = moe_mod.moe_grouped(p["moe"], h2, cfg.moe)
+        ff, r = moe_mod.moe_grouped(p["moe"], h2, cfg.moe)
+        if router_sink is not None:
+            router_sink.append(r)
         return x + ff
     B = x.shape[0]
     out, _ = moe_mod.moe_grouped(p["moe"], h2.reshape(B, -1), cfg.moe,
@@ -182,10 +186,11 @@ def _attn_prefill(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
 
 
 def layer_forward(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
-                  positions: torch.Tensor) -> torch.Tensor:
+                  positions: torch.Tensor,
+                  router_sink: Optional[list] = None) -> torch.Tensor:
     """Full-sequence layer (prefill without a cache). x: (B, T, d)."""
     x, _ = _attn_prefill(p, cfg, spec, x, positions)
-    return _ffn_part(p, cfg, x)
+    return _ffn_part(p, cfg, x, router_sink=router_sink)
 
 
 # ---------------------------------------------------------------------------
@@ -206,14 +211,15 @@ def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
 
 
 def layer_prefill(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
-                  positions: torch.Tensor, max_seq: int):
+                  positions: torch.Tensor, max_seq: int,
+                  router_sink: Optional[list] = None):
     """Like layer_forward but also returns a populated cache entry."""
     B, T, _ = x.shape
     x, rows = _attn_prefill(p, cfg, spec, x, positions)
     cache = init_layer_cache(cfg, spec, B, max_seq, x.dtype, x.device)
     for name, r in rows.items():    # T <= max_seq: no ring wrap yet
         cache[name][:, :T] = r
-    return _ffn_part(p, cfg, x), cache
+    return _ffn_part(p, cfg, x, router_sink=router_sink), cache
 
 
 def layer_prefill_chunk(p, cfg: ModelConfig, spec: LayerSpec,

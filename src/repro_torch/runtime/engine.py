@@ -1,5 +1,7 @@
 """Slot-buffer MoE runtime: prefill and batched KV-cached decode with the
-experts streamed through a bounded device slot buffer.
+experts streamed through a bounded device slot buffer; and `Engine`, the
+whole-model engine that collects routing traces for the predictor and the
+simulators.
 
 `SlotBufferEngine` keeps every MoE layer's experts in a host store (pinned
 on CUDA) and a bounded number of them in the device slot buffer; the
@@ -69,6 +71,7 @@ from repro_torch.core.expert_buffer import (HostExpertStore, SlotTable,
 from repro_torch.core.faults import FaultInjector, FaultPlan, StepWatchdog
 from repro_torch.core.prefetcher import Prefetcher, TransferLink
 from repro_torch.core.step_size import StepSizeController
+from repro_torch.core.trace import TraceLog
 from repro_torch.device import resolve_device
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import rms_norm
@@ -79,10 +82,11 @@ from repro_torch.models.transformer import (LayerSpec, Model,
                                             split_ffn_params)
 from repro_torch.runtime.instrument import Dispatcher
 from repro_torch.runtime.sampler import sample
+from repro_torch.simulator.events import RoutingTrace, StepTrace
 
 _EXPERT_KEYS = ("w_gate", "w_up", "w_down")
-# initial link bandwidth of the virtual-time transfer model and of the
-# controller's estimate (measured copy times replace the latter)
+# default initial link bandwidth of the virtual-time transfer model and of
+# the default controller's estimate (measured copy times replace the latter)
 LINK_BANDWIDTH = 64e9
 
 
@@ -116,6 +120,170 @@ def _to_device(tree, device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+def build_host_store(model: Model, params) -> HostExpertStore:
+    """Host copies of every MoE layer's experts (unpinned): the store
+    `SlotBufferEngine` builds for itself, exposed so that callers can
+    `export_expert_shards` it or hand it to a tiered setup."""
+    store = HostExpertStore()
+    moe_layers = [i for i, s in enumerate(model.specs) if s.is_moe]
+    for li, i in enumerate(moe_layers):
+        mp = params["layers"][i]["moe"]
+        store.add_layer(li, *(mp[k] for k in _EXPERT_KEYS))
+    return store
+
+
+class Engine:
+    """Whole-model engine with routing-trace collection: every weight stays
+    resident, each MoE layer runs the plain grouped MoE (`moe_grouped`),
+    and `generate` records each MoE layer's router assignments, its mean
+    hidden state and, per (step, layer), a `TraceLog` sample. Its traces
+    feed the forest predictor (`core.predictor`) and the simulators
+    (`simulator.events`, `simulator.serving`). Prefill uses the grouped
+    MoE's default capacity, so tokens past an expert's capacity drop, as
+    in the reference. Params come from `Model.init` on `generator`
+    (default: seeded 0 on the engine's device)."""
+
+    def __init__(self, cfg: ModelConfig,
+                 generator: Optional[torch.Generator] = None,
+                 max_seq: int = 512, device="cuda"):
+        assert cfg.moe is not None, "Engine requires an MoE config"
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.model = Model(cfg)
+        self.max_seq = max_seq
+        if generator is None:
+            generator = torch.Generator(self.device)
+            generator.manual_seed(0)
+        self.params = self.model.init(generator, device=self.device)
+        self.specs: List[LayerSpec] = list(self.model.specs)
+        self.moe_layer_ids = [i for i, s in enumerate(self.specs) if s.is_moe]
+
+    def routers(self) -> List[np.ndarray]:
+        """Every MoE layer's router (d, E), fp32 numpy, for pre-gating."""
+        return [self.params["layers"][i]["moe"]["router"].float().cpu()
+                .numpy() for i in self.moe_layer_ids]
+
+    @torch.no_grad()
+    def _prefill_collect(self, tokens: torch.Tensor):
+        cfg, model, params = self.cfg, self.model, self.params
+        B, T = tokens.shape
+        x = model.embed(params, tokens)
+        positions = torch.arange(T, device=self.device)[None, :].expand(B, T)
+        routers, hiddens, caches = [], [], []
+        for i, spec in enumerate(self.specs):
+            sink: list = []
+            x, c = layer_prefill(params["layers"][i], cfg, spec, x,
+                                 positions, self.max_seq, router_sink=sink)
+            caches.append(c)
+            if spec.is_moe:
+                routers.append((sink[0].expert_ids, sink[0].probs))
+                hiddens.append(x.float().mean(dim=(0, 1)))
+        return model.logits(params, x[:, -1]), caches, routers, hiddens
+
+    @torch.no_grad()
+    def _decode_collect(self, token: torch.Tensor, caches,
+                        cache_len: torch.Tensor):
+        cfg, model, params = self.cfg, self.model, self.params
+        x = model.embed(params, token[:, None])
+        routers, hiddens, new_caches = [], [], []
+        for i, spec in enumerate(self.specs):
+            sink: list = []
+            x, c = layer_decode_collect(params["layers"][i], cfg, spec, x,
+                                        caches[i], cache_len, sink)
+            new_caches.append(c)
+            if spec.is_moe:
+                routers.append((sink[0].expert_ids, sink[0].probs))
+                hiddens.append(x.float().mean(dim=(0, 1)))
+        return model.logits(params, x[:, 0]), new_caches, routers, hiddens
+
+    def generate(self, tokens, n_steps: int, temperature: float = 0.0,
+                 collect: bool = True, fixed_s_for_log: int = 2,
+                 generator: Optional[torch.Generator] = None
+                 ) -> Tuple[np.ndarray, RoutingTrace, TraceLog]:
+        """tokens: (B, T). Returns (generated (B, n_steps), trace, log).
+        Sampled rows draw from `generator` (default: seeded 17 on the
+        engine's device)."""
+        cfg, m = self.cfg, self.cfg.moe
+        tokens_np = np.asarray(tokens, np.int32)
+        tokens_t = torch.as_tensor(tokens_np.astype(np.int64),
+                                   device=self.device)
+        B, T = tokens_np.shape
+        if generator is None and temperature > 0.0:
+            generator = torch.Generator(self.device)
+            generator.manual_seed(17)
+        logits, caches, routers, hiddens = self._prefill_collect(tokens_t)
+
+        trace = RoutingTrace(model=cfg.name,
+                             num_moe_layers=len(self.moe_layer_ids),
+                             num_experts=m.num_experts, top_k=m.top_k,
+                             routers=self.routers())
+        log = TraceLog()
+        token_list = tokens_np.reshape(-1)
+        embeds = self.model.embed(self.params, tokens_t).float().cpu() \
+            .numpy().reshape(B * T, -1)
+
+        def record_step(step_idx, routers_out, hiddens_out, embeddings=None):
+            assigns = [r[0].cpu().numpy().astype(np.int32)
+                       for r in routers_out]
+            probs = [r[1].cpu().numpy() for r in routers_out]
+            hp = torch.stack(hiddens_out).cpu().numpy()
+            trace.steps.append(StepTrace(step_idx, token_list, assigns, hp,
+                                         embeddings))
+            if collect:
+                for li, a in enumerate(assigns):
+                    actual = sorted({int(e) for e in a.reshape(-1)})
+                    # the LAST 64 ids: the window slides with decoding
+                    log.add(token_ids=tuple(int(t)
+                                            for t in token_list[-64:]),
+                            layer_idx=li,
+                            predicted_experts=(),
+                            actual_experts=tuple(actual),
+                            step_size=fixed_s_for_log,
+                            request_id=step_idx,
+                            pregate_probs=tuple(
+                                float(p) for p in probs[li].mean(0)[:64]))
+
+        record_step(0, routers, hiddens, embeds)
+        out = []
+        cache_len = torch.tensor(T, device=self.device)
+        tok = sample(logits, generator, temperature)
+        out.append(tok.cpu().numpy().astype(np.int32))
+        # decoded tokens extend the recorded context: each step's entries
+        # see the ids the model actually conditioned on
+        token_list = np.concatenate([token_list, out[-1].reshape(-1)])
+        for step in range(1, n_steps):
+            logits, caches, routers, hiddens = self._decode_collect(
+                tok, caches, cache_len)
+            cache_len = cache_len + 1
+            record_step(step, routers, hiddens)
+            tok = sample(logits, generator, temperature)
+            out.append(tok.cpu().numpy().astype(np.int32))
+            token_list = np.concatenate([token_list, out[-1].reshape(-1)])
+        return np.stack(out, axis=1), trace, log
+
+
+def layer_decode_collect(p, cfg: ModelConfig, spec: LayerSpec, x, cache,
+                         cache_len, sink: list):
+    """`layer_decode` that also appends a MoE layer's router output to
+    `sink`; its grouped MoE runs at capacity B * top_k (no token drops)."""
+    if not spec.is_moe:
+        return layer_decode(p, cfg, spec, x, cache, cache_len)
+    B = x.shape[0]
+    x, new_cache = _attn_only_decode(p, cfg, spec, x, cache, cache_len)
+    flat = rms_norm(x, p["ffn_norm"], cfg.norm_eps).reshape(B, -1)
+    out, r = moe_mod.moe_grouped(p["moe"], flat, cfg.moe,
+                                 capacity=B * cfg.moe.top_k)
+    sink.append(r)
+    return x + out.reshape(B, 1, -1), new_cache
+
+
+def _attn_only_decode(p, cfg: ModelConfig, spec: LayerSpec, x, cache,
+                      cache_len):
+    """The attention half of `layer_decode` (the FFN stripped)."""
+    stripped, spec_no_ffn = split_ffn_params(p, spec)
+    return layer_decode(stripped, cfg, spec_no_ffn, x, cache, cache_len)
 
 
 @dataclass
@@ -220,13 +388,19 @@ class SlotBufferEngine:
     `core.expert_tiers.TieredExpertStore`) serves the experts from disk
     shards through its byte-budgeted host tier instead of a pre-staged
     host store; the params' MoE layers then need no experts, and the
-    oracles read the shards. `device` defaults to CUDA;
+    oracles read the shards. `prefetch=False` turns speculation off (the
+    no-prefetch baseline: horizon 0, no pre-gate); `link_bandwidth` sets
+    the virtual link's rate; a caller's `controller` is used as given.
+    `device` defaults to CUDA;
     without CUDA the engine raises unless the caller passes
     ``device="cpu"``."""
 
     def __init__(self, cfg: ModelConfig, params, model: Model,
                  n_slots_per_layer: int, *, use_kernel: bool = False,
-                 max_seq: int = 256, step_size: Optional[int] = None,
+                 prefetch: bool = True,
+                 link_bandwidth: float = LINK_BANDWIDTH, max_seq: int = 256,
+                 step_size: Optional[int] = None,
+                 controller: Optional[StepSizeController] = None,
                  pregate_margin: int = 2, use_superkernel: bool = False,
                  route_bias: float = 0.0, route_bias_adaptive: bool = False,
                  faults: Optional[FaultPlan] = None, retry_max: int = 3,
@@ -251,6 +425,9 @@ class SlotBufferEngine:
         self.stats = SlotPathStats()
         self._dispatch = Dispatcher(self.stats)
         self.use_superkernel = use_superkernel
+        # the reference gates speculation on `prefetch and fused`; the port
+        # has no unfused (per-expert) forward, so prefetch alone decides
+        self.prefetch_enabled = prefetch
         self._sk_segs: Optional[Tuple[List[List[int]], List[int]]] = None
         # experts live in the host store (pinned on CUDA), or in a
         # caller's TieredExpertStore (core.expert_tiers) whose host
@@ -284,7 +461,7 @@ class SlotBufferEngine:
                        if k in params}
         # transfer accounting through the paper's link/prefetcher model
         # (virtual time: one unit per MoE layer dispatch)
-        self.link = TransferLink(bandwidth=LINK_BANDWIDTH)
+        self.link = TransferLink(bandwidth=link_bandwidth)
         self._expert_nbytes = float(cfg.expert_bytes())
         self.prefetcher = Prefetcher(self.link, self._expert_nbytes,
                                      cancel_on_forget=True)
@@ -300,13 +477,15 @@ class SlotBufferEngine:
         self._zero_bias = torch.zeros(E, dtype=torch.float32,
                                       device=self.device)
         # adaptive prefetch horizon: `step_size` pins S; otherwise the
-        # controller's stall/overfetch feedback moves it, clamped to depth
+        # controller's stall/overfetch feedback moves it. Only the default
+        # controller is seeded with the link's rate and clamped to depth
         self.fixed_s = step_size
-        self.controller = StepSizeController()
-        self.controller.bandwidth_est = LINK_BANDWIDTH
-        self.controller.cfg = dataclasses.replace(
-            self.controller.cfg,
-            s_max=min(self.controller.cfg.s_max, max(1, L - 1)))
+        if controller is None:
+            controller = StepSizeController()
+            controller.bandwidth_est = link_bandwidth
+            controller.cfg = dataclasses.replace(
+                controller.cfg, s_max=min(controller.cfg.s_max, max(1, L - 1)))
+        self.controller = controller
         self.pregate_margin = pregate_margin
         self._router_stack = torch.stack(
             [self._p[i]["moe"]["router"] for i in self.moe_layer_ids])
@@ -838,18 +1017,19 @@ class SlotBufferEngine:
                                    positions)
                 continue
             nxt = self._next_router(li + 1)
-            x, flat, r, masks = self._dispatch(self._pre, p, spec, x,
-                                               positions, nxt)
+            want_pred = self.prefetch_enabled and nxt is not None
+            x, flat, r, masks = self._dispatch(
+                self._pre, p, spec, x, positions, nxt if want_pred else None)
             masks_h = self._pull(masks)
             self._advance_clock()
             needed = np.nonzero(masks_h[0])[0]
-            predicted = np.nonzero(masks_h[1])[0] if nxt is not None else []
+            predicted = np.nonzero(masks_h[1])[0] if want_pred else []
             self.cache.retier(
                 [(li, int(e)) for e in needed]
                 + [(li + 1, int(e)) for e in predicted],
                 recent_layers=(), current_layer=li)
             self.ensure_resident(li, needed)
-            if nxt is not None:
+            if want_pred:
                 # issue next-layer swap-ins BEFORE this layer's FFN dispatch
                 self.prefetch_layer(li + 1, predicted)
             x = self._slot_ffn(p, self.table.layer_slot_map(li), x, flat, r)
@@ -868,7 +1048,9 @@ class SlotBufferEngine:
                 x = layer_forward(p, self.cfg, spec, x, positions)
                 continue
             nxt = self._next_router(li + 1)
-            x, flat, r, _ = self._pre(p, spec, x, positions, nxt)
+            want_pred = self.prefetch_enabled and nxt is not None
+            x, flat, r, _ = self._pre(p, spec, x, positions,
+                                      nxt if want_pred else None)
             x = self._ffn(p, self._full_experts(li), self._ident_map, x, flat,
                           r)
             li += 1
@@ -938,7 +1120,10 @@ class SlotBufferEngine:
     def _horizon(self, li: int) -> int:
         """Lookahead from MoE layer li, clamped to the remaining sweep; 0
         while the step watchdog is tripped (a sync at every MoE layer until
-        its hysteresis lets go) or the fault plan blacks the predictor out."""
+        its hysteresis lets go) or the fault plan blacks the predictor out;
+        always 0 with prefetch off."""
+        if not self.prefetch_enabled:
+            return 0
         if self.watchdog is not None and self.watchdog.tripped:
             return 0
         if self.faults is not None \
