@@ -51,13 +51,19 @@ the last line:
      lengths 0, 63, 128, 255, a wrapped ring (lengths >= S), GQA shapes
      (G=4; G=16 at D=64 and D=256 with every length 0; the Qwen groups at
      D=128: G=7, Hq=28, Hkv=4, and G=16, Hq=64, Hkv=4), S=130 (no multiple
-     of the 8 splits), S=2048 and one () length, softcap 0 and 30: new
+     of the 8 splits), S=2048 and one () length, softcap 0 and 30, and
+     gemma2-9b's local layer (Hq=16, Hkv=8, D=256, a 4096-row ring, lengths
+     that wrap it, softcap 50, queries at 8x so the cap changes the
+     scores by O(1); its out within half a bf16 step (+ 1e-4) of the plain
+     version in f32, the uncapped output more than 10x that away): new
      caches bitwise equal, out finite and within 2e-2, with the kernel's
      device time (profiler) and a clone + insert + SDPA yardstick
      (`enable_gqa` where G > 1);
    - `fused_mla_decode_attention` at DeepSeek-V2-Lite decode (B=4, H=16,
      R=512, P=64, S=256) with cache lengths 0, 63, 128, 255 and with every
-     row at S - 1: new caches bitwise equal, ctx within 2e-4; its time is
+     row at S - 1, and at minicpm3-4b decode (H=40, three of the kernel's
+     16-head groups; R=256, P=32): new caches bitwise equal, ctx within
+     2e-4; its time is
      the kernel's, printed beside the wrapper's with the host bound the
      serving path passes (`max_len`, no device read) and without it
      (reading the lengths back), and the kernel's device time (profiler);
@@ -231,7 +237,35 @@ the last line:
    - (e) `launch/serve.py`'s `main` in process, `--backend engine` and
      `--backend sim` on `--platform h100` (the default arch's smoke
      config): both return, with the same report keys;
-9. last, a `{"kernels": [...]}` line (per kernel: `launches` summed over
+14. the plain `Model` API on the attention-only models, then training
+   (`models/transformer.py::Model`, `training/`, `checkpoint/
+   checkpointer.py`, `TrainRunner`, `launch/train.py`), at published
+   widths, depth cut as `TRAIN_DEPTH` says:
+   - (a) yi-9b, command-r-plus-104b (tied, vocab 256000), minicpm3-4b
+     (MLA, 40 heads, tied), gemma2-9b (two local and two global layers, a
+     4100-token prompt past its 4096-row window) and llava-next-34b's
+     backbone (`embeds=` input): `prefill` + 4 `decode_step`s (the decode
+     kernels) against `forward` on the grown sequence: prefill's last
+     logits within 2e-2, decode by the near-tie rule (max |dlogit|
+     printed); at the first step every layer's attention part
+     (`attn_decode`, before the post-norm and the residual add) with
+     `use_kernel=True` against `use_kernel=False`: new caches bitwise,
+     output within 2e-2 absolute (one bf16 step where a value passes
+     2.56). The two attention kernels' launches are
+     this path's counts;
+   - (b) olmoe-1b-7b, 4 layers, 4 x 512 tokens of `token_batches(seed=0)`,
+     `remat=True`, 10 AdamW steps: every loss finite, the mean of the last
+     3 below the first; ms/step, tokens/s, peak memory;
+   - (c) yi-9b, 2 layers: 5 steps on one batch, the loss falls;
+   - (d) olmoe-1b-7b at 1 layer: 6 steps with `Checkpointer(every=3)`; a
+     new `TrainRunner` restores step 3 (params and moments bitwise the
+     saved ones) and reruns steps 4-6, their losses within 1e-3 relative
+     of the first run's (bitwise or not, printed);
+   - (e) f32 smoke olmoe, yi, gemma2 and minicpm3: loss and every gradient
+     on the card within 1e-4 of the CPU's on the same params and batch;
+   - (f) `launch/train.py --smoke --device cuda --steps 20` in process:
+     the final loss below the first;
+15. last, a `{"kernels": [...]}` line (per kernel: `launches` summed over
    the runs whose path runs it, the kernel API's for `topk_gating` and
    `expert_ffn`, `launches_by_path` per run; times at the shape its entry
    names, every measured shape under `shapes`), the total time, then the
@@ -243,22 +277,27 @@ The script reaps every process it starts, however deep
 (PR_SET_CHILD_SUBREAPER): on its way out, pass or fail, any that is
 still there is ended (SIGTERM, SIGKILL after 5 s) and named on stderr.
 
-Depth cuts (no width is cut): qwen2-moe-57b at 12 of 28 layers and
+Depth cuts (no width is cut): qwen2-moe-57b at 6 of 28 layers (cut
+from 12 so that phase 14 fits the run's 1200 s) and
 qwen3-moe-235b-a22b at 8 of 94 in phase 10, whose experts (98.7 GB and
 454 GB) do not fit the host's memory (and qwen3's not the card's) at full
-depth; in phase 12 qwen2 at the depth the shard disk and the run's write
-allowance hold after olmoe's and DeepSeek's shards (its 28 layers'
-shards are 98.65 GB; 6 layers under a 45 GiB allowance after olmoe's
-12.88 GB and DeepSeek's 8.86 GB at 9 layers),
-which it prints with the free bytes and the allowance it had; so that
-the run fits its 1200 s with phase 13, phase 12's DeepSeek-V2-Lite run at
-9 of its 27 layers (`TIER_DEPTH`; its host budget still a third of its
-shards, its streams held by the rules of phases 5-7 instead of against
-the full-depth pre-staged run's); so that
-phase 12 fits the run's time, the chunked runs of phases 5-7 at 5 of
-olmoe's 16 layers and 6 of DeepSeek-V2-Lite's 27 (`CHUNKED_DEPTH`; their
-monolithic runs keep full depth, and a cut chunked run is not compared
-with the monolithic run's streams). Every other run is at full depth.
+depth; qwen1.5-moe-a2.7b at 6 of 24 in phase 10 and DeepSeek-V2-Lite's
+monolithic and cache-aware runs (phases 5-8) and its brownout (phase 11)
+at 9 of 27 (`SERVE_DEPTH`), so that the run fits its 1200 s on a slower
+host too (1379.4 s at full depth there); in phase 12 qwen2 at the depth
+the shard disk and the run's write allowance hold after olmoe's and
+DeepSeek's shards and phase 14's checkpoints (`TRAIN_CKPT_BYTES`) (its
+28 layers' shards are 98.65 GB), which it prints with the free bytes and
+the allowance it had; so that the run fits its 1200 s with phase 13,
+phase 12's DeepSeek-V2-Lite run at 9 of its 27 layers (`TIER_DEPTH`; its
+host budget still a third of its shards, its streams held by the rules
+of phases 5-7 instead of against the pre-staged run's) and, with phase
+14, olmoe's tiered runs at 6 of its 16 layers (its corruption runs share
+those shards); so that phase 12 fits the run's time, the chunked runs of
+phases 5-7 at 5 of olmoe's 16 layers and 6 of DeepSeek-V2-Lite's 27
+(`CHUNKED_DEPTH`; a cut chunked run is not compared with the monolithic
+run's streams). Every other run is at full depth (olmoe's serving runs
+at all 16 layers).
 Runs of one config follow each other, so that its experts are pinned
 once (`build_engine`): phases 5-8 run olmoe's monolithic, cache-aware and
 chunked runs, then DeepSeek-V2-Lite's; phase 11 runs olmoe's plans, then
@@ -285,7 +324,13 @@ cache, zlib.crc32's rate on one thread and on 8) into
 runs phases 1-2, phase 5's olmoe-1b-7b superkernel monolithic run (the
 prefetch-on row phase 13 prints beside its own) and phase 13, writes
 `chiprun_out/chip_smoke_horizon.json` and prints no result.
+
+    python3 chip_smoke.py --train
+
+runs phases 1-2 and 14, writes `chiprun_out/chip_smoke_train.json` and
+prints no result.
 """
+import contextlib
 import dataclasses
 import gc
 import json
@@ -311,6 +356,8 @@ KERNELS = ("slot_ffn", "fused_moe_entry", "fused_decode_attention",
            "fused_mla_decode_attention", "topk_gating", "expert_ffn")
 TOL_TOPK_ABS, TOL_TOPK_REL = 1e-6, 1e-5   # topk_gating's gates (fp32)
 CHUNK = 32        # the chunked runs' prefill chunk (the serving default)
+GEMMA2_Q_GAIN = 8.0   # gemma2's row: queries scaled so the cap bites
+GEMMA2_ATOL = 1e-4    # and fp32 summation order beside half a bf16 step
 TOL_CTX = 2e-4     # fused_mla_decode_attention's ctx: fp32, summation order
 ARCHS = ("olmoe-1b-7b", "deepseek-v2-lite")
 ROUTE_BIAS = 1.0   # the cache-aware runs' strength (the reference's value)
@@ -318,11 +365,15 @@ ROUTE_BIAS = 1.0   # the cache-aware runs' strength (the reference's value)
 BIASED = {"olmoe-1b-7b": (False, True), "deepseek-v2-lite": (True,)}
 # Depth cuts (widths stay as published): qwen2 and qwen3, whose experts
 # fit neither the host (101 GiB) nor the card at full depth: 98.7 GB and
-# 454 GB of bf16 experts.
+# 454 GB of bf16 experts; qwen1.5 for the run's time.
 QWEN_DEPTH = {
-    "qwen2-moe-57b": (12, "its 28 layers' 98.7 GB of experts do not fit the "
-                          "host's memory beside the rest; 12 layers: 42.3 "
-                          "GB"),
+    "qwen1.5-moe-a2.7b": (6, "the run's 1200 s (1379.4 s on a host 30 % "
+                             "slower): 6 of 24 layers, 96 slots for its 60 "
+                             "experts"),
+    "qwen2-moe-57b": (6, "its 28 layers' 98.7 GB of experts do not fit the "
+                         "host's memory beside the rest; 6 layers, 21.1 "
+                         "GB (12 before phase 14), so that phase 14 fits "
+                         "the run's 1200 s"),
     "qwen3-moe-235b-a22b": (8, "its 94 layers' 454 GB of experts fit "
                                "neither the host nor the card; 8 layers: "
                                "38.7 GB")}
@@ -358,6 +409,9 @@ TIER_ORACLE_STEPS = 16
 TIER_DEPTH = {
     "deepseek-v2-lite": (9, "the run's 1200 s: with phase 13 the run took "
                             "1216.1 s at full depth"),
+    "olmoe-1b-7b": (6, "the run's 1200 s with phase 14 (8 layers before "
+                       "a host 30 % slower took 1379.4 s); its corruption "
+                       "runs share these shards"),
 }
 # records of the per-record against chunked read + CRC probe (phase 12)
 IO_PROBE_RECORDS = 24
@@ -369,7 +423,14 @@ CHUNKED_DEPTH = {
     "olmoe-1b-7b": (5, "phase 12's disk tier needs the time; the "
                        "monolithic runs keep all 16 layers"),
     "deepseek-v2-lite": (6, "phase 12's disk tier needs the time; the "
-                            "monolithic runs keep all 27 layers")}
+                            "monolithic runs are at SERVE_DEPTH's 9")}
+# Depth cut of DeepSeek-V2-Lite's monolithic and cache-aware runs of
+# phases 5-8 and of its brownout (phase 11), widths as published:
+# (layers, why). 8 MoE layers keep 128 slots for a prompt's 64 routed
+# experts a layer; the depth is phase 12's tiered run's.
+SERVE_DEPTH = {
+    "deepseek-v2-lite": (9, "the run's 1200 s (1379.4 s on a host 30 % "
+                            "slower at 27 layers)")}
 # phase 10: (arch, superkernel, prefill chunk)
 QWEN_RUNS = (("qwen1.5-moe-a2.7b", False, 0),
              ("qwen1.5-moe-a2.7b", True, CHUNK),
@@ -1072,19 +1133,31 @@ def attention_phase(torch, dsk, ref, g):
              # the Qwen models' groups at head dim 128 (qwen1.5 is
              # "decode"): qwen2 G = 7, qwen3 G = 16
              "qwen2_G7": (28, 4, 128, 256, [0, 63, 128, 255]),
-             "qwen3_G16": (64, 4, 128, 256, [0, 63, 128, 255])}
+             "qwen3_G16": (64, 4, 128, 256, [0, 63, 128, 255]),
+             # gemma2-9b's local layer: a 4096-row window ring, lengths
+             # that wrap it, soft-cap 50 (held by gemma2_held below)
+             "gemma2_local": (16, 8, 256, 4096, [100, 4095, 5000, 12345])}
     results = {}
     for name, (Hq, Hkv, D, S, clens) in cases.items():
+        gemma2 = name.startswith("gemma2")
+        caps = (50.0,) if gemma2 else (0.0, 30.0)
+        tcap = caps[-1] if gemma2 else 0.0
         f32 = name.startswith("f32")
         dt = torch.float32 if f32 else torch.bfloat16
         tol = TOL_F32 if f32 else TOL
         r16 = lambda *s: torch.randn(s, generator=g,  # noqa: E731
                                      device=dev).to(dt)
-        args = (r16(B, 1, Hq, D), r16(B, 1, Hkv, D), r16(B, 1, Hkv, D),
+        # gemma2: queries at 8x, so the scores reach the tens and the cap
+        # changes them by O(1)
+        args = (r16(B, 1, Hq, D) * (GEMMA2_Q_GAIN if gemma2 else 1),
+                r16(B, 1, Hkv, D), r16(B, 1, Hkv, D),
                 r16(B, S, Hkv, D), r16(B, S, Hkv, D),
                 torch.tensor(clens, device=dev))
         err = lib_err = 0.0
-        for cap in (0.0, 30.0):
+        if gemma2:
+            err = gemma2_held(torch, dsk, ref, args, name)
+            caps = ()
+        for cap in caps:
             o, k2, v2 = dsk.fused_decode_attention(*args, logit_softcap=cap)
             o2, _, _ = dsk.fused_decode_attention(*args, logit_softcap=cap)
             orf, kr, vr = ref.fused_decode_attention_ref(
@@ -1113,15 +1186,18 @@ def attention_phase(torch, dsk, ref, g):
                                      H100_FP32_FLOP_PER_S)])
         r = {"shape": {"B": B, "Hq": Hq, "Hkv": Hkv, "D": D, "S": S,
                        "cache_len": clens}, "dtype": str(dt),
-             "max_abs_err": err,
-             "ms": time_ms(torch, lambda: dsk.fused_decode_attention(*args)),
+             "max_abs_err": err, "softcap": tcap,
+             "ms": time_ms(torch, lambda: dsk.fused_decode_attention(
+                 *args, logit_softcap=tcap)),
              "plain_ms": time_ms(torch, lambda:
-                                 ref.fused_decode_attention_ref(*args)),
+                                 ref.fused_decode_attention_ref(
+                                     *args, logit_softcap=tcap)),
              "library_ms": library_ms,
              "library_max_abs_err": lib_err,
              "bound_ms": b_ms, "bound_by": b_by,
              "launch_split_ms": launch_split(
-                 torch, lambda: dsk.fused_decode_attention(*args))}
+                 torch, lambda: dsk.fused_decode_attention(
+                     *args, logit_softcap=tcap))}
         r["device_ms"] = sum(r["launch_split_ms"].values()) or None
         results[name] = r
         log(f"kernel fused_decode_attention {name} {r['shape']}: max|err| "
@@ -1132,16 +1208,80 @@ def attention_phase(torch, dsk, ref, g):
     return results
 
 
-def mla_phase(torch, dsk, ref, g):
-    """`fused_mla_decode_attention` at DeepSeek-V2-Lite's decode shape."""
-    import torch.nn.functional as Fn
-    dev = "cuda"
-    B, H, R, P, S = 4, 16, 512, 64, 256
-    scale = (128 + 64) ** -0.5              # (qk_nope + qk_rope) ** -0.5
+def gemma2_held(torch, dsk, ref, args, name):
+    """gemma2's row: the kernel's bf16 output against the plain version on
+    the same inputs widened to f32, within half a bf16 step of each value
+    (2^-8 relative, since the kernel works in fp32 and rounds once) plus
+    1e-4 of fp32 summation order; the capped plain output must stand more
+    than 10x that far from the uncapped one, so a kernel that dropped the
+    cap could not pass. Caches bitwise. Returns max |err|."""
+    cap = 50.0
+    o, k2, v2 = dsk.fused_decode_attention(*args, logit_softcap=cap)
+    o2, _, _ = dsk.fused_decode_attention(*args, logit_softcap=cap)
+    _, kr, vr = ref.fused_decode_attention_ref(*args, logit_softcap=cap)
+    wide = [a.float() if a.is_floating_point() else a for a in args]
+    r = ref.fused_decode_attention_ref(*wide, logit_softcap=cap)[0]
+    r_nocap = ref.fused_decode_attention_ref(*wide)[0]
+    torch.cuda.synchronize()
+    check(torch.equal(k2, kr) and torch.equal(v2, vr),
+          f"fused_decode_attention caches differ at {name}")
+    check(torch.equal(o, o2), "fused_decode_attention not deterministic")
+    d = (o.float() - r).abs()
+    allowed = 2.0 ** -8 * r.abs() + GEMMA2_ATOL
+    worst = float((d / allowed).max())
+    err = float(d.max())
+    cap_gap = float((r_nocap - r).abs().max())
+    log(f"{name}: max |out| {float(r.abs().max()):.4g}, max |err| {err:.3g} "
+        f"({worst:.3g} of the allowed), max |capped - uncapped| "
+        f"{cap_gap:.4g}")
+    check(worst <= 1.0, f"fused_decode_attention out disagrees at {name}: "
+                        f"max |err| {err} ({worst:.3g}x the allowed)")
+    check(cap_gap > 10 * float(allowed.max()),
+          f"{name}: the soft-cap moves the output by only {cap_gap}")
+    return err
 
-    def library(q_abs, q_pe, c_new, pe_new, lat, pe, clen):
+
+def yardstick_backends(torch, library, args, cr, dsk, scale, outs,
+                       sdpa_kernel, SDPBackend):
+    """minicpm3's yardstick on each SDPA backend: its ctx's max |err|
+    against the plain version (or why the backend refused). The kernel's
+    outputs from before must come through these calls bitwise, and its next
+    call must give the same bits."""
+    keep = [t.clone() for t in outs]
+    per = {}
+    for b in ("DEFAULT", "MATH", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
+              "FLASH_ATTENTION"):
+        which = contextlib.nullcontext if b == "DEFAULT" else \
+            (lambda b=b: sdpa_kernel(getattr(SDPBackend, b)))
+        try:
+            out = library(*args, which=which)[0]
+            torch.cuda.synchronize()
+            per[b] = float((out - cr).abs().max())
+        except RuntimeError as e:
+            per[b] = "refused: " + str(e).strip().splitlines()[0][:120]
+    again = dsk.fused_mla_decode_attention(*args, scale=scale)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, k) for a, k in zip(outs, keep)),
+          "fused_mla_decode_attention's outputs changed beside SDPA")
+    check(all(torch.equal(a, k) for a, k in zip(again, keep)),
+          "fused_mla_decode_attention gave other bits after SDPA")
+    log(f"minicpm3 yardstick by SDPA backend (max |err| against the plain "
+        f"version): {json.dumps(per)}")
+    return per
+
+
+def mla_phase(torch, dsk, ref, g):
+    """`fused_mla_decode_attention` at DeepSeek-V2-Lite's decode shape and
+    at minicpm3-4b's (40 heads: three head groups of the kernel's 16)."""
+    import torch.nn.functional as Fn
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    dev = "cuda"
+    B, S = 4, 256
+
+    def library(q_abs, q_pe, c_new, pe_new, lat, pe, clen, which=None):
         # yardstick only: clone + positional insert + one SDPA call with
-        # q = [q_abs | q_pe], k = [latent | pe] (one kv head), v = latent
+        # q = [q_abs | q_pe], k = [latent | pe] (one kv head), v = latent;
+        # `which`: the SDPA backend's context (default: the case's)
         rows = torch.arange(B, device=dev)
         lat2, pe2 = lat.clone(), pe.clone()
         lat2[rows, clen] = c_new
@@ -1150,16 +1290,29 @@ def mla_phase(torch, dsk, ref, g):
         k = torch.cat([lat2, pe2], -1).float()[:, None]          # (B,1,S,K)
         v = lat2.float()[:, None]
         mask = torch.arange(S, device=dev)[None] <= clen[:, None]
-        ctx = Fn.scaled_dot_product_attention(
-            q, k.expand(-1, H, -1, -1), v.expand(-1, H, -1, -1),
-            attn_mask=mask[:, None, None, :], scale=scale)
+        H = q_abs.shape[1]
+        with (which or backend)():
+            ctx = Fn.scaled_dot_product_attention(
+                q, k.expand(-1, H, -1, -1), v.expand(-1, H, -1, -1),
+                attn_mask=mask[:, None, None, :], scale=scale)
         return ctx[:, :, 0], lat2, pe2
 
-    cases = {"decode": [0, 63, 128, 255], "full": [S - 1] * B,
+    # name: (cache lengths; H, R, P, qk_nope + qk_rope)
+    deepseek, minicpm3 = (16, 512, 64, 128 + 64), (40, 256, 32, 64 + 32)
+    cases = {"decode": ([0, 63, 128, 255], deepseek),
+             "full": ([S - 1] * B, deepseek),
              # the f32 path: f32 caches (the reference runs it in f32 too)
-             "f32_decode": [0, 63, 128, 255]}
+             "f32_decode": ([0, 63, 128, 255], deepseek),
+             "minicpm3_decode": ([0, 63, 128, 255], minicpm3)}
     results = {}
-    for name, clens in cases.items():
+    for name, (clens, (H, R, P, qk)) in cases.items():
+        scale = qk ** -0.5
+        # the yardstick on SDPA's math backend at minicpm3's key width
+        # (288): with the default choice there its ctx was wrong (max |err|
+        # 0.58 against the plain version) and the checks of the kernel's
+        # calls beside it failed; on the math backend both hold
+        backend = (lambda: sdpa_kernel(SDPBackend.MATH)) \
+            if name.startswith("minicpm3") else contextlib.nullcontext
         f32 = name.startswith("f32")
         dt = torch.float32 if f32 else torch.bfloat16
         tol = TOL_F32 if f32 else TOL_CTX
@@ -1188,6 +1341,10 @@ def mla_phase(torch, dsk, ref, g):
         check(torch.equal(ctx, ctx2), "fused_mla_decode_attention not "
                                       "deterministic")
         lib_err = float((cl - cr).abs().max())
+        by_backend = (yardstick_backends(torch, library, args, cr, dsk,
+                                         scale, (ctx, lat, pe), sdpa_kernel,
+                                         SDPBackend)
+                      if name.startswith("minicpm3") else None)
         valid = sum(c + 1 for c in clens)
         isz = args[4].element_size()
         nbytes = (2 * B * S * (R + P) * isz + B * H * (R + P) * 4
@@ -1197,6 +1354,7 @@ def mla_phase(torch, dsk, ref, g):
         r = {"shape": {"B": B, "H": H, "R": R, "P": P, "S": S,
                        "cache_len": clens}, "dtype": str(dt),
              "max_abs_err": err, "library_max_abs_err": lib_err,
+             "library_max_abs_err_by_sdpa_backend": by_backend,
              "ms": time_ms(torch, lambda: dsk._launch_mla(*args, scale)),
              "wrapper_ms": time_ms(torch, lambda: dsk.
                                    fused_mla_decode_attention(
@@ -2149,11 +2307,13 @@ def faults_phase(torch, np, mods, serving, launches):
 
 
 def brownout(torch, np, mods, serving, launches, runs, arch, sk):
-    """`FaultPlan.brownout_preset(seed=0)` served on `arch` at full depth:
-    retries and link failures, nothing shed."""
+    """`FaultPlan.brownout_preset(seed=0)` served on `arch` at its fault-free
+    run's depth (`SERVE_DEPTH`): retries and link failures, nothing
+    shed."""
     path = "superkernel" if sk else "unfused"
     tag = f"{arch} {path} monolithic brownout"
-    eng, *_ = build_engine(torch, mods, model_at_depth(mods, arch),
+    eng, *_ = build_engine(torch, mods, model_at_depth(
+                               mods, arch, SERVE_DEPTH.get(arch, (None,))[0]),
                            superkernel=sk,
                            faults=mods["FaultPlan"].brownout_preset(seed=0))
     run, _, launches[tag] = fault_serve(
@@ -2641,14 +2801,16 @@ def qwen_tier(torch, np, mods, root, written, runs, launches, serving):
     full = mods["get_config"](arch)
     layer_bytes = (full.moe.num_experts * full.expert_bytes())
     free = shutil.disk_usage(root).free
-    room = min(free, DISK_WRITE_LIMIT - written) - DISK_MARGIN
+    allowance = DISK_WRITE_LIMIT - TRAIN_CKPT_BYTES - written
+    room = min(free, allowance) - DISK_MARGIN
     layers = max(0, min(full.num_layers, int(room // layer_bytes)))
     why = ""
     if layers < full.num_layers:
         why = (f"{full.num_layers} layers' shards are "
                f"{full.num_layers * layer_bytes / 1e9:.1f} GB; the shard "
                f"disk had {free / 1e9:.1f} GB free and the run may write "
-               f"{(DISK_WRITE_LIMIT - written) / 1e9:.1f} GB more to it, "
+               f"{allowance / 1e9:.1f} GB more to it (phase 14's "
+               f"checkpoints kept apart), "
                f"{DISK_MARGIN / 1e9:.0f} GB to spare: {layers} layers, "
                f"{layers * layer_bytes / 1e9:.1f} GB")
     check(layers >= 1, f"[{arch}] the shard disk holds no layer")
@@ -3207,15 +3369,384 @@ def horizon_mods():
         ServingWorkload=ServingWorkload, simulate_serving=simulate_serving)
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the plain Model API on the attention-only models, then training
+# ---------------------------------------------------------------------------
+
+# Depth cuts of phase 14 (widths, heads, vocabularies as published): arch ->
+# (layers, why). gemma2 keeps two local and two global layers.
+TRAIN_DEPTH = {
+    "yi-9b": (4, "the Model API's oracle is per layer; 4 of 48 layers hold "
+                 "its prefill / decode / forward in the phase's time"),
+    "command-r-plus-104b": (2, "104 B params do not fit the card; 2 of 64 "
+                               "layers: 12.6 GB with its 256000 x 12288 "
+                               "tied embedding"),
+    "minicpm3-4b": (4, "4 of 62 layers: the MLA kernel at 40 heads runs "
+                       "once a layer"),
+    "gemma2-9b": (4, "4 of 42 layers: two local (4096-row window) and two "
+                     "global, the pattern's two units"),
+    "llava-next-34b": (2, "2 of 60 layers of the backbone (34 B params do "
+                          "not fit beside the phase's other models)"),
+    "olmoe-1b-7b": (4, "training keeps params, grads and two fp32 moments "
+                       "(12 B a param) and the optimizer's new state: 4 of "
+                       "16 layers, 1.9 G params, ~42 GB at the update"),
+    "yi-9b train": (2, "2 of 48 layers: the reference test's one-batch "
+                       "descent at full width"),
+    "olmoe-1b-7b ckpt": (1, "each checkpoint writes params and both fp32 "
+                            "moments to the disk (6.3 GB at 1 of 16 "
+                            "layers), inside the run's disk allowance")}
+API_ARCHS = ("yi-9b", "command-r-plus-104b", "minicpm3-4b", "gemma2-9b",
+             "llava-next-34b")
+API_PROMPT = 64          # prompt tokens (gemma2: past its window, below)
+API_STEPS = 4            # decode steps, each against forward
+GEMMA2_PROMPT = 4100     # > the 4096-row window: the local rings wrap
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 10
+TRAIN_LR = 3e-4   # the reference's default (1e-3 overshoots at d 2048)
+CKPT_STEPS, CKPT_EVERY = 6, 3
+# the bytes phase 14's checkpoints write (2 saves of olmoe at 1 layer:
+# 626.5 M params in bf16 and two fp32 moments), kept out of phase 12's
+# allowance
+TRAIN_CKPT_BYTES = 13e9
+CARD_VS_CPU = ("olmoe-1b-7b", "yi-9b", "gemma2-9b", "minicpm3-4b")
+TOL_CARD_CPU = 1e-4
+
+
+def train_mods():
+    """The port's modules phase 14 drives, imported after the build."""
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data.pipeline import token_batches
+    from repro_torch.distributed.fault_tolerance import TrainRunner
+    from repro_torch.kernels import decode_superkernel as dsk
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import transformer
+    from repro_torch.training import optimizer, steps
+    from repro_torch.tree import tree_leaves, tree_map
+    return dict(Checkpointer=Checkpointer, get_config=get_config,
+                get_smoke_config=get_smoke_config,
+                token_batches=token_batches, TrainRunner=TrainRunner,
+                dsk=dsk, train_cli=train_cli, transformer=transformer,
+                optimizer=optimizer, steps=steps, tree_leaves=tree_leaves,
+                tree_map=tree_map)
+
+
+def cut(cfg, layers):
+    return dataclasses.replace(cfg, num_layers=layers,
+                               name=f"{cfg.name}@{layers}")
+
+
+def near_tie_held(torch, got, want, tag):
+    """The same greedy token in every row unless the reference's top two
+    logits lie within NEAR_TIE; returns max |dlogit|."""
+    same = got.argmax(-1) == want.argmax(-1)
+    top2 = torch.topk(want.float(), 2, dim=-1).values
+    gap = top2[:, 0] - top2[:, 1]
+    check(bool((same | (gap <= NEAR_TIE)).all()),
+          f"[{tag}] greedy tokens part past a near-tie: gaps "
+          f"{gap[~same].tolist()}")
+    return float((got.float() - want.float()).abs().max())
+
+
+def api_run(torch, tm, arch, dev, g, smoke):
+    """One model: prefill + API_STEPS decode steps (the decode kernels)
+    against forward on the grown sequence, and every layer's kernel decode
+    against its plain decode at the first step."""
+    T = API_PROMPT
+    if smoke:
+        cfg = tm["get_smoke_config"](arch)
+        T = 20 if arch == "gemma2-9b" else T
+    else:
+        cfg = cut(tm["get_config"](arch), TRAIN_DEPTH[arch][0])
+        T = GEMMA2_PROMPT if arch == "gemma2-9b" else T
+    model = tm["transformer"].Model(cfg)
+    B, d = 2, cfg.d_model
+    t0 = time.perf_counter()
+    params = model.init(g, device=dev)
+    torch.cuda.synchronize() if dev == "cuda" else None
+    init_s = time.perf_counter() - t0
+    n = T + API_STEPS
+    if cfg.uses_input_embeds:
+        seq = (torch.randn((B, n, d), generator=g, device=dev) * 0.5
+               ).to(model.dtype)
+        inp = lambda k: {"embeds": seq[:, :k]}  # noqa: E731
+    else:
+        toks = torch.randint(0, cfg.vocab_size, (B, T), generator=g,
+                             device=dev)
+        inp = lambda k: {"tokens": toks[:, :k]}  # noqa: E731
+    res = {"layers": cfg.num_layers, "prompt": T, "init_s": init_s}
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        fwd = model.logits(params, model.forward(params, **inp(T))[:, -1])
+        lp, cache = model.prefill(params, **inp(T), max_seq=n + 4)
+        e = float((lp - fwd).abs().max())
+        check(torch.allclose(lp, fwd, rtol=TOL, atol=TOL),
+              f"[{arch}] prefill's last logits part from forward's: "
+              f"max |d| {e}")
+        res["prefill_max_abs_dlogit"] = e
+        specs, layer_checks = model.specs, []
+        nxt = lp.argmax(-1)
+        errs = []
+        for i in range(API_STEPS):
+            tok = seq[:, T + i] if cfg.uses_input_embeds else nxt
+            if i == 0:      # every layer: kernel decode against plain
+                x = tok[:, None] if tok.dim() == 2 else \
+                    model.embed(params, tok[:, None])
+                clen = cache["len"]
+                for li, (p, sp, c) in enumerate(zip(
+                        params["layers"], specs, cache["layers"])):
+                    # the attention part alone (before the post-norm and
+                    # the residual add): TOL absolute, or one bf16 step of
+                    # the value where that step is larger (|value| > 2.56:
+                    # the two sides are one rounding of it apart)
+                    ak, ck = tm["transformer"].attn_decode(
+                        p, cfg, sp, x, c, clen, use_kernel=True)
+                    ap, cp = tm["transformer"].attn_decode(
+                        p, cfg, sp, x, c, clen, use_kernel=False)
+                    for name in ck:
+                        check(torch.equal(ck[name], cp[name]),
+                              f"[{arch}] layer {li}: the kernel's new "
+                              f"{name} cache differs from the plain one")
+                    d = (ak.float() - ap.float()).abs()
+                    le = float(d.max())
+                    check(bool((d <= torch.clamp(
+                              2.0 ** -7 * ap.float().abs(), min=TOL)).all()),
+                          f"[{arch}] layer {li}: the kernel's attention "
+                          f"parts from plain by {le}")
+                    layer_checks.append(
+                        {"max_abs_err": le,
+                         "max_abs_out": float(ap.float().abs().max())})
+                    x, _ = tm["transformer"].layer_decode(
+                        p, cfg, sp, x, c, clen, use_kernel=True)
+            ld, cache = model.decode_step(params, tok, cache)
+            if cfg.uses_input_embeds:
+                h = model.forward(params, **inp(T + i + 1))
+            else:
+                toks = torch.cat([toks, tok[:, None]], 1)
+                h = model.forward(params, tokens=toks)
+            ref = model.logits(params, h[:, -1])
+            errs.append(near_tie_held(torch, ld, ref, f"{arch} step {i}"))
+            nxt = ld.argmax(-1)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    res.update(decode_max_abs_dlogit=errs, layer_kernel_vs_plain=layer_checks,
+               finite=bool(torch.isfinite(ld).all()),
+               run_s=time.perf_counter() - t0)
+    check(res["finite"], f"[{arch}] decode logits not finite")
+    del params, cache
+    return res
+
+
+def train_steps(torch, tm, model, params, opt, batches, n, remat=True):
+    step = tm["steps"].make_train_step(model, lr=TRAIN_LR, remat=remat,
+                                       ce_chunk=2048)
+    losses, times = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, next(batches))
+        losses.append(float(met["loss"]))       # synchronises
+        times.append(time.perf_counter() - t0)
+    return params, opt, losses, times
+
+
+def batch_iter(torch, tm, cfg, B, T, dev, seed=0):
+    for toks, labels in tm["token_batches"](cfg.vocab_size, B, T, seed=seed):
+        yield {"tokens": torch.from_numpy(toks).long().to(dev),
+               "labels": torch.from_numpy(labels).long().to(dev)}
+
+
+def train_phase(torch, np, dev="cuda", smoke=False):
+    """Phase 14 (see the module docstring). `smoke` runs every part at the
+    smoke configs (a CPU rehearsal). Returns (results, launches)."""
+    import tempfile
+    import shutil
+    tm = train_mods()
+    dsk = tm["dsk"]
+    cuda = dev == "cuda"
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    res = {"depth": {k: v[0] for k, v in TRAIN_DEPTH.items()}}
+    t_phase = time.perf_counter()
+
+    # (a) the Model API, the decode kernels counted
+    for k in ("fused_decode_attention", "fused_mla_decode_attention"):
+        getattr(dsk, k).launches = 0
+    api = {}
+    for arch in API_ARCHS:
+        api[arch] = api_run(torch, tm, arch, dev, g, smoke)
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        log(f"[phase 14 (a)] {arch}: {json.dumps(api[arch])}")
+    launches = {k: getattr(dsk, k).launches for k in
+                ("fused_decode_attention", "fused_mla_decode_attention")}
+    if cuda:
+        for k, v in launches.items():
+            check(v > 0, f"[phase 14 (a)] {k} never launched")
+    res["api"] = api
+
+    # (b) training olmoe at published width, 4 of 16 layers
+    def model_for(arch, key):
+        cfg = tm["get_smoke_config"](arch) if smoke else \
+            cut(tm["get_config"](arch), TRAIN_DEPTH[key][0])
+        return cfg, tm["transformer"].Model(cfg)
+
+    cfg, model = model_for("olmoe-1b-7b", "olmoe-1b-7b")
+    B, T = (2, 32) if smoke else (TRAIN_BATCH, TRAIN_SEQ)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    params, opt = tm["steps"].init_train_state(model, g, device=dev)
+    n_params = sum(p.numel() for p in tm["tree_leaves"](params))
+    params, opt, losses, times = train_steps(
+        torch, tm, model, params, opt,
+        batch_iter(torch, tm, cfg, B, T, dev), TRAIN_STEPS)
+    check(all(np.isfinite(losses)), f"[phase 14 (b)] loss not finite: "
+                                    f"{losses}")
+    check(np.mean(losses[-3:]) < losses[0], f"[phase 14 (b)] the loss did "
+                                            f"not fall: {losses}")
+    warm = times[1:]
+    res["train_olmoe"] = {
+        "params": n_params, "batch": [B, T], "losses": losses,
+        "ms_per_step": 1e3 * statistics.median(warm),
+        "first_step_ms": 1e3 * times[0],
+        "tokens_per_s": B * T / statistics.median(warm),
+        "steps_per_s": 1 / statistics.median(warm),
+        "max_memory_allocated_gb": (torch.cuda.max_memory_allocated() / 1e9
+                                    if cuda else None)}
+    log(f"[phase 14 (b)] {json.dumps(res['train_olmoe'])}")
+    del params, opt
+    gc.collect()
+
+    # (c) yi-9b at full width, 2 layers: one batch memorised
+    cfg, model = model_for("yi-9b", "yi-9b train")
+    params, opt = tm["steps"].init_train_state(model, g, device=dev)
+    one = next(batch_iter(torch, tm, cfg, 2, 16 if smoke else 256, dev,
+                          seed=1))
+    params, opt, losses, _ = train_steps(
+        torch, tm, model, params, opt, iter([one] * 5), 5)
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"[phase 14 (c)] yi-9b did not descend: {losses}")
+    res["train_yi"] = {"losses": losses}
+    log(f"[phase 14 (c)] yi-9b losses {losses}")
+    del params, opt
+    gc.collect()
+
+    # (d) checkpoint and resume on the card
+    cfg, model = model_for("olmoe-1b-7b", "olmoe-1b-7b ckpt")
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        params, opt = tm["steps"].init_train_state(model, g, device=dev)
+        step = tm["steps"].make_train_step(model, lr=TRAIN_LR, remat=True)
+        saved = {}
+
+        def step_fn(state, batch):
+            p, o, m = step(*state, batch)
+            return (p, o), {"loss": float(m["loss"])}
+
+        class Keeping(tm["Checkpointer"]):
+            def maybe_save(self, s, tree, blocking=False):
+                if s % self.every == 0:
+                    saved[s] = tm["tree_map"](lambda x: x.detach().cpu(),
+                                              tree)
+                return super().maybe_save(s, tree, blocking)
+
+        first = []
+        ck = Keeping(root, keep=2, every=CKPT_EVERY)
+        data = list(zip(range(CKPT_STEPS), batch_iter(
+            torch, tm, cfg, B, T, dev, seed=2)))
+        t0 = time.perf_counter()
+        tm["TrainRunner"](step_fn, ck, (params, opt)).run(
+            (b for _, b in data), CKPT_STEPS,
+            metrics_cb=lambda s, m: first.append(m["loss"]))
+        run_s = time.perf_counter() - t0
+        # restore step 3 into a new runner (step 6's directory removed)
+        shutil.rmtree(f"{root}/step_{CKPT_STEPS}")
+        like = tm["steps"].init_train_state(model, g, device=dev)
+        runner = tm["TrainRunner"](step_fn, tm["Checkpointer"](
+            root, keep=2, every=10 ** 9), like)
+        t0 = time.perf_counter()
+        check(runner.restore_if_available(like) and runner.step == CKPT_EVERY,
+              f"[phase 14 (d)] no restore of step {CKPT_EVERY}")
+        restore_s = time.perf_counter() - t0
+        for got, want in zip(tm["tree_leaves"](runner.state),
+                             tm["tree_leaves"](saved[CKPT_EVERY])):
+            check(got.dtype == want.dtype and torch.equal(got.cpu(), want),
+                  "[phase 14 (d)] a restored leaf differs from the saved one")
+        again = []
+        runner.run((b for _, b in data[CKPT_EVERY:]), CKPT_STEPS,
+                   metrics_cb=lambda s, m: again.append(m["loss"]))
+        rel = [abs(a - b) / abs(b) for a, b in zip(again,
+                                                   first[CKPT_EVERY:])]
+        check(len(again) == CKPT_STEPS - CKPT_EVERY and max(rel) <= 1e-3,
+              f"[phase 14 (d)] resumed losses {again} part from "
+              f"{first[CKPT_EVERY:]}")
+        res["checkpoint"] = {
+            "losses": first, "resumed_losses": again,
+            "bitwise": again == first[CKPT_EVERY:], "max_rel": max(rel),
+            "run_s": run_s, "restore_s": restore_s,
+            "checkpoint_gb": sum(
+                f.stat().st_size for f in Path(root).rglob("*")
+                if f.is_file()) / 1e9}
+        log(f"[phase 14 (d)] {json.dumps(res['checkpoint'])}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del params, opt, like, runner, saved
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (e) card against CPU: f32 smoke configs, same params and batch
+    card_cpu = {}
+    for arch in CARD_VS_CPU:
+        cfg = dataclasses.replace(tm["get_smoke_config"](arch),
+                                  dtype="float32")
+        model = tm["transformer"].Model(cfg)
+        pc = model.init(torch.Generator().manual_seed(SEED), device="cpu")
+        toks, labels = next(tm["token_batches"](cfg.vocab_size, 2, 32))
+        bc = {"tokens": torch.from_numpy(toks).long(),
+              "labels": torch.from_numpy(labels).long()}
+        vg = tm["steps"].value_and_grad(tm["steps"].make_loss_fn(
+            model, remat=False, ce_chunk=16))
+        lc, gc_ = vg(pc, bc)
+        ld, gd = vg(tm["tree_map"](lambda x: x.to(dev), pc),
+                    {k: v.to(dev) for k, v in bc.items()})
+        pairs = list(zip(tm["tree_leaves"](gd), tm["tree_leaves"](gc_)))
+        err = max(float((a.cpu() - b).abs().max()) for a, b in pairs)
+        lerr = abs(float(ld) - float(lc))
+        check(abs(lerr) <= TOL_CARD_CPU * (1 + abs(float(lc))) and all(
+            torch.allclose(a.cpu(), b, rtol=TOL_CARD_CPU, atol=TOL_CARD_CPU)
+            for a, b in pairs), f"[phase 14 (e)] {arch}: card and CPU "
+              f"part: loss {lerr}, grads max |d| {err}")
+        card_cpu[arch] = {"loss": float(lc), "loss_err": lerr,
+                          "grad_max_abs_err": err}
+    res["card_vs_cpu"] = card_cpu
+    log(f"[phase 14 (e)] {json.dumps(card_cpu)}")
+
+    # (f) the CLI
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_cli_")
+    try:
+        cli = tm["train_cli"].main(["--smoke", "--device", dev, "--steps",
+                                    "20", "--ckpt-dir", root])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(cli["losses"][-1] < cli["losses"][0],
+          f"[phase 14 (f)] the CLI's loss did not fall: {cli['losses']}")
+    res["cli"] = {"start": cli["losses"][0], "final": cli["losses"][-1]}
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"[phase 14] done in {res['phase_s']:.1f} s")
+    return res, launches
+
+
 def main(argv) -> int:
     only = None            # --kernels[=a,b]: phases 1-3 only, no result
     disk_only = False      # --disk: phase 1 and the disk probe, no result
     horizon_only = False   # --horizon: phases 1-2, 5's base and 13
+    train_only = False     # --train: phases 1-2 and 14
     for a in argv:
         if a == "--disk":
             disk_only = True
         elif a == "--horizon":
             horizon_only = True
+        elif a == "--train":
+            train_only = True
         elif a == "--kernels" or a.startswith("--kernels="):
             only = [n for n in a.partition("=")[2].split(",") if n]
             bad = set(only) - set(KERNELS)
@@ -3264,6 +3795,18 @@ def main(argv) -> int:
     floor_lib = floor_build()
     log(f"build: {json.dumps(secs)} ({time.perf_counter() - t0:.1f} s wall)")
     build_info = build_report(build)
+    if train_only:
+        res, counts = train_phase(torch, np)
+        teardown(torch)
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_train.json").write_text(json.dumps(
+            {"gpu": smi[0], "train": res, "launches": counts,
+             "total_s": time.perf_counter() - t_start}, indent=1,
+            default=str))
+        log(f"--train: phases 3-13 skipped, no result "
+            f"({time.perf_counter() - t_start:.1f} s)")
+        return 0
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import decode_superkernel as dsk
@@ -3349,10 +3892,12 @@ def main(argv) -> int:
     # cache-aware runs, then the chunked runs at their cut depth), so that
     # each config's experts are pinned once (`build_engine`).
     for arch in ARCHS:
+        depth, why_depth = SERVE_DEPTH.get(arch, (None, ""))
         for superkernel in (False, True):
             path = "superkernel" if superkernel else "unfused"
             run(f"{arch} {path} monolithic", arch=arch,
-                superkernel=superkernel, chunk=0)
+                superkernel=superkernel, chunk=0, layers=depth,
+                why_cut=why_depth)
         # §3.4 cache-aware routing (phase 8): the monolithic runs again at
         # route bias ROUTE_BIAS, each beside its bias-off run of this call
         for superkernel in BIASED[arch]:
@@ -3360,7 +3905,7 @@ def main(argv) -> int:
                    f"monolithic"
             run(f"{base} bias {ROUTE_BIAS}", arch=arch,
                 superkernel=superkernel, chunk=0, route_bias=ROUTE_BIAS,
-                base=serving[base])
+                base=serving[base], layers=depth, why_cut=why_depth)
         for superkernel in (False, True):
             path = "superkernel" if superkernel else "unfused"
             layers, why = CHUNKED_DEPTH.get(arch, (None, ""))
@@ -3390,6 +3935,15 @@ def main(argv) -> int:
     log(f"horizon done at {time.perf_counter() - t_start:.1f} s")
     for r in serving.values():
         r.pop("_oracle_rows", None)
+    release(torch)
+
+    # ---- phase 14: the plain Model API on the attention-only models, then
+    # training; its path's counts set to 0 just before it and read after
+    for n in KERNELS:
+        mods[n].launches = 0
+    train_res, _ = train_phase(torch, np)
+    launches["phase 14 model API"] = counters(mods)
+    log(f"phase 14 done at {time.perf_counter() - t_start:.1f} s")
     teardown(torch)
 
     src = "src/repro_torch/kernels/csrc/"
@@ -3426,6 +3980,7 @@ def main(argv) -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"gpu": smi[0], "kernels": kernels["kernels"], "serving": serving,
          "faults": fault_runs, "tier": tier_runs, "horizon": horizon_runs,
+         "train": train_res,
          "kernel_api_max_abs_err": api_errs,
          "total_s": time.perf_counter() - t_start}, indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -1,10 +1,13 @@
 """Parameter bridge: the reference package's parameter tree -> the port's.
 
 The input is the reference tree with every leaf already a numpy array
-(``embed``, ``lm_head``, ``final_norm``, the ``prefix``/``tail`` lists of
-per-layer dicts and the ``unit`` list of per-pattern-position dicts whose
-leaves are stacked over unit repeats). The output is the port's flat tree
-(``{"embed", "final_norm", "lm_head", "layers": [...]}``) of torch tensors.
+(``embed``, ``lm_head`` unless the embeddings are tied, ``final_norm``,
+the ``prefix``/``tail`` lists of per-layer dicts and the ``unit`` list of
+per-pattern-position dicts whose leaves are stacked over unit repeats; a
+gemma2 layer's dict carries its post-norms, an MLA layer's its latent
+projections). The output is the port's flat tree (``{"embed",
+"final_norm", ["lm_head"], "layers": [...]}``) of torch tensors, each
+layer dict with the reference's keys.
 
 bfloat16 leaves move bitwise through a ``uint16`` view; other dtypes are
 copied as they are. Nothing here knows about the framework that made the

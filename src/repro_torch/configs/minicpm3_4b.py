@@ -1,0 +1,27 @@
+"""minicpm3-4b — Multi-head Latent Attention (MLA), dense FFN.
+
+[hf:openbmb/MiniCPM3-4B; hf] 62L d_model=2560 40H d_ff=6400 vocab=73448.
+MLA: q_lora=768, kv_lora=256, qk_nope=64, qk_rope=32, v_head=64.
+"""
+from repro_torch.configs.base import MLAConfig, ModelConfig, reduce_config
+
+CONFIG = ModelConfig(
+    name="minicpm3-4b",
+    family="dense",
+    num_layers=62,
+    d_model=2560,
+    num_heads=40,
+    num_kv_heads=40,
+    d_ff=6400,
+    vocab_size=73448,
+    attention="mla",
+    mla=MLAConfig(q_lora_rank=768, kv_lora_rank=256, qk_nope_head_dim=64,
+                  qk_rope_head_dim=32, v_head_dim=64),
+    rope_theta=10000.0,
+    tie_embeddings=True,
+)
+
+
+def smoke():
+    return reduce_config(CONFIG, layers=2, d_model=64, heads=4, kv_heads=4,
+                         d_ff=128, vocab=512)

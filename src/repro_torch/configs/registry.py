@@ -1,9 +1,11 @@
 """Architecture registry: ``--arch <id>`` resolution for the ported configs.
 
-The port carries the architectures its runtime supports so far: the MoE
-models with global GQA (or MHA) or MLA attention, olmoe, DeepSeek-V2-Lite
-and the three Qwen MoE models; the rest of the reference registry arrives
-with the slices that port their layer kinds.
+The port carries the architectures it runs: the attention-only ones (GQA,
+MHA or MLA attention, global or sliding-window, dense or MoE FFN). The
+serving runtime takes the MoE models among them (olmoe, DeepSeek-V2-Lite
+and the three Qwen MoE models); the plain `Model` API and training take
+all. recurrentgemma, xlstm and whisper arrive with the slices that port
+their layer kinds.
 """
 from __future__ import annotations
 
@@ -14,7 +16,12 @@ from repro_torch.configs.base import ModelConfig
 
 # arch id -> module name
 _MODULES: Dict[str, str] = {
+    "llava-next-34b": "llava_next_34b",
     "olmoe-1b-7b": "olmoe_1b_7b",
+    "gemma2-9b": "gemma2_9b",
+    "minicpm3-4b": "minicpm3_4b",
+    "command-r-plus-104b": "command_r_plus_104b",
+    "yi-9b": "yi_9b",
     "deepseek-v2-lite": "deepseek_v2_lite",
     "qwen1.5-moe-a2.7b": "qwen15_moe_a2_7b",
     "qwen2-moe-57b": "qwen2_moe_57b",

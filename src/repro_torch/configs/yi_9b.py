@@ -1,0 +1,22 @@
+"""yi-9b — llama-architecture dense GQA.
+
+[arXiv:2403.04652; hf] 48L d_model=4096 32H (GQA kv=4) d_ff=11008 vocab=64000.
+"""
+from repro_torch.configs.base import ModelConfig, reduce_config
+
+CONFIG = ModelConfig(
+    name="yi-9b",
+    family="dense",
+    num_layers=48,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=4,
+    d_ff=11008,
+    vocab_size=64000,
+    rope_theta=10000.0,
+)
+
+
+def smoke():
+    return reduce_config(CONFIG, layers=2, d_model=64, heads=4, kv_heads=1,
+                         d_ff=128, vocab=512)

@@ -1,14 +1,74 @@
-"""Straggler mitigation for serving: the reference's `StragglerPolicy`.
+"""Fault tolerance: checkpoint/restart of the train loop and straggler
+mitigation for serving.
 
-Only the policy is carried here; the reference module's checkpoint/restart
-runner belongs to training and is not part of the port yet.
+- `TrainRunner` wraps the step loop with periodic asynchronous checkpoints
+  and restart from the latest one: on a failure (an exception in a step,
+  or the failure detector's signal) it reloads the last durable state and
+  goes on, up to `max_retries` times in a row.
+- `StragglerPolicy`: per-replica latency EWMAs; a replica whose EWMA
+  exceeds `threshold` x the reference latency is drained (no new
+  admissions) until it recovers.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
+
+from repro_torch.checkpoint.checkpointer import Checkpointer
+
+
+@dataclass
+class TrainRunner:
+    step_fn: Callable                      # (state, batch) -> (state, metrics)
+    checkpointer: Checkpointer
+    state: Any
+    step: int = 0
+    failure_detector: Optional[Callable[[], bool]] = None
+    on_restore: Optional[Callable[[Any], Any]] = None
+    max_retries: int = 3
+
+    def restore_if_available(self, like: Any) -> bool:
+        """Load the latest checkpoint into `like`'s structure, if any."""
+        restored, step = self.checkpointer.restore_latest(like)
+        if restored is None:
+            return False
+        self.state = restored if self.on_restore is None \
+            else self.on_restore(restored)
+        self.step = step
+        return True
+
+    def run(self, batches, num_steps: int,
+            metrics_cb: Optional[Callable[[int, Dict], None]] = None) -> Any:
+        """Steps until `num_steps`, saving through the checkpointer after
+        each; returns the final state once every write has landed."""
+        retries = 0
+        it = iter(batches)
+        while self.step < num_steps:
+            batch = next(it)
+            try:
+                if self.failure_detector and self.failure_detector():
+                    raise RuntimeError("failure detected by monitor")
+                self.state, metrics = self.step_fn(self.state, batch)
+                self.step += 1
+                retries = 0
+                if metrics_cb:
+                    metrics_cb(self.step, metrics)
+                self.checkpointer.maybe_save(self.step, self.state)
+            except Exception:
+                retries += 1
+                if retries > self.max_retries:
+                    raise
+                # restart path: reload the last durable state and go on
+                self.checkpointer.wait()
+                restored, step = self.checkpointer.restore_latest(self.state)
+                if restored is not None:
+                    self.state = restored if self.on_restore is None \
+                        else self.on_restore(restored)
+                    self.step = step
+        self.checkpointer.wait()
+        return self.state
 
 
 @dataclass

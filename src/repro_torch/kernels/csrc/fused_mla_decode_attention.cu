@@ -20,11 +20,12 @@
 // fp32. So bytes, and enough SMs to stream them.
 //
 // Design (split-S, as flash-decoding):
-// - The grid is (8 splits, B), one cluster of 8 blocks a batch row. Block
-//   s owns positions [s S/8, (s+1) S/8) of its row: it copies them from
-//   the old caches into the new ones (16-byte vectors; the row at c comes
-//   from c_new / pe_new), and as it copies it stages the positions <= c in
-//   shared memory, so every cache byte is read once. The caches are never
+// - The grid is (8 splits, B, head groups), one cluster of 8 blocks a
+//   batch row and head group (below). Block s owns positions
+//   [s S/8, (s+1) S/8) of its row: it copies them from the old caches into
+//   the new ones (16-byte vectors; the row at c comes from c_new / pe_new),
+//   and as it copies it stages the positions <= c in shared memory, so
+//   every cache byte is read once. The caches are never
 //   written in place: a saved decode state, the engine's replay checkpoints
 //   and the oracle keep the old tensors.
 // - Attention over the staged rows, 32 positions a chunk with an online
@@ -36,6 +37,13 @@
 //   [s R/8, (s+1) R/8) of every head from the 8 splits in ascending split
 //   order through distributed shared memory. No atomics: the result is the
 //   same from run to run. expf, not __expf.
+// - Heads: a block holds at most MAX_H = 16 query heads (one warp each in
+//   the softmax step, 16 fp32 accumulators a thread). More heads (minicpm3
+//   has 40) split into groups of 16 along the grid's z dimension; each
+//   group is its own cluster of 8 splits over the same row, stages the
+//   row's attended positions itself (so the cache is read once a group)
+//   and only group 0 writes the new caches. At H <= 16 there is one group
+//   and the kernel does what it did before.
 // - Any length is safe: only positions < S are read and only the new
 //   caches and ctx are written; a row with no position <= c gets ctx 0.
 //
@@ -58,7 +66,7 @@ constexpr int THREADS = 512;
 constexpr int WARPS = THREADS / 32;
 constexpr int CH = 32;             // positions per online-softmax chunk
 constexpr int PPW = CH / WARPS;    // positions per warp in a chunk
-constexpr int MAX_H = 16;          // query heads
+constexpr int MAX_H = 16;          // query heads a block (a head group)
 constexpr int MAX_R = THREADS;     // latent width: one column per thread
 constexpr int MAX_P = 128;         // rope key width
 constexpr float NEG_INF = -1073741824.0f;   // -2^30, as the reference
@@ -71,7 +79,10 @@ size_t mla_smem(int H, int R, int P) {
          CH * K * sizeof(T);
 }
 
-template <typename T>
+// GROUPS: H > MAX_H, the heads split along the grid's z dimension; without
+// it (H <= MAX_H) the kernel is the one-group code, with nothing to decide
+// at run time.
+template <typename T, bool GROUPS>
 __global__ void __cluster_dims__(SPLITS, 1, 1) __launch_bounds__(THREADS)
     mla_decode_kernel(const float* __restrict__ q_abs,
                       const float* __restrict__ q_pe,
@@ -86,6 +97,9 @@ __global__ void __cluster_dims__(SPLITS, 1, 1) __launch_bounds__(THREADS)
   cg::cluster_group cluster = cg::this_cluster();
   const int split = static_cast<int>(cluster.block_rank());
   const int b = blockIdx.y;
+  const int h0 = GROUPS ? blockIdx.z * MAX_H : 0;  // group's first head
+  const int HG = GROUPS ? min(MAX_H, H - h0) : H;  // and its heads
+  const bool writes = !GROUPS || blockIdx.z == 0;  // group 0 writes caches
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -104,19 +118,19 @@ __global__ void __cluster_dims__(SPLITS, 1, 1) __launch_bounds__(THREADS)
 
   extern __shared__ __align__(16) float smem[];
   const int K = R + P;
-  float* q_s = smem;                                  // [H][K] queries
-  float* s_s = q_s + H * K;                           // [CH][MAX_H] scores
+  float* q_s = smem;                                  // [HG][K] queries
+  float* s_s = q_s + HG * K;                          // [CH][MAX_H] scores
   float* m_s = s_s + CH * MAX_H;                      // [MAX_H] running max
   float* l_s = m_s + MAX_H;                           // [MAX_H] running sum
   float* corr_s = l_s + MAX_H;                        // [MAX_H] chunk rescale
-  float* acc_s = corr_s + MAX_H;                      // [H][R] context
-  T* kv_s = reinterpret_cast<T*>(acc_s + H * R);      // [CH][K] rows
+  float* acc_s = corr_s + MAX_H;                      // [HG][R] context
+  T* kv_s = reinterpret_cast<T*>(acc_s + HG * R);     // [CH][K] rows
 
-  for (int i = tid; i < H * K; i += THREADS) {
+  for (int i = tid; i < HG * K; i += THREADS) {
     const int h = i / K;
     const int kk = i - h * K;
-    q_s[i] = kk < R ? q_abs[(static_cast<int64_t>(b) * H + h) * R + kk]
-                    : q_pe[(static_cast<int64_t>(b) * H + h) * P + (kk - R)];
+    const int64_t bh = static_cast<int64_t>(b) * H + h0 + h;
+    q_s[i] = kk < R ? q_abs[bh * R + kk] : q_pe[bh * P + (kk - R)];
   }
   if (tid < MAX_H) {
     m_s[tid] = NEG_INF;
@@ -132,8 +146,9 @@ __global__ void __cluster_dims__(SPLITS, 1, 1) __launch_bounds__(THREADS)
     const int nc = min(CH, p_end - c0);            // positions copied
     const int n = max(0, min(nc, valid - c0));     // of them attended
     // 0. copy the chunk into the new caches (the row at `ins` from c_new /
-    //    pe_new) and stage the attended rows [latent | pe]
-    for (int i = tid; i < nc * row_v; i += THREADS) {
+    //    pe_new; group 0 only) and stage the attended rows [latent | pe]
+    const int nr = writes ? nc : n;                // positions read
+    for (int i = tid; i < nr * row_v; i += THREADS) {
       const int j = i / row_v;
       const int c = i - j * row_v;
       const int pos = c0 + j;
@@ -146,7 +161,7 @@ __global__ void __cluster_dims__(SPLITS, 1, 1) __launch_bounds__(THREADS)
       T* dst = lat_part ? lat_o + static_cast<int64_t>(pos) * R + off
                         : pe_o + static_cast<int64_t>(pos) * P + off;
       const uint4 v = *reinterpret_cast<const uint4*>(src);
-      *reinterpret_cast<uint4*>(dst) = v;
+      if (writes) *reinterpret_cast<uint4*>(dst) = v;
       if (j < n)
         *reinterpret_cast<uint4*>(kv_s + j * K + (lat_part ? 0 : R) + off) =
             v;
@@ -169,7 +184,7 @@ __global__ void __cluster_dims__(SPLITS, 1, 1) __launch_bounds__(THREADS)
               kv[jj] = j0 + jj < n ? to_f(kv_s[(j0 + jj) * K + kk]) : 0.f;
 #pragma unroll
             for (int h = 0; h < MAX_H; ++h) {
-              if (h < H) {
+              if (h < HG) {
                 const float q = q_s[h * K + kk];
 #pragma unroll
                 for (int jj = 0; jj < PPW; ++jj) part[jj][h] += q * kv[jj];
@@ -181,7 +196,7 @@ __global__ void __cluster_dims__(SPLITS, 1, 1) __launch_bounds__(THREADS)
         for (int jj = 0; jj < PPW; ++jj) {
 #pragma unroll
           for (int h = 0; h < MAX_H; ++h) {
-            if (h >= H) break;
+            if (h >= HG) break;
             float v = part[jj][h];
 #pragma unroll
             for (int o = 16; o > 0; o >>= 1)
@@ -193,7 +208,7 @@ __global__ void __cluster_dims__(SPLITS, 1, 1) __launch_bounds__(THREADS)
       }
       __syncthreads();
       // 2. per head: chunk max, rescale factor, p = exp(s - max), sum
-      for (int h = warp; h < H; h += WARPS) {
+      for (int h = warp; h < HG; h += WARPS) {
         float mx = NEG_INF;
         for (int j = lane; j < n; j += 32) mx = fmaxf(mx, s_s[j * MAX_H + h]);
 #pragma unroll
@@ -228,7 +243,7 @@ __global__ void __cluster_dims__(SPLITS, 1, 1) __launch_bounds__(THREADS)
           const float4* pj = reinterpret_cast<const float4*>(s_s + j * MAX_H);
 #pragma unroll
           for (int q4 = 0; q4 < MAX_H / 4; ++q4) {
-            if (q4 * 4 >= H) break;
+            if (q4 * 4 >= HG) break;
             const float4 p4 = pj[q4];
             pv[q4 * 4 + 0] += p4.x * v;
             pv[q4 * 4 + 1] += p4.y * v;
@@ -238,7 +253,7 @@ __global__ void __cluster_dims__(SPLITS, 1, 1) __launch_bounds__(THREADS)
         }
 #pragma unroll
         for (int h = 0; h < MAX_H; ++h)
-          if (h < H) acc[h] = acc[h] * corr_s[h] + pv[h];
+          if (h < HG) acc[h] = acc[h] * corr_s[h] + pv[h];
       }
     }
     __syncthreads();
@@ -248,13 +263,13 @@ __global__ void __cluster_dims__(SPLITS, 1, 1) __launch_bounds__(THREADS)
   if (tid < R) {
 #pragma unroll
     for (int h = 0; h < MAX_H; ++h)
-      if (h < H) acc_s[h * R + tid] = acc[h];
+      if (h < HG) acc_s[h * R + tid] = acc[h];
   }
   cluster.sync();
   const int cols = (R + SPLITS - 1) / SPLITS;
   const int col0 = split * cols;
   const int ncol = max(0, min(cols, R - col0));
-  for (int i = tid; i < H * ncol; i += THREADS) {
+  for (int i = tid; i < HG * ncol; i += THREADS) {
     const int h = i / ncol;
     const int col = col0 + (i - h * ncol);
     float mx = NEG_INF;
@@ -266,7 +281,8 @@ __global__ void __cluster_dims__(SPLITS, 1, 1) __launch_bounds__(THREADS)
       l += cluster.map_shared_rank(l_s, r)[h] * w;
       c += cluster.map_shared_rank(acc_s, r)[h * R + col] * w;
     }
-    ctx[(static_cast<int64_t>(b) * H + h) * R + col] = c / fmaxf(l, 1e-20f);
+    ctx[(static_cast<int64_t>(b) * H + h0 + h) * R + col] =
+        c / fmaxf(l, 1e-20f);
   }
   cluster.sync();              // no block leaves while others read it
 }
@@ -277,13 +293,15 @@ int launch(const void* q_abs, const void* q_pe, const void* c_new,
            const void* cache_len, int clen_stride, void* ctx, void* lat_out,
            void* pe_out, int B, int S, int H, int R, int P, float scale,
            cudaStream_t stream) {
-  const size_t smem = mla_smem<T>(H, R, P);
+  const size_t smem = mla_smem<T>(min(H, MAX_H), R, P);
+  const int groups = (H + MAX_H - 1) / MAX_H;
+  auto kernel = groups > 1 ? mla_decode_kernel<T, true>
+                           : mla_decode_kernel<T, false>;
   // at the largest size the checked shapes need
-  const cudaError_t e =
-      opt_in_smem(mla_decode_kernel<T>,
-                  static_cast<int>(mla_smem<T>(MAX_H, MAX_R, MAX_P)));
+  const cudaError_t e = opt_in_smem(
+      kernel, static_cast<int>(mla_smem<T>(MAX_H, MAX_R, MAX_P)));
   if (e != cudaSuccess) return static_cast<int>(e);
-  mla_decode_kernel<T><<<dim3(SPLITS, B), THREADS, smem, stream>>>(
+  kernel<<<dim3(SPLITS, B, groups), THREADS, smem, stream>>>(
       static_cast<const float*>(q_abs), static_cast<const float*>(q_pe),
       static_cast<const T*>(c_new), static_cast<const T*>(pe_new),
       static_cast<const T*>(latent), static_cast<const T*>(pe),
@@ -302,7 +320,7 @@ extern "C" int fused_mla_decode_attention_launch(
     const void* cache_len, int clen_stride, void* ctx, void* lat_out,
     void* pe_out, int B, int S, int H, int R, int P, float scale, int f32,
     void* stream) {
-  if (H < 1 || H > MAX_H || R < 8 || R > MAX_R || R % 8 || P < 8 ||
+  if (H < 1 || H > 65535 * MAX_H || R < 8 || R > MAX_R || R % 8 || P < 8 ||
       P > MAX_P || P % 8 || S < 1 || B < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);

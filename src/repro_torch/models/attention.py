@@ -1,12 +1,13 @@
-"""Attention (global causal): GQA and multi-head latent attention (MLA),
-each with a chunked online-softmax prefill and a one-token decode.
+"""Attention: GQA and multi-head latent attention (MLA), each with a
+chunked online-softmax prefill and a one-token decode; sliding windows and
+logit soft-capping (gemma2).
 
 `flash_attention` is plain PyTorch: it walks query and key/value blocks with
 an online softmax, so the (T x S) score matrix is never materialised, and it
-skips key blocks that causality masks out entirely. Layouts follow the
-reference: q (B, T, Hq, D), k/v (B, S, Hkv, D). `q_offset` resumes a
-prefill at an absolute position (chunked prefill: `gqa_prefill_chunk`,
-`mla_prefill_chunk`). Sliding windows and logit soft-capping are not
+skips key blocks that causality or the window masks out entirely. Layouts
+follow the reference: q (B, T, Hq, D), k/v (B, S, Hkv, D). `q_offset`
+resumes a prefill at an absolute position (chunked prefill:
+`gqa_prefill_chunk`, `mla_prefill_chunk`). Cross-attention (whisper) is not
 ported yet.
 """
 from __future__ import annotations
@@ -15,25 +16,32 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.decode_superkernel import fused_mla_decode_attention
-from repro_torch.models.layers import rms_norm, rope, trunc_normal
+from repro_torch.kernels.decode_superkernel import (
+    fused_decode_attention, fused_mla_decode_attention)
+from repro_torch.models.layers import rms_norm, rope, softcap, trunc_normal
 
 NEG_INF = -2.0 ** 30  # large-finite: avoids NaN from (-inf) - (-inf)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    q_offset: int = 0, q_chunk: int = 512,
-                    kv_chunk: int = 1024) -> torch.Tensor:
-    """Causal online-softmax attention; q[:, 0] sits at absolute position
+                    causal: bool = True, window: int = 0,
+                    logit_softcap: float = 0.0,
+                    scale: Optional[float] = None, q_offset: int = 0,
+                    q_chunk: int = 512, kv_chunk: int = 1024) -> torch.Tensor:
+    """Online-softmax attention; q[:, 0] sits at absolute position
     `q_offset` and k/v rows at positions 0..S-1.
 
     q: (B, Tq, Hq, D); k, v: (B, S, Hkv, D); returns (B, Tq, Hq, D).
-    Hq must be a multiple of Hkv (GQA).
+    Hq must be a multiple of Hkv (GQA). `window > 0`: a query attends to
+    the `window` positions ending at its own; `logit_softcap > 0` caps the
+    scaled scores; `scale` defaults to D ** -0.5.
     """
     B, Tq, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     Dv = v.shape[-1]
     G = Hq // Hkv
+    if scale is None:
+        scale = D ** -0.5
     q_chunk = min(q_chunk, Tq)
     kv_chunk = min(kv_chunk, S)
     dev = q.device
@@ -44,18 +52,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         q1 = min(q0 + q_chunk, Tq)
         qc = q1 - q0
         # (B, qc, Hkv, G, D) fp32, pre-scaled
-        qblk = q[:, q0:q1].reshape(B, qc, Hkv, G, D).float() * D ** -0.5
+        qblk = q[:, q0:q1].reshape(B, qc, Hkv, G, D).float() * scale
         q_pos = torch.arange(q_offset + q0, q_offset + q1, device=dev)
         acc = torch.zeros((B, Hkv, G, qc, Dv), dtype=torch.float32, device=dev)
         m = torch.full((B, Hkv, G, qc), NEG_INF, dtype=torch.float32,
                        device=dev)
         l = torch.zeros((B, Hkv, G, qc), dtype=torch.float32, device=dev)
-        # key blocks entirely in this query block's future are skipped
-        for k0 in range(0, min(S, q_offset + q1), kv_chunk):
+        # key blocks entirely in this query block's future, or entirely
+        # before its window, are skipped
+        k_end = min(S, q_offset + q1) if causal else S
+        k_begin = 0
+        if window > 0:
+            first = max(0, q_offset + q0 - window + 1)
+            k_begin = first // kv_chunk * kv_chunk
+        for k0 in range(k_begin, k_end, kv_chunk):
             k1 = min(k0 + kv_chunk, S)
             k_pos = torch.arange(k0, k1, device=dev)
             s = torch.einsum("bqhgd,bkhd->bhgqk", qblk, kf[:, k0:k1])
-            mask = k_pos[None, :] <= q_pos[:, None]
+            if logit_softcap > 0.0:
+                s = softcap(s, logit_softcap)
+            mask = torch.ones((qc, k1 - k0), dtype=torch.bool, device=dev)
+            if causal:
+                mask = mask & (k_pos[None, :] <= q_pos[:, None])
+            if window > 0:
+                mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
             s = torch.where(mask, s, torch.full_like(s, NEG_INF))
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
@@ -72,27 +92,58 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor,
-                     cache_len: torch.Tensor) -> torch.Tensor:
+                     v_cache: torch.Tensor, cache_len: torch.Tensor, *,
+                     window: int = 0, logit_softcap: float = 0.0,
+                     scale: Optional[float] = None) -> torch.Tensor:
     """One-token attention against a KV cache.
 
     q: (B, 1, Hq, D); caches: (B, S, Hkv, D); cache_len: () or (B,) integer —
     number of valid cache entries *including* the current token's K/V
-    (caller inserts before attending). Returns (B, 1, Hq, D).
+    (caller inserts before attending); `window > 0` keeps only the last
+    `window` of them. Returns (B, 1, Hq, D).
     """
     B, _, Hq, D = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
     Dv = v_cache.shape[-1]
     G = Hq // Hkv
     dev = q.device
+    if scale is None:
+        scale = D ** -0.5
     cache_len = torch.as_tensor(cache_len, device=dev).reshape(-1).expand(B)
-    qf = q.reshape(B, Hkv, G, D).float() * D ** -0.5
+    qf = q.reshape(B, Hkv, G, D).float() * scale
     s = torch.einsum("bhgd,bkhd->bhgk", qf, k_cache.float())
-    valid = torch.arange(S, device=dev)[None, :] < cache_len[:, None]
+    if logit_softcap > 0.0:
+        s = softcap(s, logit_softcap)
+    pos = torch.arange(S, device=dev)[None, :]
+    valid = pos < cache_len[:, None]
+    if window > 0:
+        valid = valid & (pos >= cache_len[:, None] - window)
     s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
     return out.reshape(B, 1, Hq, Dv).to(q.dtype)
+
+
+def init_gqa_params(d_model: int, num_heads: int, num_kv_heads: int,
+                    head_dim: int, dtype=torch.bfloat16, qk_norm: bool = False,
+                    **kw):
+    """GQA weights with the reference's init law; `kw` carries `generator`
+    and `device`."""
+    dev = kw.get("device", "cpu")
+    p = {
+        "wq": trunc_normal((d_model, num_heads, head_dim), d_model ** -0.5,
+                           dtype, **kw),
+        "wk": trunc_normal((d_model, num_kv_heads, head_dim),
+                           d_model ** -0.5, dtype, **kw),
+        "wv": trunc_normal((d_model, num_kv_heads, head_dim),
+                           d_model ** -0.5, dtype, **kw),
+        "wo": trunc_normal((num_heads, head_dim, d_model),
+                           (num_heads * head_dim) ** -0.5, dtype, **kw),
+    }
+    if qk_norm:
+        p["q_norm"] = torch.ones((head_dim,), dtype=dtype, device=dev)
+        p["k_norm"] = torch.ones((head_dim,), dtype=dtype, device=dev)
+    return p
 
 
 def gqa_project_q(params, x: torch.Tensor, positions: torch.Tensor,
@@ -123,10 +174,67 @@ def gqa_out(params, mix: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bthk,hkd->btd", mix, params["wo"])
 
 
+def gqa_attention(params, x: torch.Tensor, *, positions: torch.Tensor,
+                  rope_theta: float, window: int = 0, causal: bool = True,
+                  logit_softcap: float = 0.0, scale: Optional[float] = None,
+                  norm_eps: float = 1e-6) -> torch.Tensor:
+    """Self-attention over the whole sequence (prefill / train). x: (B, T,
+    d) -> (B, T, d)."""
+    q = gqa_project_q(params, x, positions, rope_theta, norm_eps)
+    k, v = gqa_project_kv(params, x, positions, rope_theta, norm_eps)
+    out = flash_attention(q, k, v, causal=causal, window=window,
+                          logit_softcap=logit_softcap, scale=scale)
+    return gqa_out(params, out)
+
+
+def gqa_decode(params, x: torch.Tensor, k_cache: torch.Tensor,
+               v_cache: torch.Tensor, cache_len, *, rope_theta: float,
+               window: int = 0, logit_softcap: float = 0.0,
+               scale: Optional[float] = None, norm_eps: float = 1e-6,
+               cross: bool = False, use_kernel: bool = False):
+    """One-token self-attention. x: (B, 1, d); cache_len: () or (B,)
+    integer, the positions cached before this token. Returns (out (B, 1,
+    d), k_cache, v_cache): the new token's K/V lands at position
+    `cache_len` of each row (positional; the caller sizes the cache) in
+    NEW cache tensors. `use_kernel=True` inserts and attends in one
+    `fused_decode_attention` call; it takes no window, since the kernel
+    attends to its whole cache as a ring (a window layer's decode kernel
+    runs on its window-sized ring, `transformer.attn_decode`) and raises.
+    Cross-attention (`cross=True`, whisper) is not ported yet and raises."""
+    if cross:
+        raise NotImplementedError(
+            "cross-attention decode arrives with whisper's slice")
+    if use_kernel and window:
+        raise ValueError(
+            "gqa_decode(use_kernel=True) takes no window: the decode kernel "
+            "attends to the whole cache; decode a window layer on its "
+            "window-sized ring (transformer.attn_decode)")
+    B = x.shape[0]
+    clen = torch.as_tensor(cache_len, device=x.device).reshape(-1).expand(B)
+    positions = clen[:, None]
+    q = gqa_project_q(params, x, positions, rope_theta, norm_eps)
+    k, v = gqa_project_kv(params, x, positions, rope_theta, norm_eps)
+    if use_kernel:
+        out, k_cache, v_cache = fused_decode_attention(
+            q.contiguous(), k.contiguous(), v.contiguous(), k_cache, v_cache,
+            torch.as_tensor(cache_len, device=x.device),
+            logit_softcap=logit_softcap, scale=scale)
+        return gqa_out(params, out), k_cache, v_cache
+    rows = torch.arange(B, device=x.device)
+    k_cache = k_cache.clone()
+    v_cache = v_cache.clone()
+    k_cache[rows, clen] = k[:, 0]
+    v_cache[rows, clen] = v[:, 0]
+    out = decode_attention(q, k_cache, v_cache, clen + 1, window=window,
+                           logit_softcap=logit_softcap, scale=scale)
+    return gqa_out(params, out), k_cache, v_cache
+
+
 def gqa_prefill_chunk(params, h: torch.Tensor, positions: torch.Tensor,
                       k_cache: torch.Tensor, v_cache: torch.Tensor,
                       cache_len: int, n_valid: int, *, rope_theta: float,
-                      norm_eps: float = 1e-6):
+                      logit_softcap: float = 0.0,
+                      scale: Optional[float] = None, norm_eps: float = 1e-6):
     """One padded prompt chunk of GQA attention, resuming at `cache_len`.
 
     h: (B, C, d) normed hidden states whose first `n_valid` rows are real
@@ -144,12 +252,13 @@ def gqa_prefill_chunk(params, h: torch.Tensor, positions: torch.Tensor,
     k_cache[:, cache_len:end] = k[:, :n_valid]
     v_cache[:, cache_len:end] = v[:, :n_valid]
     out = flash_attention(q, k_cache[:, :end], v_cache[:, :end],
+                          logit_softcap=logit_softcap, scale=scale,
                           q_offset=cache_len)
     return gqa_out(params, out), k_cache, v_cache
 
 
 # ---------------------------------------------------------------------------
-# Multi-head Latent Attention (DeepSeek-V2)
+# Multi-head Latent Attention (DeepSeek-V2 / MiniCPM3)
 # ---------------------------------------------------------------------------
 
 def init_mla_params(d_model: int, num_heads: int, mla, dtype=torch.bfloat16,
@@ -223,12 +332,14 @@ def _mla_qkv(params, x: torch.Tensor, positions: torch.Tensor, mla,
 
 
 def mla_attention(params, x: torch.Tensor, *, positions: torch.Tensor, mla,
-                  rope_theta: float, norm_eps: float = 1e-6) -> torch.Tensor:
-    """Causal MLA over the whole sequence. x: (B, T, d) -> (B, T, d).
+                  rope_theta: float, norm_eps: float = 1e-6,
+                  causal: bool = True, window: int = 0) -> torch.Tensor:
+    """MLA over the whole sequence. x: (B, T, d) -> (B, T, d).
     `flash_attention` scales by q's width ** -0.5, which is MLA's
     (nope + rope) ** -0.5, and takes v narrower than q/k."""
     q, k, v, _ = _mla_qkv(params, x, positions, mla, rope_theta, norm_eps)
-    return gqa_out(params, flash_attention(q, k, v))
+    return gqa_out(params, flash_attention(q, k, v, causal=causal,
+                                           window=window))
 
 
 def mla_prefill_chunk(params, h: torch.Tensor, positions: torch.Tensor,

@@ -11,12 +11,22 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor,
-             eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm with fp32 accumulation."""
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6, *,
+             zero_centered: bool = False) -> torch.Tensor:
+    """RMSNorm with fp32 accumulation; `zero_centered` scales by (1 + w)
+    (the gemma family)."""
     x32 = x.float()
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
-    return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+    w = scale.float() + 1.0 if zero_centered else scale.float()
+    return (x32 * torch.rsqrt(var + eps) * w).to(x.dtype)
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """Gemma-2 style logit soft-capping: cap * tanh(x / cap); 0 = off."""
+    if cap <= 0.0:
+        return x
+    return cap * torch.tanh(x / cap)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,
@@ -38,11 +48,13 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-           w_down: torch.Tensor) -> torch.Tensor:
-    """Gated FFN: (silu(x@Wg) * (x@Wu)) @ Wd."""
+           w_down: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    """Gated FFN: (act(x@Wg) * (x@Wu)) @ Wd; `act` is "silu" or "gelu"
+    (tanh approximation, as the reference's)."""
     g = x @ w_gate
     u = x @ w_up
-    return (F.silu(g) * u) @ w_down
+    h = F.gelu(g, approximate="tanh") if act == "gelu" else F.silu(g)
+    return (h * u) @ w_down
 
 
 # ---------------------------------------------------------------- init utils

@@ -93,6 +93,17 @@ def route(router_w: torch.Tensor, x: torch.Tensor, top_k: int,
     return RouterOutput(expert_ids, gates, logits, probs)
 
 
+def load_balancing_loss(probs: torch.Tensor, expert_ids: torch.Tensor,
+                        num_experts: int) -> torch.Tensor:
+    """Switch-style auxiliary loss: E * sum_e (share of assignments to e) *
+    (mean router probability of e). probs: (T, E); expert_ids: (T, k)."""
+    counts = torch.bincount(expert_ids.reshape(-1).long(),
+                            minlength=num_experts).float()
+    frac_tokens = counts / torch.clamp(counts.sum(), min=1.0)
+    frac_probs = probs.float().mean(dim=0)
+    return num_experts * torch.sum(frac_tokens * frac_probs)
+
+
 def moe_reference(params, x: torch.Tensor, moe):
     """Computes ALL experts for ALL tokens then combines. O(T*E*f)."""
     T, d = x.shape

@@ -1,14 +1,21 @@
-"""Decoder stack for the slot-buffer runtime: global-attention layers (GQA
-or MLA) with a MoE FFN (routed experts, optionally shared experts) or a
-dense SwiGLU FFN — olmoe- and DeepSeek-V2-style stacks; other layer kinds
-are not ported yet.
+"""Decoder stack of the attention-only architectures: GQA (or MHA) or MLA
+layers, global or sliding-window, with logit soft-caps and post-norms
+(gemma2), a MoE FFN (routed experts, optionally shared experts) or a dense
+SwiGLU FFN, tied or untied embeddings, token or input-embedding (llava)
+inputs. Recurrent mixers (recurrentgemma, xlstm), the encoder-decoder
+(whisper) and absolute positions are not ported yet and raise.
 
-The port's parameter tree is flat: ``{"embed", "final_norm", "lm_head",
-"layers": [one dict per absolute layer]}`` — the reference's stacked
-``unit`` lists are unstacked once, by `repro_torch.bridge` or by
+The port's parameter tree is flat: ``{"embed", "final_norm", ["lm_head"],
+"layers": [one dict per absolute layer]}`` (no ``lm_head`` when the
+embeddings are tied) — the reference's stacked ``unit`` lists, which it
+scans for compile time, are unstacked once, by `repro_torch.bridge` or by
 `Model.init`. Per-layer dicts keep the reference's keys and layouts.
 
-Entry points used by `runtime.engine`: `layer_forward`, `layer_prefill`,
+Entry points:
+- `Model.forward`      full-sequence hidden states (training; `remat=`)
+- `Model.prefill`      full-sequence + populated caches
+- `Model.decode_step`  one token against the cache
+used by `runtime.engine`: `layer_forward`, `layer_prefill`,
 `layer_prefill_chunk`, `layer_decode` (each also works on FFN-stripped params from
 `split_ffn_params`), `init_layer_cache` and `Model.embed` / `Model.logits`.
 Decode never writes a cache in place: each step returns new cache tensors,
@@ -21,6 +28,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, NamedTuple, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -28,18 +36,18 @@ from repro_torch.kernels.decode_superkernel import fused_decode_attention
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (dense_init, embed_init, rms_norm,
-                                       swiglu, trunc_normal)
+                                       softcap, swiglu)
 
 
 class LayerSpec(NamedTuple):
     kind: str          # attn (the only kind the port runs so far)
-    window: int        # sliding window (0 = global, the only one ported)
+    window: int        # sliding window (0 = global)
     is_moe: bool       # MoE FFN; otherwise a dense SwiGLU FFN
     layer_idx: int     # absolute depth index (first occurrence)
 
 
 # Parameter keys that belong to a layer's FFN half.
-FFN_PARAM_KEYS = ("ffn_norm", "moe", "ffn")
+FFN_PARAM_KEYS = ("ffn_norm", "moe", "ffn", "post_ffn_norm")
 
 
 def split_ffn_params(p, spec: LayerSpec):
@@ -87,18 +95,32 @@ def all_specs(cfg: ModelConfig) -> List[LayerSpec]:
 
 
 def _check_supported(cfg: ModelConfig, spec: LayerSpec) -> None:
-    """The port runs global-attention GQA or MLA layers with a MoE or dense
-    SwiGLU FFN, pre-norm, untied embeddings, in MoE models; anything else
-    raises rather than run wrong."""
-    if (spec.kind != "attn" or cfg.attention not in ("gqa", "mla")
-            or spec.window):
+    """The port runs attention layers (GQA or MLA); recurrent and xLSTM
+    mixers, the encoder-decoder and absolute positions raise rather than
+    run wrong."""
+    if spec.kind != "attn" or cfg.attention not in ("gqa", "mla"):
         raise NotImplementedError(
-            f"{cfg.name} layer {spec.layer_idx}: the port runs global GQA "
-            f"or MLA attention only, got {spec}")
-    if (cfg.moe is None or cfg.is_encoder_decoder or cfg.abs_pos
-            or cfg.attn_logit_softcap or cfg.tie_embeddings
-            or cfg.name.startswith(("gemma", "recurrentgemma"))):
-        raise NotImplementedError(f"{cfg.name}: not ported yet")
+            f"{cfg.name} layer {spec.layer_idx}: the port runs GQA or MLA "
+            f"attention layers only, got {spec}")
+    if cfg.is_encoder_decoder or cfg.abs_pos:
+        raise NotImplementedError(
+            f"{cfg.name}: encoder-decoder models and absolute positions are "
+            "not ported yet")
+
+
+def _zc(cfg: ModelConfig) -> bool:
+    """Gemma-family norms are zero-centred ((1 + w) x̂) and its embeddings
+    scaled by sqrt(d)."""
+    return cfg.name.startswith(("gemma", "recurrentgemma"))
+
+
+def _norm(x: torch.Tensor, w: torch.Tensor, cfg: ModelConfig):
+    return rms_norm(x, w, cfg.norm_eps, zero_centered=_zc(cfg))
+
+
+def _ring_size(spec: LayerSpec, max_seq: int) -> int:
+    """Rows of a GQA layer's K/V ring: a window layer keeps its window."""
+    return min(max_seq, spec.window) if spec.window else max_seq
 
 
 # ---------------------------------------------------------------------------
@@ -109,86 +131,102 @@ def init_layer(cfg: ModelConfig, spec: LayerSpec, dtype, **kw):
     """One layer's params; `kw` carries `generator` and `device`."""
     _check_supported(cfg, spec)
     d, hd = cfg.d_model, cfg.resolved_head_dim
-    H, Hkv = cfg.num_heads, cfg.num_kv_heads
     dev = kw.get("device", "cpu")
+    ones = lambda: torch.ones((d,), dtype=dtype, device=dev)  # noqa: E731
     if cfg.attention == "mla":
-        attn = attn_mod.init_mla_params(d, H, cfg.mla, dtype, **kw)
+        attn = attn_mod.init_mla_params(d, cfg.num_heads, cfg.mla, dtype,
+                                        **kw)
     else:
-        attn = {
-            "wq": trunc_normal((d, H, hd), d ** -0.5, dtype, **kw),
-            "wk": trunc_normal((d, Hkv, hd), d ** -0.5, dtype, **kw),
-            "wv": trunc_normal((d, Hkv, hd), d ** -0.5, dtype, **kw),
-            "wo": trunc_normal((H, hd, d), (H * hd) ** -0.5, dtype, **kw),
-        }
-        if cfg.qk_norm:
-            attn["q_norm"] = torch.ones((hd,), dtype=dtype, device=dev)
-            attn["k_norm"] = torch.ones((hd,), dtype=dtype, device=dev)
-    p = {"pre_norm": torch.ones((d,), dtype=dtype, device=dev),
-         "attn": attn,
-         "ffn_norm": torch.ones((d,), dtype=dtype, device=dev)}
-    if spec.is_moe:
-        p["moe"] = moe_mod.init_moe_params(d, cfg.moe, dtype, **kw)
-    else:
-        p["ffn"] = {"w_gate": dense_init(d, cfg.d_ff, dtype, **kw),
-                    "w_up": dense_init(d, cfg.d_ff, dtype, **kw),
-                    "w_down": dense_init(cfg.d_ff, d, dtype, **kw)}
+        attn = attn_mod.init_gqa_params(d, cfg.num_heads, cfg.num_kv_heads,
+                                        hd, dtype, qk_norm=cfg.qk_norm, **kw)
+    p = {"pre_norm": ones(), "attn": attn}
+    has_ffn = spec.is_moe or cfg.d_ff > 0
+    if has_ffn:
+        p["ffn_norm"] = ones()
+        if spec.is_moe:
+            p["moe"] = moe_mod.init_moe_params(d, cfg.moe, dtype, **kw)
+        else:
+            p["ffn"] = {"w_gate": dense_init(d, cfg.d_ff, dtype, **kw),
+                        "w_up": dense_init(d, cfg.d_ff, dtype, **kw),
+                        "w_down": dense_init(cfg.d_ff, d, dtype, **kw)}
+    if cfg.attn_logit_softcap > 0:   # gemma-2 family: post-norms too
+        p["post_attn_norm"] = ones()
+        if has_ffn:
+            p["post_ffn_norm"] = ones()
     return p
 
 
 # ---------------------------------------------------------------------------
-# Per-layer forward (prefill path)
+# Per-layer forward (train / prefill path)
 # ---------------------------------------------------------------------------
 
 def _ffn_part(p, cfg: ModelConfig, x: torch.Tensor,
               capacity: Optional[int] = None,
               router_sink: Optional[list] = None) -> torch.Tensor:
     """x + FFN: MoE (capacity-buffer grouped over the layer's own experts,
-    shared experts included) or dense SwiGLU. x: (B, T, d). FFN-stripped
-    params pass x through. A MoE layer without a `capacity` appends its
-    router output (every token's) to `router_sink` when one is given."""
+    shared experts included) or dense SwiGLU, then the post-FFN norm where
+    the layer has one. x: (B, T, d). FFN-stripped params pass x through. A
+    MoE layer without a `capacity` appends its router output (every
+    token's) to `router_sink` when one is given."""
     if "ffn_norm" not in p:
         return x
-    h2 = rms_norm(x, p["ffn_norm"], cfg.norm_eps)
+    h2 = _norm(x, p["ffn_norm"], cfg)
     if "ffn" in p:
         f = p["ffn"]
-        return x + swiglu(h2, f["w_gate"], f["w_up"], f["w_down"])
-    if capacity is None:
+        act = "gelu" if cfg.family == "encdec" else "silu"
+        ff = swiglu(h2, f["w_gate"], f["w_up"], f["w_down"], act=act)
+    elif capacity is None:
         ff, r = moe_mod.moe_grouped(p["moe"], h2, cfg.moe)
         if router_sink is not None:
             router_sink.append(r)
-        return x + ff
-    B = x.shape[0]
-    out, _ = moe_mod.moe_grouped(p["moe"], h2.reshape(B, -1), cfg.moe,
-                                 capacity=capacity)
-    return x + out.reshape(B, 1, -1)
+    else:
+        B = x.shape[0]
+        out, _ = moe_mod.moe_grouped(p["moe"], h2.reshape(B, -1), cfg.moe,
+                                     capacity=capacity)
+        ff = out.reshape(B, 1, -1)
+    if "post_ffn_norm" in p:
+        ff = _norm(ff, p["post_ffn_norm"], cfg)
+    return x + ff
+
+
+def _post_attn(p, cfg: ModelConfig, x: torch.Tensor,
+               mix: torch.Tensor) -> torch.Tensor:
+    """x + the mixer's output, through the post-attention norm where the
+    layer has one."""
+    if "post_attn_norm" in p:
+        mix = _norm(mix, p["post_attn_norm"], cfg)
+    return x + mix
 
 
 def _attn_prefill(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
                   positions: torch.Tensor):
-    """Pre-norm self-attention (GQA or MLA) over the whole sequence.
-    Returns (x + attention, {cache name: the T rows the cache keeps})."""
+    """Pre-norm self-attention (GQA or MLA, the layer's window and
+    soft-cap) over the whole sequence. Returns (x + attention, {cache name:
+    the T rows the cache keeps})."""
     _check_supported(cfg, spec)
-    h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
+    h = _norm(x, p["pre_norm"], cfg)
     if cfg.attention == "mla":
         q, k, v, (c_kv, k_pe) = attn_mod._mla_qkv(
             p["attn"], h, positions, cfg.mla, cfg.rope_theta, cfg.norm_eps)
         rows = {"latent": c_kv, "pe": k_pe}
+        # q's width is nope + rope, so flash_attention's q-width ** -0.5
+        # is MLA's scale; v (v_head_dim) may be narrower than q and k
+        mix = attn_mod.flash_attention(q, k, v, window=spec.window)
     else:
         q = attn_mod.gqa_project_q(p["attn"], h, positions, cfg.rope_theta,
                                    cfg.norm_eps)
         k, v = attn_mod.gqa_project_kv(p["attn"], h, positions,
                                        cfg.rope_theta, cfg.norm_eps)
         rows = {"k": k, "v": v}
-    # MLA: q's width is nope + rope, so flash_attention's q-width ** -0.5
-    # is MLA's scale; v (v_head_dim) may be narrower than q and k
-    mix = attn_mod.flash_attention(q, k, v)
-    return x + attn_mod.gqa_out(p["attn"], mix), rows
+        mix = attn_mod.flash_attention(q, k, v, window=spec.window,
+                                       logit_softcap=cfg.attn_logit_softcap)
+    return _post_attn(p, cfg, x, attn_mod.gqa_out(p["attn"], mix)), rows
 
 
 def layer_forward(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
                   positions: torch.Tensor,
                   router_sink: Optional[list] = None) -> torch.Tensor:
-    """Full-sequence layer (prefill without a cache). x: (B, T, d)."""
+    """Full-sequence layer (train / prefill without a cache). x: (B, T, d)."""
     x, _ = _attn_prefill(p, cfg, spec, x, positions)
     return _ffn_part(p, cfg, x, router_sink=router_sink)
 
@@ -199,26 +237,35 @@ def layer_forward(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
 
 def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
                      max_seq: int, dtype, device="cpu"):
-    """GQA: a K/V ring {"k", "v"} (B, S, Hkv, D). MLA: the positional
-    compressed cache {"latent": (B, S, R), "pe": (B, S, 1, P)}."""
+    """GQA: a K/V ring {"k", "v"} (B, size, Hkv, D), size = max_seq, or
+    the window for a window layer when that is smaller. MLA: the
+    positional compressed cache {"latent": (B, S, R), "pe": (B, S, 1, P)}."""
     _check_supported(cfg, spec)
     z = lambda *s: torch.zeros(s, dtype=dtype, device=device)  # noqa: E731
     if cfg.attention == "mla":
         return {"latent": z(batch, max_seq, cfg.mla.kv_lora_rank),
                 "pe": z(batch, max_seq, 1, cfg.mla.qk_rope_head_dim)}
-    shape = (batch, max_seq, cfg.num_kv_heads, cfg.resolved_head_dim)
+    shape = (batch, _ring_size(spec, max_seq), cfg.num_kv_heads,
+             cfg.resolved_head_dim)
     return {"k": z(*shape), "v": z(*shape)}
 
 
 def layer_prefill(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
                   positions: torch.Tensor, max_seq: int,
                   router_sink: Optional[list] = None):
-    """Like layer_forward but also returns a populated cache entry."""
+    """Like layer_forward but also returns a populated cache entry. A GQA
+    ring the prompt fills (T >= its size) keeps the last `size` rows, row
+    at position t in slot t % size (the ring decode continues)."""
     B, T, _ = x.shape
     x, rows = _attn_prefill(p, cfg, spec, x, positions)
     cache = init_layer_cache(cfg, spec, B, max_seq, x.dtype, x.device)
-    for name, r in rows.items():    # T <= max_seq: no ring wrap yet
-        cache[name][:, :T] = r
+    for name, r in rows.items():
+        size = cache[name].shape[1]
+        if T >= size and name in ("k", "v"):
+            slots = torch.arange(T - size, T, device=x.device) % size
+            cache[name][:, slots] = r[:, T - size:]
+        else:
+            cache[name][:, :T] = r
     return _ffn_part(p, cfg, x, router_sink=router_sink), cache
 
 
@@ -243,7 +290,7 @@ def layer_prefill_chunk(p, cfg: ModelConfig, spec: LayerSpec,
             "chunked prefill requires global attention (ring-wrapped sliding-"
             "window caches lose the absolute positions chunks address)")
     _check_supported(cfg, spec)
-    h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
+    h = _norm(x, p["pre_norm"], cfg)
     if cfg.attention == "mla":
         mix, _, _ = attn_mod.mla_prefill_chunk(
             p["attn"], h, positions, cache["latent"], cache["pe"], cache_len,
@@ -252,42 +299,48 @@ def layer_prefill_chunk(p, cfg: ModelConfig, spec: LayerSpec,
     else:
         mix, _, _ = attn_mod.gqa_prefill_chunk(
             p["attn"], h, positions, cache["k"], cache["v"], cache_len,
-            n_valid, rope_theta=cfg.rope_theta, norm_eps=cfg.norm_eps)
-    return _ffn_part(p, cfg, x + mix), cache
+            n_valid, rope_theta=cfg.rope_theta,
+            logit_softcap=cfg.attn_logit_softcap, norm_eps=cfg.norm_eps)
+    return _ffn_part(p, cfg, _post_attn(p, cfg, x, mix)), cache
 
 
-def layer_decode(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
-                 cache, cache_len: torch.Tensor, use_kernel: bool = False,
-                 max_len: Optional[int] = None):
-    """One-token layer step. x: (B, 1, d). Returns (x, new_cache).
+def attn_decode(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
+                cache, cache_len: torch.Tensor, use_kernel: bool = False,
+                max_len: Optional[int] = None):
+    """The attention half of a one-token layer step on the layer's input x
+    (B, 1, d). Returns (out (B, 1, d), new_cache): the attention's output
+    after the pre-norm and the output projection, before the post-norm and
+    the residual add.
 
     `cache_len` is a () tensor (all rows at one position) or a (B,) tensor
     (each row at its own position). GQA: the new token's K/V goes to ring
-    slot `cache_len % size` of each row; MLA: its latent / rope-key row goes
-    to position `cache_len` (no ring). Either way into NEW cache tensors:
-    the input cache is left as it was.
+    slot `cache_len % size` of each row (a window layer's ring is its
+    window, so it attends to the last `size` positions); MLA: its latent /
+    rope-key row goes to position `cache_len` (no ring). Either way into
+    NEW cache tensors: the input cache is left as it was.
 
     `use_kernel=True` runs the insert and the attention in one
     `fused_decode_attention` (GQA) or `fused_mla_decode_attention` (MLA)
-    call, which writes the new caches itself; `max_len`, a host int that
-    bounds every `cache_len`, lets the MLA kernel's wrapper check the room
-    in the cache without reading the lengths from the device."""
+    call, which writes the new caches itself (on CPU tensors the wrapper
+    runs its plain version); `max_len`, a host int that bounds every
+    `cache_len`, lets the MLA kernel's wrapper check the room in the cache
+    without reading the lengths from the device."""
     _check_supported(cfg, spec)
     B = x.shape[0]
-    h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
+    h = _norm(x, p["pre_norm"], cfg)
     if cfg.attention == "mla":
-        mix, lat, pe = attn_mod.mla_decode(
+        out, lat, pe = attn_mod.mla_decode(
             p["attn"], h, cache["latent"], cache["pe"], cache_len,
             mla=cfg.mla, rope_theta=cfg.rope_theta, norm_eps=cfg.norm_eps,
             use_kernel=use_kernel, max_len=max_len)
-        return _decode_ffn(p, cfg, x + mix), dict(cache, latent=lat, pe=pe)
+        return out, dict(cache, latent=lat, pe=pe)
     size = cache["k"].shape[1]
     clen = cache_len.reshape(-1).expand(B)
     positions = clen[:, None]
     q = attn_mod.gqa_project_q(p["attn"], h, positions, cfg.rope_theta,
                                cfg.norm_eps)
-    k, v = attn_mod.gqa_project_kv(p["attn"], h, positions, cfg.rope_theta,
-                                   cfg.norm_eps)
+    k, v = attn_mod.gqa_project_kv(p["attn"], h, positions,
+                                   cfg.rope_theta, cfg.norm_eps)
     if use_kernel:
         mix, kc, vc = fused_decode_attention(
             q.contiguous(), k.contiguous(), v.contiguous(), cache["k"],
@@ -301,16 +354,27 @@ def layer_decode(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
         kc[rows, slot] = k[:, 0]
         vc[rows, slot] = v[:, 0]
         valid = torch.clamp(clen + 1, max=size)
-        mix = attn_mod.decode_attention(q, kc, vc, valid)
-    x = x + attn_mod.gqa_out(p["attn"], mix)
-    return _decode_ffn(p, cfg, x), dict(cache, k=kc, v=vc)
+        mix = attn_mod.decode_attention(
+            q, kc, vc, valid, logit_softcap=cfg.attn_logit_softcap)
+    return attn_mod.gqa_out(p["attn"], mix), dict(cache, k=kc, v=vc)
+
+
+def layer_decode(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
+                 cache, cache_len: torch.Tensor, use_kernel: bool = False,
+                 max_len: Optional[int] = None):
+    """One-token layer step. x: (B, 1, d). Returns (x, new_cache); the
+    attention and its arguments as `attn_decode`."""
+    out, cache = attn_decode(p, cfg, spec, x, cache, cache_len, use_kernel,
+                             max_len)
+    return _decode_ffn(p, cfg, _post_attn(p, cfg, x, out)), cache
 
 
 def _decode_ffn(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """The FFN half of a one-token step; a MoE layer's capacity is sized to
     the expected load (4x slack), not the worst case."""
     B, m = x.shape[0], cfg.moe
-    cap = min(B * m.top_k, max(8, -(-B * m.top_k // m.num_experts) * 4))
+    cap = None if m is None else \
+        min(B * m.top_k, max(8, -(-B * m.top_k // m.num_experts) * 4))
     return _ffn_part(p, cfg, x, capacity=cap)
 
 
@@ -329,26 +393,115 @@ class Model:
         self.dtype = torch.bfloat16 if cfg.dtype == "bfloat16" \
             else torch.float32
 
+    # -- init -----------------------------------------------------------------
     def init(self, generator: Optional[torch.Generator] = None,
              device="cuda") -> Dict[str, Any]:
         """Random params with the reference's init law, drawn on `device`
-        from `generator` (which must live on that device)."""
+        from `generator` (which must live on that device). Tied models have
+        no `lm_head`: the head is the embedding's transpose."""
         dev = resolve_device(device)
         cfg, dt = self.cfg, self.dtype
         kw = dict(generator=generator, device=dev)
         params: Dict[str, Any] = {
             "embed": embed_init(cfg.vocab_size, cfg.d_model, dt, **kw),
             "final_norm": torch.ones((cfg.d_model,), dtype=dt, device=dev),
-            "lm_head": dense_init(cfg.d_model, cfg.vocab_size, dt, **kw),
         }
+        if not cfg.tie_embeddings:
+            params["lm_head"] = dense_init(cfg.d_model, cfg.vocab_size, dt,
+                                           **kw)
         params["layers"] = [init_layer(cfg, s, dt, **kw) for s in self.specs]
         return params
 
+    # -- embedding / head -------------------------------------------------------
     def embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        return params["embed"][tokens]
+        """Token embeddings; the gemma family scales them by sqrt(d) in the
+        params' dtype, as the reference does."""
+        x = params["embed"][tokens]
+        if _zc(self.cfg):
+            x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype,
+                                 device=x.device)
+        return x
+
+    def final_hidden(self, params, h: torch.Tensor) -> torch.Tensor:
+        return _norm(h, params["final_norm"], self.cfg)
+
+    def lm_head_weight(self, params) -> torch.Tensor:
+        """(d, V): the embedding's transpose when tied."""
+        return params["embed"].T if self.cfg.tie_embeddings \
+            else params["lm_head"]
 
     def logits(self, params, h: torch.Tensor) -> torch.Tensor:
-        """Final norm + LM head; the product rounds to the params' dtype
-        before widening to fp32, as the reference's does."""
-        h = rms_norm(h, params["final_norm"], self.cfg.norm_eps)
-        return (h @ params["lm_head"]).float()
+        """Final norm + LM head (+ the final soft-cap); the product rounds
+        to the params' dtype before widening to fp32, as the reference's
+        does."""
+        out = (self.final_hidden(params, h)
+               @ self.lm_head_weight(params)).float()
+        return softcap(out, self.cfg.final_logit_softcap)
+
+    def _inputs(self, params, tokens, embeds):
+        x = self.embed(params, tokens) if embeds is None else embeds
+        B, T, _ = x.shape
+        positions = torch.arange(T, device=x.device)[None, :].expand(B, T)
+        return x, positions
+
+    # -- full-sequence forward ---------------------------------------------------
+    def forward(self, params, tokens: Optional[torch.Tensor] = None, *,
+                embeds: Optional[torch.Tensor] = None,
+                remat: bool = False) -> torch.Tensor:
+        """Final hidden states (B, T, d), before the final norm. `embeds`
+        (B, T, d) stand in for the tokens (llava's backbone); `remat=True`
+        recomputes each layer's activations in the backward pass
+        (`torch.utils.checkpoint`, one layer a segment)."""
+        cfg = self.cfg
+        x, positions = self._inputs(params, tokens, embeds)
+        for p, spec in zip(params["layers"], self.specs):
+            if remat and torch.is_grad_enabled():
+                x = torch.utils.checkpoint.checkpoint(
+                    layer_forward, p, cfg, spec, x, positions,
+                    use_reentrant=False)
+            else:
+                x = layer_forward(p, cfg, spec, x, positions)
+        return x
+
+    # -- prefill ----------------------------------------------------------------
+    def prefill(self, params, tokens: Optional[torch.Tensor] = None, *,
+                embeds: Optional[torch.Tensor] = None, max_seq: int):
+        """Run the prompt, returning (last logits (B, V) fp32, cache); the
+        cache is {"layers": [one per layer], "len": () int64 tensor}."""
+        x, positions = self._inputs(params, tokens, embeds)
+        caches = []
+        for p, spec in zip(params["layers"], self.specs):
+            x, c = layer_prefill(p, self.cfg, spec, x, positions, max_seq)
+            caches.append(c)
+        T = x.shape[1]
+        return self.logits(params, x[:, -1]), {
+            "layers": caches,
+            "len": torch.tensor(T, dtype=torch.long, device=x.device)}
+
+    # -- cache allocation ---------------------------------------------------------
+    def init_cache(self, batch: int, max_seq: int, device="cuda"):
+        """An empty cache for decode_step (nothing cached yet)."""
+        dev = resolve_device(device)
+        return {"layers": [init_layer_cache(self.cfg, s, batch, max_seq,
+                                            self.dtype, dev)
+                           for s in self.specs],
+                "len": torch.zeros((), dtype=torch.long, device=dev)}
+
+    # -- decode step ----------------------------------------------------------------
+    def decode_step(self, params, token: torch.Tensor, cache):
+        """token: (B,) int (or (B, d) embeds). Returns (logits (B, V) fp32,
+        new cache); the input cache is left as it was. Each layer's insert
+        and attention run in its decode kernel (on CPU tensors, the
+        kernel's plain version)."""
+        cache_len = cache["len"]
+        if token.dim() == 1:
+            x = self.embed(params, token[:, None])
+        else:
+            x = token[:, None, :]
+        new = []
+        for p, spec, c in zip(params["layers"], self.specs, cache["layers"]):
+            x, c2 = layer_decode(p, self.cfg, spec, x, c, cache_len,
+                                 use_kernel=True)
+            new.append(c2)
+        return self.logits(params, x[:, 0]), {"layers": new,
+                                              "len": cache_len + 1}

@@ -134,6 +134,13 @@ def build_host_store(model: Model, params) -> HostExpertStore:
     return store
 
 
+def _require_moe(cfg: ModelConfig, name: str) -> None:
+    """The engines serve MoE models only: experts are what they move."""
+    if cfg.moe is None:
+        raise ValueError(f"{name} serves MoE models only; {cfg.name} has no "
+                         "experts (run it through models.Model)")
+
+
 class Engine:
     """Whole-model engine with routing-trace collection: every weight stays
     resident, each MoE layer runs the plain grouped MoE (`moe_grouped`),
@@ -148,7 +155,7 @@ class Engine:
     def __init__(self, cfg: ModelConfig,
                  generator: Optional[torch.Generator] = None,
                  max_seq: int = 512, device="cuda"):
-        assert cfg.moe is not None, "Engine requires an MoE config"
+        _require_moe(cfg, "Engine")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model = Model(cfg)
@@ -409,7 +416,7 @@ class SlotBufferEngine:
                  degraded_recover_streak: int = 8,
                  watchdog: Optional[StepWatchdog] = None,
                  store: Optional[Any] = None, device="cuda"):
-        assert cfg.moe is not None
+        _require_moe(cfg, "SlotBufferEngine")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model = model

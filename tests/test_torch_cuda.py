@@ -8,6 +8,8 @@ with one (and the CUDA toolkit), run them with
 
 This file imports no JAX: the card's machine need not have it.
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -1113,3 +1115,147 @@ def test_tiered_engine_bitwise_to_prestaged_on_the_card(gen, tmp_path,
     assert store.snapshot()["evictions"] > 0
     assert eng.stats.host_misses > 0 and eng.stats.copy_s > 0
     store.close()
+
+
+# ---------------------------------------------------------------------------
+# the attention-only models' decode shapes: minicpm3's MLA (40 heads, more
+# than one block's 16) and gemma2's GQA (D 256, soft-cap 50, window ring)
+# ---------------------------------------------------------------------------
+
+MLA_HEAD_GROUPS = {
+    # name: (cache lengths; S, H, R, P)
+    "minicpm3_H40": ([0, 63, 128, 255], 256, 40, 256, 32),
+    "minicpm3_H40_full": ([255] * 4, 256, 40, 256, 32),
+    "deepseek_H16": ([0, 63, 128, 255], 256, 16, 512, 64),
+    "H17_off_group": ([5, 0, 31], 32, 17, 32, 8),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", list(MLA_HEAD_GROUPS))
+def test_fused_mla_decode_attention_at_every_head_count(gen, case, dtype):
+    """More than 16 heads split into groups of 16 along the grid; caches
+    bitwise equal, ctx within 2e-4 (f32: 2e-5), deterministic."""
+    clens, S, H, R, P = MLA_HEAD_GROUPS[case]
+    args = list(_mla_args(gen, clens, S, H, R, P))
+    for i in (2, 3, 4, 5):
+        args[i] = args[i].to(dtype)
+    scale = (64 + 32) ** -0.5
+    old = [a.clone() for a in args[4:6]]
+    _nan_fill_allocator()
+    before = dsk.fused_mla_decode_attention.launches
+    ctx, lat, pe = dsk.fused_mla_decode_attention(*args, scale=scale)
+    ctx2, _, _ = dsk.fused_mla_decode_attention(*args, scale=scale,
+                                                max_len=max(clens))
+    cr, lr, pr = fused_mla_decode_attention_ref(*args, scale=scale)
+    torch.cuda.synchronize()
+    assert dsk.fused_mla_decode_attention.launches == before + 2
+    assert torch.equal(lat, lr) and torch.equal(pe, pr)
+    assert torch.equal(args[4], old[0]) and torch.equal(args[5], old[1])
+    tol = 2e-4 if dtype == torch.bfloat16 else TOL_F32
+    torch.testing.assert_close(ctx, cr, rtol=tol, atol=tol)
+    assert torch.equal(ctx, ctx2), "the kernel must be deterministic"
+
+
+def _guarded(t, fill, guard=4096):
+    """A copy of `t` inside a buffer with `guard` elements of `fill` on
+    each side; returns (buffer, view)."""
+    buf = torch.full((t.numel() + 2 * guard,), fill, dtype=t.dtype,
+                     device=t.device)
+    view = buf[guard:guard + t.numel()].view(t.shape)
+    view.copy_(t)
+    return buf, view
+
+
+@pytest.mark.parametrize("case", ["minicpm3_H40", "deepseek_H16",
+                                  "H17_off_group"])
+def test_fused_mla_decode_attention_stays_inside_its_buffers(gen, case):
+    """A memory check by hand: every input and output of one launch lies
+    inside a buffer with guard bands on both sides (NaN for floats, a
+    length past the cache for `cache_len`). No guard element is written,
+    and none is read: the outputs are bitwise those of the wrapper's call
+    on unguarded tensors. Then 20 launches give the same bits."""
+    from repro_torch.kernels.decode_superkernel import LIBS
+    clens, S, H, R, P = MLA_HEAD_GROUPS[case]
+    args = _mla_args(gen, clens, S, H, R, P)
+    scale = (64 + 32) ** -0.5
+    ctx0, lat0, pe0 = dsk.fused_mla_decode_attention(*args, scale=scale)
+    ins = [_guarded(a, float("nan")) for a in args[:6]] + \
+        [_guarded(args[6], S + 12345)]
+    B = len(clens)
+    outs = [_guarded(torch.zeros((B, H, R), device="cuda"), float("nan")),
+            _guarded(torch.zeros_like(args[4]), float("nan")),
+            _guarded(torch.zeros_like(args[5]), float("nan"))]
+    lib = LIBS.get("fused_mla_decode_attention")
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = [v.data_ptr() for _, v in ins]
+    for _ in range(20):
+        for _, v in outs:
+            v.zero_()
+        err = lib.fused_mla_decode_attention_launch(
+            *ptrs[:7], 1, *(v.data_ptr() for _, v in outs), B, S, H, R, P,
+            ctypes.c_float(scale), 0, stream)
+        assert err == 0
+        torch.cuda.synchronize()
+        for (buf, v), want in zip(outs, (ctx0, lat0, pe0)):
+            assert torch.equal(v, want)
+            n = (buf.numel() - v.numel()) // 2
+            assert torch.isnan(buf[:n]).all() and torch.isnan(buf[-n:]).all()
+
+
+def test_mla_kernel_bits_hold_beside_default_sdpa(gen):
+    """At minicpm3's shape, SDPA's default backend on the yardstick's
+    inputs (q = [q_abs | q_pe], k = [latent | pe] expanded over the 40
+    heads, one boolean mask) runs between the kernel's calls: the kernel's
+    earlier outputs are not changed by it and its later calls give the same
+    bits."""
+    import torch.nn.functional as Fn
+    clens, S, H, R, P = MLA_HEAD_GROUPS["minicpm3_H40"]
+    args = _mla_args(gen, clens, S, H, R, P)
+    scale = (64 + 32) ** -0.5
+    first = dsk.fused_mla_decode_attention(*args, scale=scale)
+    keep = [t.clone() for t in first]
+    q = torch.cat([args[0], args[1]], -1)[:, :, None]
+    k = torch.cat([args[4], args[5]], -1).float()[:, None]
+    v = args[4].float()[:, None]
+    mask = torch.arange(S, device="cuda")[None] <= args[6][:, None]
+    for _ in range(5):
+        Fn.scaled_dot_product_attention(
+            q, k.expand(-1, H, -1, -1), v.expand(-1, H, -1, -1),
+            attn_mask=mask[:, None, None, :], scale=scale)
+        again = dsk.fused_mla_decode_attention(*args, scale=scale)
+        torch.cuda.synchronize()
+        for a, b, c in zip(first, keep, again):
+            assert torch.equal(a, b) and torch.equal(c, b)
+
+
+@pytest.mark.parametrize("clens", [[0, 4095, 4096, 9000], [100, 5000, 8191,
+                                                           12345]],
+                         ids=["filling", "wrapped"])
+def test_fused_decode_attention_at_gemma2_window(gen, clens):
+    """gemma2-9b's local layer: Hq 16, Hkv 8, D 256, a 4096-row window ring
+    (lengths past it wrap), soft-cap 50. Queries at 8x, so the scores reach
+    the tens and the cap changes them by O(1). The kernel works in fp32 and
+    rounds once: its bf16 output lies within half a bf16 step (2^-8
+    relative) plus 1e-4 of the plain version on the inputs widened to f32,
+    and the uncapped output lies more than 10x that far away."""
+    args = list(_attn_args(gen, clens, 4096, 16, 8, 256))
+    args[0] = args[0] * 8
+    old = [a.clone() for a in args[3:5]]
+    kw = dict(logit_softcap=50.0, scale=256 ** -0.5)
+    o, kc, vc = dsk.fused_decode_attention(*args, **kw)
+    o2, _, _ = dsk.fused_decode_attention(*args, **kw)
+    _, kr, vr = fused_decode_attention_ref(*args, **kw)
+    wide = [a.float() if a.is_floating_point() else a for a in args]
+    r = fused_decode_attention_ref(*wide, **kw)[0]
+    r_nocap = fused_decode_attention_ref(*wide, scale=256 ** -0.5)[0]
+    torch.cuda.synchronize()
+    assert torch.isfinite(o).all()
+    assert torch.equal(kc, kr) and torch.equal(vc, vr)
+    assert torch.equal(args[3], old[0]) and torch.equal(args[4], old[1])
+    allowed = 2.0 ** -8 * r.abs() + 1e-4
+    assert bool(((o.float() - r).abs() <= allowed).all()), \
+        float((o.float() - r).abs().max())
+    assert float((r_nocap - r).abs().max()) > 10 * float(allowed.max())
+    assert torch.equal(o, o2), "the kernel must be deterministic"
