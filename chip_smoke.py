@@ -55,7 +55,11 @@ the last line:
      gemma2-9b's local layer (Hq=16, Hkv=8, D=256, a 4096-row ring, lengths
      that wrap it, softcap 50, queries at 8x so the cap changes the
      scores by O(1); its out within half a bf16 step (+ 1e-4) of the plain
-     version in f32, the uncapped output more than 10x that away): new
+     version in f32, the uncapped output more than 10x that away),
+     recurrentgemma-2b's local MQA layer (Hq=10, Hkv=1: G=10, not a power
+     of two; D=256, a 2048-row ring, lengths 100, 2047, 2100, 5000) and
+     whisper-large-v3's decoder self-attention (Hq=Hkv=20, D=64, S=256,
+     lengths 0, 63, 128, 255): new
      caches bitwise equal, out finite and within 2e-2, with the kernel's
      device time (profiler) and a clone + insert + SDPA yardstick
      (`enable_gqa` where G > 1);
@@ -251,8 +255,8 @@ the last line:
      (`attn_decode`, before the post-norm and the residual add) with
      `use_kernel=True` against `use_kernel=False`: new caches bitwise,
      output within 2e-2 absolute (one bf16 step where a value passes
-     2.56). The two attention kernels' launches are
-     this path's counts;
+     2.56). The two attention kernels' launches in `decode_step` are this
+     path's counts (the comparison's own are not counted);
    - (b) olmoe-1b-7b, 4 layers, 4 x 512 tokens of `token_batches(seed=0)`,
      `remat=True`, 10 AdamW steps: every loss finite, the mean of the last
      3 below the first; ms/step, tokens/s, peak memory;
@@ -265,7 +269,36 @@ the last line:
      on the card within 1e-4 of the CPU's on the same params and batch;
    - (f) `launch/train.py --smoke --device cuda --steps 20` in process:
      the final loss below the first;
-15. last, a `{"kernels": [...]}` line (per kernel: `launches` summed over
+15. the recurrent and encoder-decoder models on the plain `Model` API
+   (`models/recurrent.py`, `models/xlstm.py`, cross-attention and
+   `Model.encode`), then their training, at published widths, depth cut
+   as `REC_DEPTH` says (recurrentgemma-2b two (rec, rec, attn) units,
+   xlstm-1.3b its sLSTM layers 0 and 8 with the seven mLSTM layers between,
+   whisper-large-v3 4 encoder and 4 decoder layers over its 1500 source
+   frames):
+   - (a) `prefill` + 4 `decode_step`s against `forward` on the grown
+     sequence: prefill's last logits within 2e-2, decode by the near-tie
+     rule (max |dlogit| printed); recurrentgemma's prompt is 2080 tokens
+     at batch 2 (its local layers' 2048-row rings wrap), xlstm's 64,
+     whisper's 32 over random frames from the seed;
+   - (b) at the first decode step every attention layer's attention part
+     (`attn_decode`: recurrentgemma's local MQA, whisper's decoder
+     self-attention) with `use_kernel=True` against `use_kernel=False`:
+     new caches bitwise, output within 2e-2 absolute. The GQA kernel's
+     launches counted for this path are those of `decode_step` (the
+     comparison's own are not counted);
+   - (c) `rglru_block`, `mlstm_block` and `slstm_block` at full width in
+     f32, an 8-token prefill and one decode step, card against CPU within
+     1e-4 (outputs and states);
+   - (d) the reference test's one-batch descent on xlstm smoke (5 AdamW
+     steps, lr 1e-3, the loss falls), then f32 smoke recurrentgemma, xlstm
+     and whisper (with frames): loss and every gradient on the card within
+     1e-4 of the CPU's;
+   - (e) the phase's seconds, each model's prefill ms and ms per decode
+     step, and each recurrent kind's time loop against its whole block
+     (one layer at the model's prompt length: the loop's share), beside
+     the card's name and power limit;
+16. last, a `{"kernels": [...]}` line (per kernel: `launches` summed over
    the runs whose path runs it, the kernel API's for `topk_gating` and
    `expert_ffn`, `launches_by_path` per run; times at the shape its entry
    names, every measured shape under `shapes`), the total time, then the
@@ -327,8 +360,8 @@ prefetch-on row phase 13 prints beside its own) and phase 13, writes
 
     python3 chip_smoke.py --train
 
-runs phases 1-2 and 14, writes `chiprun_out/chip_smoke_train.json` and
-prints no result.
+runs phases 1-2, 14 and 15, writes `chiprun_out/chip_smoke_train.json`
+and prints no result.
 """
 import contextlib
 import dataclasses
@@ -1136,7 +1169,13 @@ def attention_phase(torch, dsk, ref, g):
              "qwen3_G16": (64, 4, 128, 256, [0, 63, 128, 255]),
              # gemma2-9b's local layer: a 4096-row window ring, lengths
              # that wrap it, soft-cap 50 (held by gemma2_held below)
-             "gemma2_local": (16, 8, 256, 4096, [100, 4095, 5000, 12345])}
+             "gemma2_local": (16, 8, 256, 4096, [100, 4095, 5000, 12345]),
+             # recurrentgemma-2b's local MQA layer: G = 10, a 2048-row
+             # window ring, lengths that wrap it
+             "recurrentgemma_local": (10, 1, 256, 2048,
+                                      [100, 2047, 2100, 5000]),
+             # whisper-large-v3's decoder self-attention (no rope)
+             "whisper_decoder": (20, 20, 64, 256, [0, 63, 128, 255])}
     results = {}
     for name, (Hq, Hkv, D, S, clens) in cases.items():
         gemma2 = name.startswith("gemma2")
@@ -3489,6 +3528,10 @@ def api_run(torch, tm, arch, dev, g, smoke):
         for i in range(API_STEPS):
             tok = seq[:, T + i] if cfg.uses_input_embeds else nxt
             if i == 0:      # every layer: kernel decode against plain
+                # (the comparison's launches are not the path's)
+                n0 = {k: getattr(tm["dsk"], k).launches for k in
+                      ("fused_decode_attention",
+                       "fused_mla_decode_attention")}
                 x = tok[:, None] if tok.dim() == 2 else \
                     model.embed(params, tok[:, None])
                 clen = cache["len"]
@@ -3517,6 +3560,8 @@ def api_run(torch, tm, arch, dev, g, smoke):
                          "max_abs_out": float(ap.float().abs().max())})
                     x, _ = tm["transformer"].layer_decode(
                         p, cfg, sp, x, c, clen, use_kernel=True)
+                for k, v in n0.items():
+                    getattr(tm["dsk"], k).launches = v
             ld, cache = model.decode_step(params, tok, cache)
             if cfg.uses_input_embeds:
                 h = model.forward(params, **inp(T + i + 1))
@@ -3735,11 +3780,357 @@ def train_phase(torch, np, dev="cuda", smoke=False):
     return res, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the recurrent and encoder-decoder models on the plain Model API,
+# then their training
+# ---------------------------------------------------------------------------
+
+# Depth cuts of phase 15 (widths, heads, vocabularies as published): arch ->
+# (layers, why); whisper's encoder is cut to its decoder's depth.
+REC_DEPTH = {
+    "recurrentgemma-2b": (6, "two (rec, rec, attn) units of its 26 layers: "
+                             "four RG-LRU layers and two local-attention "
+                             "layers"),
+    "xlstm-1.3b": (9, "9 of 48: its sLSTM layers 0 and 8 with the seven "
+                      "mLSTM layers between (a prefill runs a loop step a "
+                      "token per layer over a 16 MiB state a row)"),
+    "whisper-large-v3": (4, "4 of 32 decoder and 4 of 32 encoder layers, "
+                            "over its full 1500 source frames")}
+REC_PROMPT = {"recurrentgemma-2b": 2080,    # > the 2048-row window
+              "xlstm-1.3b": 64, "whisper-large-v3": 32}
+REC_BATCH = 2
+REC_STEPS = 4            # decode steps, each against forward
+REC_MIXER_T = 8          # (c): the mixers' prefill tokens
+REC_GRADS = ("recurrentgemma-2b", "xlstm-1.3b", "whisper-large-v3")
+
+
+def rec_mods():
+    """The port's modules phase 15 drives, imported after the build."""
+    from repro_torch.models import recurrent, xlstm
+    tm = train_mods()
+    tm.update(recurrent=recurrent, xlstm=xlstm)
+    return tm
+
+
+def rec_config(tm, arch, smoke):
+    if smoke:
+        return tm["get_smoke_config"](arch)
+    cfg = tm["get_config"](arch)
+    n = REC_DEPTH[arch][0]
+    return dataclasses.replace(cfg, num_layers=n, name=f"{cfg.name}@{n}",
+                               encoder_layers=min(cfg.encoder_layers, n))
+
+
+def sync(torch, dev):
+    if dev == "cuda":
+        torch.cuda.synchronize()
+
+
+def rec_api_run(torch, tm, arch, dev, g, smoke):
+    """One model: prefill + REC_STEPS decode steps against forward on the
+    grown sequence, and every attention layer's kernel decode against its
+    plain decode at the first step (those launches are not the path's)."""
+    tf, dsk = tm["transformer"], tm["dsk"]
+    cfg = rec_config(tm, arch, smoke)
+    T = REC_PROMPT[arch] if not smoke else \
+        (20 if arch == "recurrentgemma-2b" else 16)
+    model = tf.Model(cfg)
+    B = REC_BATCH
+    t0 = time.perf_counter()
+    params = model.init(g, device=dev)
+    sync(torch, dev)
+    res = {"layers": cfg.num_layers, "kinds": [s.kind for s in model.specs],
+           "prompt": T, "init_s": time.perf_counter() - t0}
+    toks = torch.randint(0, cfg.vocab_size, (B, T), generator=g, device=dev)
+    t0 = time.perf_counter()
+    enc = {}
+    with torch.no_grad():
+        if cfg.is_encoder_decoder:
+            S = cfg.max_source_positions
+            frames = torch.randn((B, S, cfg.d_model), generator=g,
+                                 device=dev).to(model.dtype)
+            enc = {"enc_out": model.encode(params, frames)}
+            res.update(source_frames=S, encoder_layers=cfg.encoder_layers)
+        fwd = model.logits(params, model.forward(params, toks, **enc)[:, -1])
+        sync(torch, dev)
+        t1 = time.perf_counter()
+        lp, cache = model.prefill(params, toks, max_seq=T + REC_STEPS + 4,
+                                  **enc)
+        sync(torch, dev)
+        res["prefill_ms"] = 1e3 * (time.perf_counter() - t1)
+        e = float((lp - fwd).abs().max())
+        check(torch.allclose(lp, fwd, rtol=TOL, atol=TOL),
+              f"[{arch}] prefill's last logits part from forward's: "
+              f"max |d| {e}")
+        res["prefill_max_abs_dlogit"] = e
+        nxt = lp.argmax(-1)
+        errs, step_ms, layer_checks = [], [], []
+        for i in range(REC_STEPS):
+            if i == 0:      # every attention layer: kernel against plain
+                n0 = dsk.fused_decode_attention.launches
+                clen = cache["len"]
+                x = model.embed(params, nxt[:, None],
+                                positions=clen.reshape(-1, 1).expand(B, 1))
+                for li, (p, sp, c) in enumerate(zip(
+                        params["layers"], model.specs, cache["layers"])):
+                    if sp.kind == "attn":
+                        ak, ck = tf.attn_decode(p, cfg, sp, x, c, clen,
+                                                use_kernel=True)
+                        ap, cp = tf.attn_decode(p, cfg, sp, x, c, clen,
+                                                use_kernel=False)
+                        for name in ck:
+                            check(torch.equal(ck[name], cp[name]),
+                                  f"[{arch}] layer {li}: the kernel's new "
+                                  f"{name} cache differs from the plain one")
+                        le = float((ak.float() - ap.float()).abs().max())
+                        check(le <= TOL, f"[{arch}] layer {li}: the "
+                                         f"kernel's attention parts from "
+                                         f"plain by {le}")
+                        layer_checks.append(
+                            {"layer": li, "max_abs_err": le,
+                             "max_abs_out": float(ap.float().abs().max())})
+                    x, _ = tf.layer_decode(p, cfg, sp, x, c, clen,
+                                           use_kernel=True)
+                dsk.fused_decode_attention.launches = n0
+            sync(torch, dev)
+            t1 = time.perf_counter()
+            ld, cache = model.decode_step(params, nxt, cache)
+            sync(torch, dev)
+            step_ms.append(1e3 * (time.perf_counter() - t1))
+            toks = torch.cat([toks, nxt[:, None]], 1)
+            h = model.forward(params, toks, **enc)
+            ref = model.logits(params, h[:, -1])
+            errs.append(near_tie_held(torch, ld, ref, f"{arch} step {i}"))
+            nxt = ld.argmax(-1)
+    sync(torch, dev)
+    if dev == "cuda":
+        res["loop_shares"] = loop_shares(torch, tm, cfg, params, model.specs,
+                                         T, g)
+    res.update(decode_max_abs_dlogit=errs, layer_kernel_vs_plain=layer_checks,
+               decode_step_ms=step_ms,
+               ms_per_decode_step=statistics.median(step_ms),
+               max_abs_logit=float(ld.abs().max()),
+               finite=bool(torch.isfinite(ld).all()),
+               run_s=time.perf_counter() - t0)
+    check(res["finite"], f"[{arch}] decode logits not finite")
+    check(any(s.kind == "attn" for s in model.specs) == bool(layer_checks),
+          f"[{arch}] an attention layer went unchecked")
+    del params, cache, enc
+    return res
+
+
+def loop_shares(torch, tm, cfg, params, specs, T, g):
+    """(e): each recurrent kind's time loop against its whole block, one
+    layer of this model at its prompt's length, bf16 on the card (CUDA-event
+    medians): the loop's share of the block's time."""
+    rec, xl = tm["recurrent"], tm["xlstm"]
+    B, H = REC_BATCH, cfg.num_heads
+    out = {}
+    for p, sp in zip(params["layers"], specs):
+        if sp.kind == "attn" or sp.kind in out:
+            continue
+        dev = p["pre_norm"].device
+        h = torch.randn((B, T, cfg.d_model), generator=g,
+                        device=dev).to(p["pre_norm"].dtype)
+        if sp.kind == "rec":
+            r = p["rec"]
+            xb, _ = rec._temporal_conv(h @ r["w_x"], r["conv_w"],
+                                       r["conv_b"])
+            a, b = rec._rglru_coeffs(r, xb.float())
+
+            def block():
+                rec.rglru_block(r, h)
+
+            def loop():
+                rec.rglru_scan(a, b)
+        else:
+            m = p["mix"]
+            mlstm = sp.kind == "mlstm"
+            if mlstm:
+                u = h @ m["w_up"]
+                u = u[..., :u.shape[-1] // 2]
+                proj = xl._mlstm_project(m, H, u)
+                st0 = xl.mlstm_zero_state(B, H, u.shape[-1] // H, dev)
+            else:
+                proj = xl._slstm_project(m, H, h)
+                st0 = xl.slstm_zero_state(B, H, cfg.d_model // H, dev)
+
+            def block(fn=xl.mlstm_block if mlstm else xl.slstm_block):
+                fn(m, h, H)
+
+            def loop(mlstm=mlstm, proj=proj, st0=st0):
+                st = st0
+                for t in range(T):
+                    step = [x[:, t] for x in proj]
+                    st, _ = xl._mlstm_step(st, step) if mlstm else \
+                        xl._slstm_step(m, st, step)
+        with torch.no_grad():
+            b_ms = time_ms(torch, block, reps=3, inner=1)
+            l_ms = time_ms(torch, loop, reps=3, inner=1)
+        out[sp.kind] = {"tokens": T, "block_ms": b_ms, "loop_ms": l_ms,
+                        "loop_share": l_ms / b_ms}
+    return out
+
+
+def mixers_card_vs_cpu(torch, tm, dev, smoke):
+    """(c): each recurrent mixer at its published width in f32, params
+    drawn on `dev` and copied to the CPU: an REC_MIXER_T-token prefill from
+    no state, then one decode step from the CPU's state, on both; outputs
+    and states within TOL_CARD_CPU."""
+    rec, xl = tm["recurrent"], tm["xlstm"]
+    g = torch.Generator(device=dev).manual_seed(SEED + 15)
+    get = tm["get_smoke_config"] if smoke else tm["get_config"]
+    rg, xc = get("recurrentgemma-2b"), get("xlstm-1.3b")
+    f32 = torch.float32
+
+    def rg_run(p, x, st):
+        out, c, r = rec.rglru_block(p, x, conv_state=st and st[0],
+                                    rec_state=st and st[1],
+                                    decode=st is not None)
+        return out, (c, r)
+
+    def xl_run(fn):
+        return lambda p, x, st: fn(p, x, xc.num_heads, state=st,
+                                   decode=st is not None)
+
+    cases = {
+        "rglru_block": (rec.init_rglru_block(
+            rg.d_model, rg.lru_width or rg.d_model, rg.conv1d_width, f32,
+            generator=g, device=dev), rg_run, rg.d_model),
+        "mlstm_block": (xl.init_mlstm_block(
+            xc.d_model, xc.num_heads, xc.proj_factor, f32, generator=g,
+            device=dev), xl_run(xl.mlstm_block), xc.d_model),
+        "slstm_block": (xl.init_slstm_block(
+            xc.d_model, xc.num_heads, xc.proj_factor, f32, generator=g,
+            device=dev), xl_run(xl.slstm_block), xc.d_model)}
+    out = {}
+    for name, (p, run, d) in cases.items():
+        pc = {k: v.cpu() for k, v in p.items()}
+        x = torch.randn((REC_BATCH, REC_MIXER_T, d), generator=g, device=dev)
+        xd = torch.randn((REC_BATCH, 1, d), generator=g, device=dev)
+        with torch.no_grad():
+            want, st = run(pc, x.cpu(), None)
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            got, st_d = run(p, x, None)
+            sync(torch, dev)
+            prefill_ms = 1e3 * (time.perf_counter() - t0)
+            want_d, st2 = run(pc, xd.cpu(), st)
+            moved = [t.to(dev) for t in st]
+            st_on = type(st)(*moved) if hasattr(st, "_fields") \
+                else tuple(moved)
+            t0 = time.perf_counter()
+            got_d, st2_d = run(p, xd, st_on)
+            sync(torch, dev)
+            decode_ms = 1e3 * (time.perf_counter() - t0)
+        pairs = list(zip((got, got_d, *st_d, *st2_d),
+                         (want, want_d, *st, *st2)))
+        err = max(float((a.cpu() - b).abs().max()) for a, b in pairs)
+        check(all(torch.allclose(a.cpu(), b, rtol=TOL_CARD_CPU,
+                                 atol=TOL_CARD_CPU) for a, b in pairs),
+              f"[phase 15 (c)] {name}: card and CPU part by {err}")
+        out[name] = {"d_model": d, "tokens": REC_MIXER_T,
+                     "max_abs_err": err, "prefill_ms": prefill_ms,
+                     "decode_ms": decode_ms}
+        del p, pc
+    return out
+
+
+def recurrent_phase(torch, np, gpu, dev="cuda", smoke=False):
+    """Phase 15 (see the module docstring); `gpu` is the card's nvidia-smi
+    line, printed beside every time. `smoke` runs every part at the smoke
+    configs (a CPU rehearsal). Returns (results, launches)."""
+    tm = rec_mods()
+    dsk = tm["dsk"]
+    cuda = dev == "cuda"
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    res = {"gpu": gpu, "depth": {k: v[0] for k, v in REC_DEPTH.items()},
+           "depth_why": {k: v[1] for k, v in REC_DEPTH.items()}}
+    for arch, (n, why) in REC_DEPTH.items():
+        log(f"[phase 15] {arch} cut to {n} layers: {why}")
+    t_phase = time.perf_counter()
+
+    # (a) + (b): the Model API, the GQA decode kernel counted
+    dsk.fused_decode_attention.launches = 0
+    api = {}
+    for arch in REC_DEPTH:
+        api[arch] = rec_api_run(torch, tm, arch, dev, g, smoke)
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        log(f"[phase 15 (a)] {arch} ({gpu}): {json.dumps(api[arch])}")
+    launches = {"fused_decode_attention": dsk.fused_decode_attention.launches}
+    if cuda:
+        check(launches["fused_decode_attention"] > 0,
+              "[phase 15 (a)] fused_decode_attention never launched")
+    res["api"] = api
+
+    # (c) the mixers at full width, card against CPU in f32
+    res["mixers_card_vs_cpu"] = mixers_card_vs_cpu(torch, tm, dev, smoke)
+    log(f"[phase 15 (c)] ({gpu}) {json.dumps(res['mixers_card_vs_cpu'])}")
+    gc.collect()
+
+    # (d) training: the reference test's descent on xlstm smoke, then loss
+    # and every gradient on the card against the CPU (f32 smoke)
+    cfg = tm["get_smoke_config"]("xlstm-1.3b")
+    model = tm["transformer"].Model(cfg)
+    params, opt = tm["steps"].init_train_state(model, g, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, 16), generator=g, device=dev)
+    step = tm["steps"].make_train_step(model, lr=1e-3, remat=False,
+                                       ce_chunk=64)
+    losses = []
+    for _ in range(5):
+        params, opt, met = step(params, opt, {"tokens": toks,
+                                              "labels": toks})
+        losses.append(float(met["loss"]))
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"[phase 15 (d)] xlstm smoke did not descend: {losses}")
+    res["train_xlstm"] = {"losses": losses}
+    log(f"[phase 15 (d)] xlstm smoke losses {losses}")
+    card_cpu = {}
+    for arch in REC_GRADS:
+        cfg = dataclasses.replace(tm["get_smoke_config"](arch),
+                                  dtype="float32")
+        model = tm["transformer"].Model(cfg)
+        pc = model.init(torch.Generator().manual_seed(SEED), device="cpu")
+        toks, labels = next(tm["token_batches"](cfg.vocab_size, 2, 32))
+        bc = {"tokens": torch.from_numpy(toks).long(),
+              "labels": torch.from_numpy(labels).long()}
+        if cfg.is_encoder_decoder:
+            bc["frames"] = torch.randn(
+                (2, 24, cfg.d_model), generator=torch.Generator()
+                .manual_seed(SEED + 1))
+        vg = tm["steps"].value_and_grad(tm["steps"].make_loss_fn(
+            model, remat=False, ce_chunk=16))
+        lc, gc_ = vg(pc, bc)
+        ld, gd = vg(tm["tree_map"](lambda x: x.to(dev), pc),
+                    {k: v.to(dev) for k, v in bc.items()})
+        pairs = list(zip(tm["tree_leaves"](gd), tm["tree_leaves"](gc_)))
+        err = max(float((a.cpu() - b).abs().max()) for a, b in pairs)
+        lerr = abs(float(ld) - float(lc))
+        check(lerr <= TOL_CARD_CPU * (1 + abs(float(lc))) and all(
+            torch.allclose(a.cpu(), b, rtol=TOL_CARD_CPU, atol=TOL_CARD_CPU)
+            for a, b in pairs), f"[phase 15 (d)] {arch}: card and CPU "
+              f"part: loss {lerr}, grads max |d| {err}")
+        card_cpu[arch] = {"loss": float(lc), "loss_err": lerr,
+                          "grad_max_abs_err": err, "leaves": len(pairs)}
+    res["card_vs_cpu"] = card_cpu
+    log(f"[phase 15 (d)] {json.dumps(card_cpu)}")
+
+    # (e) timing
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"[phase 15 (e)] ({gpu}) done in {res['phase_s']:.1f} s; prefill "
+        f"ms, ms per decode step, loop shares: " + json.dumps(
+            {a: [r["prefill_ms"], r["ms_per_decode_step"],
+                 r.get("loop_shares")] for a, r in api.items()}))
+    return res, launches
+
+
 def main(argv) -> int:
     only = None            # --kernels[=a,b]: phases 1-3 only, no result
     disk_only = False      # --disk: phase 1 and the disk probe, no result
     horizon_only = False   # --horizon: phases 1-2, 5's base and 13
-    train_only = False     # --train: phases 1-2 and 14
+    train_only = False     # --train: phases 1-2, 14 and 15
     for a in argv:
         if a == "--disk":
             disk_only = True
@@ -3797,11 +4188,13 @@ def main(argv) -> int:
     build_info = build_report(build)
     if train_only:
         res, counts = train_phase(torch, np)
+        rec_res, rec_counts = recurrent_phase(torch, np, smi[0])
         teardown(torch)
         out_dir = ROOT / "chiprun_out"
         out_dir.mkdir(exist_ok=True)
         (out_dir / "chip_smoke_train.json").write_text(json.dumps(
             {"gpu": smi[0], "train": res, "launches": counts,
+             "recurrent": rec_res, "recurrent_launches": rec_counts,
              "total_s": time.perf_counter() - t_start}, indent=1,
             default=str))
         log(f"--train: phases 3-13 skipped, no result "
@@ -3944,6 +4337,14 @@ def main(argv) -> int:
     train_res, _ = train_phase(torch, np)
     launches["phase 14 model API"] = counters(mods)
     log(f"phase 14 done at {time.perf_counter() - t_start:.1f} s")
+
+    # ---- phase 15: the recurrent and encoder-decoder models, then their
+    # training; its path's counts set to 0 just before it and read after
+    for n in KERNELS:
+        mods[n].launches = 0
+    rec_res, _ = recurrent_phase(torch, np, smi[0])
+    launches["phase 15 recurrent and enc-dec"] = counters(mods)
+    log(f"phase 15 done at {time.perf_counter() - t_start:.1f} s")
     teardown(torch)
 
     src = "src/repro_torch/kernels/csrc/"
@@ -3980,7 +4381,7 @@ def main(argv) -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"gpu": smi[0], "kernels": kernels["kernels"], "serving": serving,
          "faults": fault_runs, "tier": tier_runs, "horizon": horizon_runs,
-         "train": train_res,
+         "train": train_res, "recurrent": rec_res,
          "kernel_api_max_abs_err": api_errs,
          "total_s": time.perf_counter() - t_start}, indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -5,12 +5,15 @@ The input is the reference tree with every leaf already a numpy array
 the ``prefix``/``tail`` lists of per-layer dicts and the ``unit`` list of
 per-pattern-position dicts whose leaves are stacked over unit repeats; a
 gemma2 layer's dict carries its post-norms, an MLA layer's its latent
-projections). The output is the port's flat tree (``{"embed",
-"final_norm", ["lm_head"], "layers": [...]}``) of torch tensors, each
-layer dict with the reference's keys.
+projections; an encoder-decoder's ``encoder`` holds ``layers``, stacked
+over its depth, and ``final_norm``). The output is the port's flat tree
+(``{"embed", "final_norm", ["lm_head"], "layers": [...], ["encoder":
+{"layers": [...], "final_norm"}]}``) of torch tensors, each layer dict
+with the reference's keys.
 
 bfloat16 leaves move bitwise through a ``uint16`` view; other dtypes are
-copied as they are. Nothing here knows about the framework that made the
+copied as they are (the fp32 leaves of a bf16 model, such as the
+recurrent mixers' gate weights, stay fp32). Nothing here knows about the framework that made the
 arrays.
 """
 from __future__ import annotations
@@ -72,4 +75,11 @@ def params_from_reference(tree: Dict[str, Any], device="cpu"
                            for k in ("embed", "final_norm", "lm_head")
                            if k in tree}
     out["layers"] = [_map(p, conv) for p in unstack_layers(tree)]
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        n = int(np.shape(next(_leaves(enc["layers"])))[0])
+        out["encoder"] = {
+            "layers": [_map(_unit_layer(enc["layers"], i), conv)
+                       for i in range(n)],
+            "final_norm": conv(enc["final_norm"])}
     return out

@@ -1,11 +1,11 @@
 """Architecture registry: ``--arch <id>`` resolution for the ported configs.
 
-The port carries the architectures it runs: the attention-only ones (GQA,
-MHA or MLA attention, global or sliding-window, dense or MoE FFN). The
-serving runtime takes the MoE models among them (olmoe, DeepSeek-V2-Lite
-and the three Qwen MoE models); the plain `Model` API and training take
-all. recurrentgemma, xlstm and whisper arrive with the slices that port
-their layer kinds.
+The port carries every architecture of the reference: the attention-only
+ones (GQA, MHA or MLA attention, global or sliding-window, dense or MoE
+FFN), recurrentgemma (RG-LRU and local attention), xlstm (mLSTM and sLSTM)
+and whisper (encoder-decoder). The serving runtime takes the MoE models
+among them (olmoe, DeepSeek-V2-Lite and the three Qwen MoE models); the
+plain `Model` API and training take all.
 """
 from __future__ import annotations
 
@@ -26,6 +26,9 @@ _MODULES: Dict[str, str] = {
     "qwen1.5-moe-a2.7b": "qwen15_moe_a2_7b",
     "qwen2-moe-57b": "qwen2_moe_57b",
     "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
+    "xlstm-1.3b": "xlstm_1_3b",
+    "whisper-large-v3": "whisper_large_v3",
 }
 
 ARCH_IDS: List[str] = list(_MODULES)

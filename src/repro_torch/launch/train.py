@@ -82,6 +82,13 @@ def main(argv=None) -> dict:
         if runner.restore_if_available(state):
             print(f"resumed from step {runner.step}")
 
+    if cfg.is_encoder_decoder:
+        # the reference's CLI feeds token batches only; an encoder-decoder's
+        # loss needs frames too, which no data source here makes
+        raise NotImplementedError(
+            f"{cfg.name} is an encoder-decoder: its loss takes (frames, "
+            "tokens) batches, and this CLI feeds token batches only; train "
+            "it through training.steps with a batch that holds 'frames'")
     data = token_batches(cfg.vocab_size, args.batch, args.seq)
 
     def batches():

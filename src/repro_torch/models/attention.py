@@ -7,8 +7,10 @@ an online softmax, so the (T x S) score matrix is never materialised, and it
 skips key blocks that causality or the window masks out entirely. Layouts
 follow the reference: q (B, T, Hq, D), k/v (B, S, Hkv, D). `q_offset`
 resumes a prefill at an absolute position (chunked prefill:
-`gqa_prefill_chunk`, `mla_prefill_chunk`). Cross-attention (whisper) is not
-ported yet.
+`gqa_prefill_chunk`, `mla_prefill_chunk`). Cross-attention (whisper):
+`gqa_attention(kv_override=)` over the whole sequence and
+`gqa_decode(cross=True)` for one token, both plain PyTorch, as the
+reference's are.
 """
 from __future__ import annotations
 
@@ -177,11 +179,16 @@ def gqa_out(params, mix: torch.Tensor) -> torch.Tensor:
 def gqa_attention(params, x: torch.Tensor, *, positions: torch.Tensor,
                   rope_theta: float, window: int = 0, causal: bool = True,
                   logit_softcap: float = 0.0, scale: Optional[float] = None,
-                  norm_eps: float = 1e-6) -> torch.Tensor:
-    """Self-attention over the whole sequence (prefill / train). x: (B, T,
-    d) -> (B, T, d)."""
+                  norm_eps: float = 1e-6,
+                  kv_override: Optional[tuple] = None) -> torch.Tensor:
+    """Attention over the whole sequence (prefill / train). x: (B, T, d) ->
+    (B, T, d). `kv_override=(k, v, kv_pos)` is cross-attention: k, v (B, S,
+    Hkv, D) stand in for x's own, and take neither qk-norm nor rope."""
     q = gqa_project_q(params, x, positions, rope_theta, norm_eps)
-    k, v = gqa_project_kv(params, x, positions, rope_theta, norm_eps)
+    if kv_override is None:
+        k, v = gqa_project_kv(params, x, positions, rope_theta, norm_eps)
+    else:
+        k, v, _ = kv_override
     out = flash_attention(q, k, v, causal=causal, window=window,
                           logit_softcap=logit_softcap, scale=scale)
     return gqa_out(params, out)
@@ -192,26 +199,35 @@ def gqa_decode(params, x: torch.Tensor, k_cache: torch.Tensor,
                window: int = 0, logit_softcap: float = 0.0,
                scale: Optional[float] = None, norm_eps: float = 1e-6,
                cross: bool = False, use_kernel: bool = False):
-    """One-token self-attention. x: (B, 1, d); cache_len: () or (B,)
-    integer, the positions cached before this token. Returns (out (B, 1,
-    d), k_cache, v_cache): the new token's K/V lands at position
-    `cache_len` of each row (positional; the caller sizes the cache) in
-    NEW cache tensors. `use_kernel=True` inserts and attends in one
-    `fused_decode_attention` call; it takes no window, since the kernel
-    attends to its whole cache as a ring (a window layer's decode kernel
-    runs on its window-sized ring, `transformer.attn_decode`) and raises.
-    Cross-attention (`cross=True`, whisper) is not ported yet and raises."""
-    if cross:
-        raise NotImplementedError(
-            "cross-attention decode arrives with whisper's slice")
-    if use_kernel and window:
+    """One-token attention. x: (B, 1, d); cache_len: () or (B,) integer.
+    Returns (out (B, 1, d), k_cache, v_cache).
+
+    Self-attention: `cache_len` counts the positions cached before this
+    token, whose K/V lands at position `cache_len` of each row (positional;
+    the caller sizes the cache) in NEW cache tensors. `use_kernel=True`
+    inserts and attends in one `fused_decode_attention` call; it takes no
+    window, since the kernel attends to its whole cache as a ring (a window
+    layer's decode kernel runs on its window-sized ring,
+    `transformer.attn_decode`) and raises.
+
+    Cross-attention (`cross=True`, whisper): the caches hold the encoder's
+    K/V and are read, not written; `cache_len` is the source length
+    attended to, and q takes no rope. It has no kernel (the reference runs
+    it plain too), so `use_kernel=True` raises."""
+    if use_kernel and (window or cross):
         raise ValueError(
-            "gqa_decode(use_kernel=True) takes no window: the decode kernel "
-            "attends to the whole cache; decode a window layer on its "
-            "window-sized ring (transformer.attn_decode)")
+            "gqa_decode(use_kernel=True) takes no window and no cross-"
+            "attention: the decode kernel inserts into and attends to its "
+            "whole cache; decode a window layer on its window-sized ring "
+            "(transformer.attn_decode), cross-attention plain")
     B = x.shape[0]
     clen = torch.as_tensor(cache_len, device=x.device).reshape(-1).expand(B)
     positions = clen[:, None]
+    if cross:
+        q = gqa_project_q(params, x, positions, 0.0, norm_eps)
+        out = decode_attention(q, k_cache, v_cache, clen, window=window,
+                               logit_softcap=logit_softcap, scale=scale)
+        return gqa_out(params, out), k_cache, v_cache
     q = gqa_project_q(params, x, positions, rope_theta, norm_eps)
     k, v = gqa_project_kv(params, x, positions, rope_theta, norm_eps)
     if use_kernel:

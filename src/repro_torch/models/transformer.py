@@ -1,20 +1,25 @@
-"""Decoder stack of the attention-only architectures: GQA (or MHA) or MLA
-layers, global or sliding-window, with logit soft-caps and post-norms
-(gemma2), a MoE FFN (routed experts, optionally shared experts) or a dense
-SwiGLU FFN, tied or untied embeddings, token or input-embedding (llava)
-inputs. Recurrent mixers (recurrentgemma, xlstm), the encoder-decoder
-(whisper) and absolute positions are not ported yet and raise.
+"""Decoder stack of every architecture the reference runs. A layer's
+mixer is GQA (or MHA) or MLA attention, global or sliding-window, with
+logit soft-caps and post-norms (gemma2); recurrentgemma's RG-LRU block
+(`models.recurrent`); or xLSTM's mLSTM / sLSTM block (`models.xlstm`).
+Whisper's decoder layers add cross-attention to the encoder's output
+(`Model.encode`) and its embeddings sinusoidal absolute positions. The
+FFN is a MoE (routed experts, optionally shared experts) or a dense gated
+FFN (SwiGLU; GELU-gated for the encoder-decoder); embeddings tied or
+untied; inputs tokens or input embeddings (llava).
 
 The port's parameter tree is flat: ``{"embed", "final_norm", ["lm_head"],
-"layers": [one dict per absolute layer]}`` (no ``lm_head`` when the
-embeddings are tied) — the reference's stacked ``unit`` lists, which it
-scans for compile time, are unstacked once, by `repro_torch.bridge` or by
+"layers": [one dict per absolute layer], ["encoder": {"layers": [...],
+"final_norm"}]}`` (no ``lm_head`` when the embeddings are tied) — the
+reference's stacked ``unit`` lists and encoder layers, which it scans for
+compile time, are unstacked once, by `repro_torch.bridge` or by
 `Model.init`. Per-layer dicts keep the reference's keys and layouts.
 
 Entry points:
 - `Model.forward`      full-sequence hidden states (training; `remat=`)
 - `Model.prefill`      full-sequence + populated caches
 - `Model.decode_step`  one token against the cache
+- `Model.encode`       the encoder stack (whisper)
 used by `runtime.engine`: `layer_forward`, `layer_prefill`,
 `layer_prefill_chunk`, `layer_decode` (each also works on FFN-stripped params from
 `split_ffn_params`), `init_layer_cache` and `Model.embed` / `Model.logits`.
@@ -22,6 +27,9 @@ Decode never writes a cache in place: each step returns new cache tensors,
 so a saved state stays valid (decode rollback and branching rely on it).
 `layer_prefill_chunk` does write in place, into caches that belong to one
 prefill cursor and are copied when the prompt is committed to a batch row.
+Attention layers decode through their decode kernel (`use_kernel=True`);
+the recurrent mixers and cross-attention run plain PyTorch on every
+device, as the reference computes them outside its kernels.
 """
 from __future__ import annotations
 
@@ -35,12 +43,14 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.decode_superkernel import fused_decode_attention
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import recurrent as rec_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (dense_init, embed_init, rms_norm,
                                        softcap, swiglu)
 
 
 class LayerSpec(NamedTuple):
-    kind: str          # attn (the only kind the port runs so far)
+    kind: str          # attn | rec | mlstm | slstm
     window: int        # sliding window (0 = global)
     is_moe: bool       # MoE FFN; otherwise a dense SwiGLU FFN
     layer_idx: int     # absolute depth index (first occurrence)
@@ -94,20 +104,6 @@ def all_specs(cfg: ModelConfig) -> List[LayerSpec]:
     return list(prefix) + list(unit) * num_units + list(tail)
 
 
-def _check_supported(cfg: ModelConfig, spec: LayerSpec) -> None:
-    """The port runs attention layers (GQA or MLA); recurrent and xLSTM
-    mixers, the encoder-decoder and absolute positions raise rather than
-    run wrong."""
-    if spec.kind != "attn" or cfg.attention not in ("gqa", "mla"):
-        raise NotImplementedError(
-            f"{cfg.name} layer {spec.layer_idx}: the port runs GQA or MLA "
-            f"attention layers only, got {spec}")
-    if cfg.is_encoder_decoder or cfg.abs_pos:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models and absolute positions are "
-            "not ported yet")
-
-
 def _zc(cfg: ModelConfig) -> bool:
     """Gemma-family norms are zero-centred ((1 + w) x̂) and its embeddings
     scaled by sqrt(d)."""
@@ -123,23 +119,57 @@ def _ring_size(spec: LayerSpec, max_seq: int) -> int:
     return min(max_seq, spec.window) if spec.window else max_seq
 
 
+ENCODER_SPEC = LayerSpec("attn", 0, False, 0)   # every encoder layer's
+
+
+def sinusoidal_pos(positions: torch.Tensor, d_model: int) -> torch.Tensor:
+    """Sinusoidal absolute position embedding, fp32. positions: (...,)
+    integer -> (..., d_model): [sin, cos] halves."""
+    half = d_model // 2
+    dev = positions.device
+    log_base = torch.log(torch.tensor(10000.0, device=dev))
+    freq = torch.exp(-log_base * torch.arange(half, dtype=torch.float32,
+                                              device=dev) / half)
+    ang = positions[..., None].float() * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # Per-layer parameter init
 # ---------------------------------------------------------------------------
 
-def init_layer(cfg: ModelConfig, spec: LayerSpec, dtype, **kw):
-    """One layer's params; `kw` carries `generator` and `device`."""
-    _check_supported(cfg, spec)
+def init_layer(cfg: ModelConfig, spec: LayerSpec, dtype,
+               with_cross: Optional[bool] = None, **kw):
+    """One layer's params; `kw` carries `generator` and `device`.
+    `with_cross` (default: the model is an encoder-decoder) adds the
+    cross-attention and its norm."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     dev = kw.get("device", "cpu")
     ones = lambda: torch.ones((d,), dtype=dtype, device=dev)  # noqa: E731
-    if cfg.attention == "mla":
-        attn = attn_mod.init_mla_params(d, cfg.num_heads, cfg.mla, dtype,
-                                        **kw)
+    p: Dict[str, Any] = {"pre_norm": ones()}
+    if spec.kind == "attn" and cfg.attention == "mla":
+        p["attn"] = attn_mod.init_mla_params(d, cfg.num_heads, cfg.mla,
+                                             dtype, **kw)
+    elif spec.kind == "attn":
+        p["attn"] = attn_mod.init_gqa_params(
+            d, cfg.num_heads, cfg.num_kv_heads, hd, dtype,
+            qk_norm=cfg.qk_norm, **kw)
+    elif spec.kind == "rec":
+        p["rec"] = rec_mod.init_rglru_block(d, cfg.lru_width or d,
+                                            cfg.conv1d_width, dtype, **kw)
+    elif spec.kind == "mlstm":
+        p["mix"] = xlstm_mod.init_mlstm_block(d, cfg.num_heads,
+                                              cfg.proj_factor, dtype, **kw)
+    elif spec.kind == "slstm":
+        p["mix"] = xlstm_mod.init_slstm_block(d, cfg.num_heads,
+                                              cfg.proj_factor, dtype, **kw)
     else:
-        attn = attn_mod.init_gqa_params(d, cfg.num_heads, cfg.num_kv_heads,
-                                        hd, dtype, qk_norm=cfg.qk_norm, **kw)
-    p = {"pre_norm": ones(), "attn": attn}
+        raise ValueError(spec.kind)
+    if cfg.is_encoder_decoder if with_cross is None else with_cross:
+        p["cross_norm"] = ones()
+        p["cross"] = attn_mod.init_gqa_params(d, cfg.num_heads,
+                                              cfg.num_kv_heads, hd, dtype,
+                                              **kw)
     has_ffn = spec.is_moe or cfg.d_ff > 0
     if has_ffn:
         p["ffn_norm"] = ones()
@@ -198,36 +228,72 @@ def _post_attn(p, cfg: ModelConfig, x: torch.Tensor,
     return x + mix
 
 
-def _attn_prefill(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
-                  positions: torch.Tensor):
-    """Pre-norm self-attention (GQA or MLA, the layer's window and
-    soft-cap) over the whole sequence. Returns (x + attention, {cache name:
-    the T rows the cache keeps})."""
-    _check_supported(cfg, spec)
-    h = _norm(x, p["pre_norm"], cfg)
+def _mix_prefill(p, cfg: ModelConfig, spec: LayerSpec, h: torch.Tensor,
+                 positions: torch.Tensor, causal: bool = True):
+    """The layer's mixer over the whole normed sequence h (B, T, d).
+    Returns (mix (B, T, d), what the cache keeps): attention (GQA or MLA,
+    the layer's window and soft-cap) its T rows by cache name; a recurrent
+    mixer its final state by cache name."""
+    if spec.kind == "rec":
+        mix, conv, rec = rec_mod.rglru_block(p["rec"], h)
+        return mix, {"conv": conv, "rec": rec}
+    if spec.kind == "mlstm":
+        mix, st = xlstm_mod.mlstm_block(p["mix"], h, cfg.num_heads)
+        return mix, st._asdict()
+    if spec.kind == "slstm":
+        mix, st = xlstm_mod.slstm_block(p["mix"], h, cfg.num_heads)
+        return mix, st._asdict()
+    if spec.kind != "attn":
+        raise ValueError(spec.kind)
     if cfg.attention == "mla":
         q, k, v, (c_kv, k_pe) = attn_mod._mla_qkv(
             p["attn"], h, positions, cfg.mla, cfg.rope_theta, cfg.norm_eps)
         rows = {"latent": c_kv, "pe": k_pe}
         # q's width is nope + rope, so flash_attention's q-width ** -0.5
         # is MLA's scale; v (v_head_dim) may be narrower than q and k
-        mix = attn_mod.flash_attention(q, k, v, window=spec.window)
+        mix = attn_mod.flash_attention(q, k, v, causal=causal,
+                                       window=spec.window)
     else:
         q = attn_mod.gqa_project_q(p["attn"], h, positions, cfg.rope_theta,
                                    cfg.norm_eps)
         k, v = attn_mod.gqa_project_kv(p["attn"], h, positions,
                                        cfg.rope_theta, cfg.norm_eps)
         rows = {"k": k, "v": v}
-        mix = attn_mod.flash_attention(q, k, v, window=spec.window,
+        mix = attn_mod.flash_attention(q, k, v, causal=causal,
+                                       window=spec.window,
                                        logit_softcap=cfg.attn_logit_softcap)
-    return _post_attn(p, cfg, x, attn_mod.gqa_out(p["attn"], mix)), rows
+    return attn_mod.gqa_out(p["attn"], mix), rows
+
+
+def _cross_kv(p, enc_out: torch.Tensor):
+    """The cross-attention's K/V of the encoder output (B, S, d)."""
+    return (torch.einsum("bsd,dhk->bshk", enc_out, p["cross"]["wk"]),
+            torch.einsum("bsd,dhk->bshk", enc_out, p["cross"]["wv"]))
+
+
+def _cross_part(p, cfg: ModelConfig, x: torch.Tensor, xk, xv,
+                enc_pos) -> torch.Tensor:
+    """x + cross-attention (bidirectional, no rope) of x's rows over the
+    encoder's K/V; its norm is never zero-centred."""
+    hc = rms_norm(x, p["cross_norm"], cfg.norm_eps)
+    return x + attn_mod.gqa_attention(
+        p["cross"], hc, positions=enc_pos, rope_theta=0.0, causal=False,
+        kv_override=(xk, xv, enc_pos))
 
 
 def layer_forward(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
-                  positions: torch.Tensor,
+                  positions: torch.Tensor, *, causal: bool = True,
+                  enc_out: Optional[torch.Tensor] = None,
+                  enc_pos: Optional[torch.Tensor] = None,
                   router_sink: Optional[list] = None) -> torch.Tensor:
-    """Full-sequence layer (train / prefill without a cache). x: (B, T, d)."""
-    x, _ = _attn_prefill(p, cfg, spec, x, positions)
+    """Full-sequence layer (train / prefill without a cache). x: (B, T,
+    d). `causal=False` for the encoder; `enc_out` (B, S, d) / `enc_pos`
+    (B, S) feed a decoder layer's cross-attention."""
+    mix, _ = _mix_prefill(p, cfg, spec, _norm(x, p["pre_norm"], cfg),
+                          positions, causal)
+    x = _post_attn(p, cfg, x, mix)
+    if enc_out is not None and "cross" in p:
+        x = _cross_part(p, cfg, x, *_cross_kv(p, enc_out), enc_pos)
     return _ffn_part(p, cfg, x, router_sink=router_sink)
 
 
@@ -236,36 +302,66 @@ def layer_forward(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
-                     max_seq: int, dtype, device="cpu"):
+                     max_seq: int, dtype, device="cpu", src_len: int = 0):
     """GQA: a K/V ring {"k", "v"} (B, size, Hkv, D), size = max_seq, or
     the window for a window layer when that is smaller. MLA: the
-    positional compressed cache {"latent": (B, S, R), "pe": (B, S, 1, P)}."""
-    _check_supported(cfg, spec)
-    z = lambda *s: torch.zeros(s, dtype=dtype, device=device)  # noqa: E731
-    if cfg.attention == "mla":
-        return {"latent": z(batch, max_seq, cfg.mla.kv_lora_rank),
-                "pe": z(batch, max_seq, 1, cfg.mla.qk_rope_head_dim)}
-    shape = (batch, _ring_size(spec, max_seq), cfg.num_kv_heads,
-             cfg.resolved_head_dim)
-    return {"k": z(*shape), "v": z(*shape)}
+    positional compressed cache {"latent": (B, S, R), "pe": (B, S, 1, P)}.
+    RG-LRU: {"conv": (B, K-1, W), "rec": (B, W) fp32}; mLSTM / sLSTM their
+    fp32 states, m at -1e30. An encoder-decoder layer adds the cross K/V
+    {"xk", "xv"} (B, src_len, Hkv, D) when `src_len` is given."""
+    z = lambda *s, dt=dtype: torch.zeros(  # noqa: E731
+        s, dtype=dt, device=device)
+    H, hd = cfg.num_heads, cfg.resolved_head_dim
+    if spec.kind == "rec":
+        w = cfg.lru_width or cfg.d_model
+        c = {"conv": z(batch, cfg.conv1d_width - 1, w),
+             "rec": z(batch, w, dt=torch.float32)}
+    elif spec.kind == "mlstm":
+        D = int(cfg.d_model * cfg.proj_factor) // H
+        c = xlstm_mod.mlstm_zero_state(batch, H, D, device)._asdict()
+    elif spec.kind == "slstm":
+        c = xlstm_mod.slstm_zero_state(batch, H, cfg.d_model // H,
+                                       device)._asdict()
+    elif cfg.attention == "mla":
+        c = {"latent": z(batch, max_seq, cfg.mla.kv_lora_rank),
+             "pe": z(batch, max_seq, 1, cfg.mla.qk_rope_head_dim)}
+    else:
+        shape = (batch, _ring_size(spec, max_seq), cfg.num_kv_heads, hd)
+        c = {"k": z(*shape), "v": z(*shape)}
+    if cfg.is_encoder_decoder and src_len:
+        c["xk"] = z(batch, src_len, cfg.num_kv_heads, hd)
+        c["xv"] = z(batch, src_len, cfg.num_kv_heads, hd)
+    return c
 
 
 def layer_prefill(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
-                  positions: torch.Tensor, max_seq: int,
+                  positions: torch.Tensor, max_seq: int, *,
+                  enc_out: Optional[torch.Tensor] = None,
+                  enc_pos: Optional[torch.Tensor] = None,
                   router_sink: Optional[list] = None):
     """Like layer_forward but also returns a populated cache entry. A GQA
     ring the prompt fills (T >= its size) keeps the last `size` rows, row
-    at position t in slot t % size (the ring decode continues)."""
+    at position t in slot t % size (the ring decode continues); a
+    recurrent mixer keeps its state after the prompt; a decoder layer with
+    `enc_out` keeps the cross K/V {"xk", "xv"}."""
     B, T, _ = x.shape
-    x, rows = _attn_prefill(p, cfg, spec, x, positions)
-    cache = init_layer_cache(cfg, spec, B, max_seq, x.dtype, x.device)
-    for name, r in rows.items():
-        size = cache[name].shape[1]
-        if T >= size and name in ("k", "v"):
-            slots = torch.arange(T - size, T, device=x.device) % size
-            cache[name][:, slots] = r[:, T - size:]
-        else:
-            cache[name][:, :T] = r
+    mix, rows = _mix_prefill(p, cfg, spec, _norm(x, p["pre_norm"], cfg),
+                             positions)
+    x = _post_attn(p, cfg, x, mix)
+    if spec.kind == "attn":
+        cache = init_layer_cache(cfg, spec, B, max_seq, x.dtype, x.device)
+        for name, r in rows.items():
+            size = cache[name].shape[1]
+            if T >= size and name in ("k", "v"):
+                slots = torch.arange(T - size, T, device=x.device) % size
+                cache[name][:, slots] = r[:, T - size:]
+            else:
+                cache[name][:, :T] = r
+    else:
+        cache = rows
+    if enc_out is not None and "cross" in p:
+        cache["xk"], cache["xv"] = _cross_kv(p, enc_out)
+        x = _cross_part(p, cfg, x, cache["xk"], cache["xv"], enc_pos)
     return _ffn_part(p, cfg, x, router_sink=router_sink), cache
 
 
@@ -280,8 +376,9 @@ def layer_prefill_chunk(p, cfg: ModelConfig, spec: LayerSpec,
     (from `init_layer_cache`, holding the earlier chunks), which the real
     rows are written into IN PLACE — it belongs to one prefill cursor.
     Returns (x, cache). Chunks address the cache by absolute position, so
-    only global attention layers take them: other mixers and sliding
-    windows raise."""
+    only global self-attention layers take them: recurrent mixers (which
+    carry their state through the whole prompt), sliding windows and
+    cross-attention layers raise."""
     if spec.kind != "attn":
         raise NotImplementedError(
             f"chunked prefill supports attention layers only, got {spec.kind}")
@@ -289,7 +386,9 @@ def layer_prefill_chunk(p, cfg: ModelConfig, spec: LayerSpec,
         raise NotImplementedError(
             "chunked prefill requires global attention (ring-wrapped sliding-"
             "window caches lose the absolute positions chunks address)")
-    _check_supported(cfg, spec)
+    if "cross" in p:
+        raise NotImplementedError(
+            "chunked prefill takes no cross-attention layer")
     h = _norm(x, p["pre_norm"], cfg)
     if cfg.attention == "mla":
         mix, _, _ = attn_mod.mla_prefill_chunk(
@@ -325,7 +424,6 @@ def attn_decode(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
     runs its plain version); `max_len`, a host int that bounds every
     `cache_len`, lets the MLA kernel's wrapper check the room in the cache
     without reading the lengths from the device."""
-    _check_supported(cfg, spec)
     B = x.shape[0]
     h = _norm(x, p["pre_norm"], cfg)
     if cfg.attention == "mla":
@@ -359,14 +457,54 @@ def attn_decode(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
     return attn_mod.gqa_out(p["attn"], mix), dict(cache, k=kc, v=vc)
 
 
+def _recurrent_decode(p, cfg: ModelConfig, spec: LayerSpec,
+                      x: torch.Tensor, cache):
+    """The mixer half of a one-token step of a recurrent layer (RG-LRU,
+    mLSTM or sLSTM) on the layer's input x (B, 1, d), plain PyTorch.
+    Returns (out (B, 1, d) before the residual add, new_cache); the input
+    cache is left as it was."""
+    h = _norm(x, p["pre_norm"], cfg)
+    if spec.kind == "rec":
+        out, conv, rec = rec_mod.rglru_block(
+            p["rec"], h, conv_state=cache["conv"], rec_state=cache["rec"],
+            decode=True)
+        return out, dict(cache, conv=conv, rec=rec)
+    if spec.kind == "mlstm":
+        st = xlstm_mod.MLSTMState(cache["c"], cache["n"], cache["m"])
+        out, st = xlstm_mod.mlstm_block(p["mix"], h, cfg.num_heads,
+                                        state=st, decode=True)
+    elif spec.kind == "slstm":
+        st = xlstm_mod.SLSTMState(cache["c"], cache["n"], cache["h"],
+                                  cache["m"])
+        out, st = xlstm_mod.slstm_block(p["mix"], h, cfg.num_heads,
+                                        state=st, decode=True)
+    else:
+        raise ValueError(spec.kind)
+    return out, dict(cache, **st._asdict())
+
+
 def layer_decode(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
                  cache, cache_len: torch.Tensor, use_kernel: bool = False,
-                 max_len: Optional[int] = None):
+                 max_len: Optional[int] = None, *,
+                 src_len: Optional[int] = None):
     """One-token layer step. x: (B, 1, d). Returns (x, new_cache); the
-    attention and its arguments as `attn_decode`."""
-    out, cache = attn_decode(p, cfg, spec, x, cache, cache_len, use_kernel,
-                             max_len)
-    return _decode_ffn(p, cfg, _post_attn(p, cfg, x, out)), cache
+    attention and its arguments as `attn_decode`, a recurrent mixer as
+    `_recurrent_decode`. A decoder layer whose cache holds the cross K/V
+    attends to its first `src_len` rows (default: all of them), plain."""
+    if spec.kind == "attn":
+        out, cache = attn_decode(p, cfg, spec, x, cache, cache_len,
+                                 use_kernel, max_len)
+    else:
+        out, cache = _recurrent_decode(p, cfg, spec, x, cache)
+    x = _post_attn(p, cfg, x, out)
+    if "xk" in cache and "cross" in p:
+        hc = rms_norm(x, p["cross_norm"], cfg.norm_eps)
+        slen = cache["xk"].shape[1] if src_len is None else src_len
+        cmix, _, _ = attn_mod.gqa_decode(p["cross"], hc, cache["xk"],
+                                         cache["xv"], slen, rope_theta=0.0,
+                                         cross=True)
+        x = x + cmix
+    return _decode_ffn(p, cfg, x), cache
 
 
 def _decode_ffn(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -383,13 +521,12 @@ def _decode_ffn(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 class Model:
-    """Config-driven decoder-only LM (embedding, layer specs, LM head)."""
+    """Config-driven LM: embedding, layer specs, LM head, and the encoder
+    stack of an encoder-decoder (whisper)."""
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
         self.specs = all_specs(cfg)
-        for s in self.specs:
-            _check_supported(cfg, s)
         self.dtype = torch.bfloat16 if cfg.dtype == "bfloat16" \
             else torch.float32
 
@@ -402,24 +539,39 @@ class Model:
         dev = resolve_device(device)
         cfg, dt = self.cfg, self.dtype
         kw = dict(generator=generator, device=dev)
+        ones = lambda: torch.ones((cfg.d_model,), dtype=dt,  # noqa: E731
+                                  device=dev)
         params: Dict[str, Any] = {
             "embed": embed_init(cfg.vocab_size, cfg.d_model, dt, **kw),
-            "final_norm": torch.ones((cfg.d_model,), dtype=dt, device=dev),
+            "final_norm": ones(),
         }
         if not cfg.tie_embeddings:
             params["lm_head"] = dense_init(cfg.d_model, cfg.vocab_size, dt,
                                            **kw)
         params["layers"] = [init_layer(cfg, s, dt, **kw) for s in self.specs]
+        if cfg.is_encoder_decoder:
+            params["encoder"] = {
+                "layers": [init_layer(cfg, ENCODER_SPEC, dt, with_cross=False,
+                                      **kw)
+                           for _ in range(cfg.encoder_layers)],
+                "final_norm": ones()}
         return params
 
     # -- embedding / head -------------------------------------------------------
-    def embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
+    def embed(self, params, tokens: torch.Tensor,
+              positions: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Token embeddings; the gemma family scales them by sqrt(d) in the
-        params' dtype, as the reference does."""
+        params' dtype, as the reference does; with absolute positions
+        (whisper) the sinusoids of `positions` (default 0..T-1) are added
+        in the params' dtype."""
         x = params["embed"][tokens]
         if _zc(self.cfg):
             x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype,
                                  device=x.device)
+        if self.cfg.abs_pos:
+            if positions is None:
+                positions = torch.arange(tokens.shape[-1], device=x.device)
+            x = x + sinusoidal_pos(positions, self.cfg.d_model).to(x.dtype)
         return x
 
     def final_hidden(self, params, h: torch.Tensor) -> torch.Tensor:
@@ -438,40 +590,67 @@ class Model:
                @ self.lm_head_weight(params)).float()
         return softcap(out, self.cfg.final_logit_softcap)
 
-    def _inputs(self, params, tokens, embeds):
+    # -- encoder (whisper) ------------------------------------------------------
+    def encode(self, params, frames: torch.Tensor) -> torch.Tensor:
+        """frames: (B, S, d), the frontend's frame embeddings (the mel and
+        conv frontend is a stub, as in the reference). The encoder layers
+        attend bidirectionally; returns the normed output (B, S, d)."""
+        cfg = self.cfg
+        enc = params["encoder"]
+        B, S, _ = frames.shape
+        positions = torch.arange(S, device=frames.device)[None].expand(B, S)
+        x = frames
+        if cfg.abs_pos:
+            x = x + sinusoidal_pos(positions, cfg.d_model).to(x.dtype)
+        for lp in enc["layers"]:
+            x = layer_forward(lp, cfg, ENCODER_SPEC, x, positions,
+                              causal=False)
+        return rms_norm(x, enc["final_norm"], cfg.norm_eps)
+
+    def _inputs(self, params, tokens, embeds, enc_out):
         x = self.embed(params, tokens) if embeds is None else embeds
         B, T, _ = x.shape
         positions = torch.arange(T, device=x.device)[None, :].expand(B, T)
-        return x, positions
+        enc = {}
+        if enc_out is not None:
+            S = enc_out.shape[1]
+            enc = {"enc_out": enc_out, "enc_pos": torch.arange(
+                S, device=x.device)[None, :].expand(B, S)}
+        return x, positions, enc
 
     # -- full-sequence forward ---------------------------------------------------
     def forward(self, params, tokens: Optional[torch.Tensor] = None, *,
                 embeds: Optional[torch.Tensor] = None,
+                enc_out: Optional[torch.Tensor] = None,
                 remat: bool = False) -> torch.Tensor:
         """Final hidden states (B, T, d), before the final norm. `embeds`
-        (B, T, d) stand in for the tokens (llava's backbone); `remat=True`
-        recomputes each layer's activations in the backward pass
-        (`torch.utils.checkpoint`, one layer a segment)."""
+        (B, T, d) stand in for the tokens (llava's backbone); `enc_out`
+        (B, S, d), `encode`'s output, feeds the cross-attention;
+        `remat=True` recomputes each layer's activations in the backward
+        pass (`torch.utils.checkpoint`, one layer a segment)."""
         cfg = self.cfg
-        x, positions = self._inputs(params, tokens, embeds)
+        x, positions, enc = self._inputs(params, tokens, embeds, enc_out)
         for p, spec in zip(params["layers"], self.specs):
             if remat and torch.is_grad_enabled():
                 x = torch.utils.checkpoint.checkpoint(
                     layer_forward, p, cfg, spec, x, positions,
-                    use_reentrant=False)
+                    use_reentrant=False, **enc)
             else:
-                x = layer_forward(p, cfg, spec, x, positions)
+                x = layer_forward(p, cfg, spec, x, positions, **enc)
         return x
 
     # -- prefill ----------------------------------------------------------------
     def prefill(self, params, tokens: Optional[torch.Tensor] = None, *,
-                embeds: Optional[torch.Tensor] = None, max_seq: int):
+                embeds: Optional[torch.Tensor] = None, max_seq: int,
+                enc_out: Optional[torch.Tensor] = None):
         """Run the prompt, returning (last logits (B, V) fp32, cache); the
-        cache is {"layers": [one per layer], "len": () int64 tensor}."""
-        x, positions = self._inputs(params, tokens, embeds)
+        cache is {"layers": [one per layer], "len": () int64 tensor}; with
+        `enc_out` each layer's cache holds its cross K/V."""
+        x, positions, enc = self._inputs(params, tokens, embeds, enc_out)
         caches = []
         for p, spec in zip(params["layers"], self.specs):
-            x, c = layer_prefill(p, self.cfg, spec, x, positions, max_seq)
+            x, c = layer_prefill(p, self.cfg, spec, x, positions, max_seq,
+                                 **enc)
             caches.append(c)
         T = x.shape[1]
         return self.logits(params, x[:, -1]), {
@@ -479,29 +658,35 @@ class Model:
             "len": torch.tensor(T, dtype=torch.long, device=x.device)}
 
     # -- cache allocation ---------------------------------------------------------
-    def init_cache(self, batch: int, max_seq: int, device="cuda"):
-        """An empty cache for decode_step (nothing cached yet)."""
+    def init_cache(self, batch: int, max_seq: int, device="cuda",
+                   src_len: int = 0):
+        """An empty cache for decode_step (nothing cached yet); `src_len`
+        sizes an encoder-decoder's (zero) cross K/V."""
         dev = resolve_device(device)
         return {"layers": [init_layer_cache(self.cfg, s, batch, max_seq,
-                                            self.dtype, dev)
+                                            self.dtype, dev, src_len)
                            for s in self.specs],
                 "len": torch.zeros((), dtype=torch.long, device=dev)}
 
     # -- decode step ----------------------------------------------------------------
-    def decode_step(self, params, token: torch.Tensor, cache):
-        """token: (B,) int (or (B, d) embeds). Returns (logits (B, V) fp32,
-        new cache); the input cache is left as it was. Each layer's insert
-        and attention run in its decode kernel (on CPU tensors, the
-        kernel's plain version)."""
+    def decode_step(self, params, token: torch.Tensor, cache, *,
+                    src_len: Optional[int] = None):
+        """token: (B,) int (or (B, d) embeds) at position `cache["len"]`.
+        Returns (logits (B, V) fp32, new cache); the input cache is left as
+        it was. Each attention layer's insert and attention run in its
+        decode kernel (on CPU tensors, the kernel's plain version); the
+        recurrent mixers and cross-attention (over `src_len` source rows,
+        default all) run plain."""
         cache_len = cache["len"]
         if token.dim() == 1:
-            x = self.embed(params, token[:, None])
+            pos = cache_len.reshape(-1, 1).expand(token.shape[0], 1)
+            x = self.embed(params, token[:, None], positions=pos)
         else:
             x = token[:, None, :]
         new = []
         for p, spec, c in zip(params["layers"], self.specs, cache["layers"]):
             x, c2 = layer_decode(p, self.cfg, spec, x, c, cache_len,
-                                 use_kernel=True)
+                                 use_kernel=True, src_len=src_len)
             new.append(c2)
         return self.logits(params, x[:, 0]), {"layers": new,
                                               "len": cache_len + 1}

@@ -23,14 +23,19 @@ from repro_torch.tree import tree_leaves, tree_unflatten
 
 def make_loss_fn(model: Model, remat: bool = True, ce_chunk: int = 2048):
     """loss_fn(params, batch) -> () fp32 mean NLL. batch: {"tokens",
-    "labels"} (B, T), or {"embeds" (B, T, d), "labels"} for an arch that
-    takes input embeddings. `remat=True` recomputes each layer in the
+    "labels"} (B, T), {"embeds" (B, T, d), "labels"} for an arch that
+    takes input embeddings, or an encoder-decoder's {"frames" (B, S, d),
+    "tokens", "labels"}. `remat=True` recomputes each layer in the
     backward pass (`torch.utils.checkpoint`)."""
     cfg = model.cfg
 
     def loss_fn(params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         if cfg.uses_input_embeds and "embeds" in batch:
             h = model.forward(params, embeds=batch["embeds"], remat=remat)
+        elif cfg.is_encoder_decoder:
+            enc_out = model.encode(params, batch["frames"])
+            h = model.forward(params, batch["tokens"], enc_out=enc_out,
+                              remat=remat)
         else:
             h = model.forward(params, batch["tokens"], remat=remat)
         hf = model.final_hidden(params, h)
@@ -86,6 +91,10 @@ def make_prefill_step(model: Model, max_seq: int):
         if cfg.uses_input_embeds and "embeds" in batch:
             return model.prefill(params, embeds=batch["embeds"],
                                  max_seq=max_seq)
+        if cfg.is_encoder_decoder:
+            return model.prefill(params, batch["tokens"], max_seq=max_seq,
+                                 enc_out=model.encode(params,
+                                                      batch["frames"]))
         return model.prefill(params, batch["tokens"], max_seq=max_seq)
 
     return prefill_step

@@ -1259,3 +1259,91 @@ def test_fused_decode_attention_at_gemma2_window(gen, clens):
         float((o.float() - r).abs().max())
     assert float((r_nocap - r).abs().max()) > 10 * float(allowed.max())
     assert torch.equal(o, o2), "the kernel must be deterministic"
+
+
+# ---------------------------------------------------------------------------
+# the recurrent and encoder-decoder models: recurrentgemma's local MQA
+# (G = 10, not a power of two; Hkv 1, D 256, a 2048-row window ring) and
+# whisper's decoder self-attention (Hq = Hkv = 20, D 64, no rope) through
+# the GQA decode kernel; the three recurrent mixers (plain PyTorch on every
+# device) at full width, card against CPU in f32
+# ---------------------------------------------------------------------------
+
+RECURRENT_ENCDEC_ATTN = {
+    # name: (cache lengths; S, Hq, Hkv, D): decode at batch 4
+    "recurrentgemma_local": ([100, 2047, 2100, 5000], 2048, 10, 1, 256),
+    "whisper_decoder": ([0, 63, 128, 255], 256, 20, 20, 64),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", list(RECURRENT_ENCDEC_ATTN))
+def test_fused_decode_attention_at_recurrent_and_encdec_shapes(gen, case,
+                                                               dtype):
+    """New caches bitwise equal to the plain version's, the input caches
+    untouched, out within 2e-2 (f32: 2e-5), deterministic."""
+    args = _attn_args(gen, *RECURRENT_ENCDEC_ATTN[case], dtype=dtype)
+    old = [a.clone() for a in args[3:5]]
+    _nan_fill_allocator()
+    before = dsk.fused_decode_attention.launches
+    o, kc, vc = dsk.fused_decode_attention(*args)
+    o2, _, _ = dsk.fused_decode_attention(*args)
+    orf, kr, vr = fused_decode_attention_ref(*args)
+    torch.cuda.synchronize()
+    assert dsk.fused_decode_attention.launches == before + 2
+    tol = TOL if dtype == torch.bfloat16 else TOL_F32
+    assert torch.isfinite(o).all()
+    assert torch.equal(kc, kr) and torch.equal(vc, vr)
+    assert torch.equal(args[3], old[0]) and torch.equal(args[4], old[1])
+    torch.testing.assert_close(o.float(), orf.float(), rtol=tol, atol=tol)
+    assert torch.equal(o, o2), "the kernel must be deterministic"
+
+
+def _mixer_case(block):
+    """(params, run(params, x, state) -> (out, state), x, x_decode) of one
+    recurrent mixer at its published width, f32, on the CPU."""
+    from repro_torch.models import recurrent, xlstm
+    g = torch.Generator().manual_seed(3)
+    kw = dict(generator=g, device="cpu")
+    if block == "rglru":
+        cfg = get_config("recurrentgemma-2b")
+        p = recurrent.init_rglru_block(cfg.d_model, cfg.lru_width,
+                                       cfg.conv1d_width, torch.float32, **kw)
+
+        def run(p, x, st):
+            decode = st is not None
+            out, c, r = recurrent.rglru_block(
+                p, x, conv_state=st and st[0], rec_state=st and st[1],
+                decode=decode)
+            return out, (c, r)
+    else:
+        cfg = get_config("xlstm-1.3b")
+        init = xlstm.init_mlstm_block if block == "mlstm" else \
+            xlstm.init_slstm_block
+        fn = xlstm.mlstm_block if block == "mlstm" else xlstm.slstm_block
+        p = init(cfg.d_model, cfg.num_heads, cfg.proj_factor, torch.float32,
+                 **kw)
+
+        def run(p, x, st):
+            return fn(p, x, cfg.num_heads, state=st, decode=st is not None)
+    x = torch.randn((2, 8, cfg.d_model), generator=g)
+    xd = torch.randn((2, 1, cfg.d_model), generator=g)
+    return p, run, x, xd
+
+
+@pytest.mark.parametrize("block", ["rglru", "mlstm", "slstm"])
+def test_recurrent_mixers_card_against_cpu(gen, block):
+    """An 8-token prefill from no state and one decode step from its state,
+    on the card and on the CPU, f32 at full width: outputs and states
+    within 1e-4."""
+    p, run, x, xd = _mixer_case(block)
+    pc = {k: v.cuda() for k, v in p.items()}
+    want, st = run(p, x, None)
+    got, st_c = run(pc, x.cuda(), None)
+    want_d, st2 = run(p, xd, st)
+    on_card = [t.cuda() for t in st]
+    got_d, st2_c = run(pc, xd.cuda(), type(st)(*on_card)
+                       if hasattr(st, "_fields") else tuple(on_card))
+    for a, b in zip((got, got_d, *st_c, *st2_c), (want, want_d, *st, *st2)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)

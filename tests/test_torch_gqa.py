@@ -4,6 +4,7 @@ seed with numpy): windows, soft-caps, an explicit scale, qk-norm, causal
 and bidirectional. `gqa_decode(use_kernel=True)` runs the decode kernel's
 plain version on CPU tensors and must agree with the reference's decode
 too; with a window it raises (the kernel attends to its whole cache).
+Cross-attention is held in `test_torch_encdec.py`.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -100,6 +101,3 @@ def test_gqa_decode_kernel_rejects_a_window():
     with pytest.raises(ValueError, match="no window"):
         attention.gqa_decode(tp, x, kc, kc.clone(), torch.tensor(3),
                              rope_theta=10000.0, window=8, use_kernel=True)
-    with pytest.raises(NotImplementedError, match="whisper"):
-        attention.gqa_decode(tp, x, kc, kc.clone(), torch.tensor(3),
-                             rope_theta=10000.0, cross=True)

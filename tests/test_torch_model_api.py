@@ -4,8 +4,11 @@ every arch the port runs, at smoke sizes, in f32: hidden states, logits,
 prefill logits, every cache and 4 decode steps within 1e-4, free-running
 (one module-scoped JAX run per arch; bf16 in
 `test_torch_model_api_bf16.py`). gemma2's smoke window is 16 rows: the
-16-token prompt fills its ring and the 4 decode steps wrap it. Then the
-reference's own model contracts (`tests/test_models.py`) on the port.
+16-token prompt fills its ring and the 4 decode steps wrap it;
+recurrentgemma's recurrent states and xlstm's mLSTM / sLSTM states are
+caches like the others; whisper decodes over its encoder's output of 24
+random frames (the reference test's source length). Then the reference's
+own model contracts (`tests/test_models.py`) on the port.
 """
 import dataclasses
 
@@ -24,8 +27,10 @@ from repro_torch.tree import leaves_with_paths
 
 B, T, STEPS = 2, 16, 4
 MAX_SEQ = T + 8
+SRC = 24        # whisper's source frames
 DENSE = ["yi-9b", "command-r-plus-104b", "minicpm3-4b", "gemma2-9b",
-         "llava-next-34b"]
+         "llava-next-34b", "recurrentgemma-2b", "xlstm-1.3b",
+         "whisper-large-v3"]
 
 
 def _cfgs(arch, dtype):
@@ -44,12 +49,15 @@ def _t(x):
 def _ref_inputs(jcfg, jm):
     rng = np.random.default_rng(11)
     toks = rng.integers(0, jcfg.vocab_size, (B, T)).astype(np.int32)
-    embeds = None
+    embeds = frames = None
     if jcfg.uses_input_embeds:
         embeds = np.asarray(jnp.asarray(
             rng.standard_normal((B, T + STEPS, jcfg.d_model)) * 0.5,
             jm.dtype))
-    return toks, embeds
+    if jcfg.is_encoder_decoder:
+        frames = np.asarray(jnp.asarray(
+            rng.standard_normal((B, SRC, jcfg.d_model)), jm.dtype))
+    return toks, embeds, frames
 
 
 @pytest.fixture(scope="module", params=ARCH_IDS)
@@ -62,9 +70,13 @@ def run32(request):
     jm = jax_tf.Model(jcfg)
     params = jax.jit(jm.init)(jax.random.PRNGKey(7))
     tree = jax.tree.map(np.asarray, params)
-    toks, embeds = _ref_inputs(jcfg, jm)
+    toks, embeds, frames = _ref_inputs(jcfg, jm)
+    enc = {}
+    if frames is not None:
+        enc_out = jax.jit(jm.encode)(params, jnp.asarray(frames))
+        enc = {"enc_out": enc_out}
     kw = (lambda n: {"embeds": jnp.asarray(embeds[:, :n])}) if embeds \
-        is not None else (lambda n: {})
+        is not None else (lambda n: dict(enc))
     inp = (lambda n: None) if embeds is not None else \
         (lambda n: jnp.asarray(toks[:, :n]))
     h = jax.jit(lambda p, t, **k: jm.forward(p, t, **k))(params, inp(T),
@@ -83,16 +95,25 @@ def run32(request):
         ld, c = dec(params, tok, c)
         steps.append(_np(ld))
         nxt = jnp.argmax(ld, -1).astype(jnp.int32)
-    want0, _ = dec(params, jnp.asarray(fed[0]), jm.init_cache(B, MAX_SEQ))
+    src = SRC if frames is not None else 0
+    want0, _ = dec(params, jnp.asarray(fed[0]), jm.init_cache(B, MAX_SEQ,
+                                                              src))
     out.update(steps=steps, fed=fed, toks=toks, embeds=embeds,
+               frames=frames, src_len=src,
+               enc_out=None if frames is None else _np(enc["enc_out"]),
                last_cache=jax.tree.map(np.asarray, c), from_empty=_np(want0))
     return arch, tcfg, tree, params_from_reference(tree), out
 
 
-def _port_inputs(out, n):
+def _port_inputs(out, n, m=None, params=None):
+    """The port's inputs for the first n positions; whisper's also carry
+    the port's encoder output of the reference's frames (`m.encode`)."""
     if out["embeds"] is not None:
         return {"embeds": to_tensor(out["embeds"][:, :n])}
-    return {"tokens": torch.as_tensor(out["toks"][:, :n]).long()}
+    inp = {"tokens": torch.as_tensor(out["toks"][:, :n]).long()}
+    if out["frames"] is not None:
+        inp["enc_out"] = m.encode(params, to_tensor(out["frames"]))
+    return inp
 
 
 def test_params_have_the_reference_tree(run32):
@@ -112,9 +133,13 @@ def test_forward_hidden_and_logits_match(run32):
     arch, cfg, tree, ported, out = run32
     m = Model(cfg)
     with torch.no_grad():
-        inp = _port_inputs(out, T)
-        h = m.forward(ported, inp.get("tokens"), embeds=inp.get("embeds"))
+        inp = _port_inputs(out, T, m, ported)
+        h = m.forward(ported, inp.get("tokens"), embeds=inp.get("embeds"),
+                      enc_out=inp.get("enc_out"))
         logits = m.logits(ported, h)
+    if out["enc_out"] is not None:
+        np.testing.assert_allclose(_t(inp["enc_out"]), out["enc_out"],
+                                   rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(_t(h), out["h"], rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(_t(logits), out["logits"], rtol=1e-4,
                                atol=1e-4)
@@ -124,9 +149,10 @@ def test_prefill_logits_and_caches_match(run32):
     arch, cfg, tree, ported, out = run32
     m = Model(cfg)
     with torch.no_grad():
-        inp = _port_inputs(out, T)
+        inp = _port_inputs(out, T, m, ported)
         lp, cache = m.prefill(ported, inp.get("tokens"),
-                              embeds=inp.get("embeds"), max_seq=MAX_SEQ)
+                              embeds=inp.get("embeds"), max_seq=MAX_SEQ,
+                              enc_out=inp.get("enc_out"))
     np.testing.assert_allclose(_t(lp), out["prefill"], rtol=1e-4, atol=1e-4)
     want = unstack_layers(out["cache"])
     assert int(cache["len"]) == int(out["cache"]["len"]) == T
@@ -142,8 +168,9 @@ def test_prefill_logits_and_caches_match(run32):
 def _plain_decode_step(m, params, token, cache):
     """`Model.decode_step` with each layer's plain attention
     (`layer_decode(use_kernel=False)`) in place of its decode kernel."""
-    x = m.embed(params, token[:, None]) if token.dim() == 1 else \
-        token[:, None, :]
+    pos = cache["len"].reshape(-1, 1).expand(token.shape[0], 1)
+    x = m.embed(params, token[:, None], positions=pos) if token.dim() == 1 \
+        else token[:, None, :]
     new = []
     for p, spec, c in zip(params["layers"], m.specs, cache["layers"]):
         x, c2 = transformer.layer_decode(p, m.cfg, spec, x, c, cache["len"],
@@ -164,9 +191,10 @@ def test_decode_steps_match(run32, use_kernel):
     arch, cfg, tree, ported, out = run32
     m = Model(cfg)
     with torch.no_grad():
-        inp = _port_inputs(out, T)
+        inp = _port_inputs(out, T, m, ported)
         _, cache = m.prefill(ported, inp.get("tokens"),
-                             embeds=inp.get("embeds"), max_seq=MAX_SEQ)
+                             embeds=inp.get("embeds"), max_seq=MAX_SEQ,
+                             enc_out=inp.get("enc_out"))
         for i in range(STEPS):
             fed = out["fed"][i]
             tok = to_tensor(fed) if fed.ndim == 2 else \
@@ -189,7 +217,7 @@ def test_init_cache_decodes_like_the_reference(run32):
     arch, cfg, tree, ported, out = run32
     tok = out["fed"][0]
     m = Model(cfg)
-    cache = m.init_cache(B, MAX_SEQ, device="cpu")
+    cache = m.init_cache(B, MAX_SEQ, device="cpu", src_len=out["src_len"])
     assert int(cache["len"]) == 0
     with torch.no_grad():
         got, c2 = m.decode_step(ported, to_tensor(tok) if tok.ndim == 2 else
@@ -212,6 +240,11 @@ def test_prefill_and_decode_match_forward(arch):
     m = Model(cfg)
     params = m.init(torch.Generator().manual_seed(1), device="cpu")
     g = torch.Generator().manual_seed(2)
+    enc = {}
+    if cfg.is_encoder_decoder:     # the reference test's 24 frames
+        frames = torch.randn((B, SRC, cfg.d_model), generator=g).to(m.dtype)
+        with torch.no_grad():
+            enc = {"enc_out": m.encode(params, frames)}
     if cfg.uses_input_embeds:
         x = (torch.randn((B, T + 1, cfg.d_model), generator=g) * 0.02
              ).to(m.dtype)
@@ -221,10 +254,12 @@ def test_prefill_and_decode_match_forward(arch):
         x = torch.randint(0, cfg.vocab_size, (B, T), generator=g)
         first = {"tokens": x}
     with torch.no_grad():
-        h = m.forward(params, first.get("tokens"), embeds=first.get("embeds"))
+        h = m.forward(params, first.get("tokens"), embeds=first.get("embeds"),
+                      **enc)
         ref_last = m.logits(params, h[:, -1])
         lp, cache = m.prefill(params, first.get("tokens"),
-                              embeds=first.get("embeds"), max_seq=T + 4)
+                              embeds=first.get("embeds"), max_seq=T + 4,
+                              **enc)
         np.testing.assert_allclose(lp.numpy(), ref_last.numpy(), rtol=2e-2,
                                    atol=2e-2)
         if cfg.uses_input_embeds:
@@ -232,7 +267,7 @@ def test_prefill_and_decode_match_forward(arch):
             h2 = m.forward(params, embeds=seq["embeds"])
         else:
             nxt = lp.argmax(-1)
-            h2 = m.forward(params, torch.cat([x, nxt[:, None]], 1))
+            h2 = m.forward(params, torch.cat([x, nxt[:, None]], 1), **enc)
         ld, _ = m.decode_step(params, nxt, cache)
         ref2 = m.logits(params, h2[:, -1])
     if cfg.attention == "mla":
@@ -247,7 +282,8 @@ def test_prefill_and_decode_match_forward(arch):
 @pytest.mark.parametrize("arch,target,tol", [
     ("qwen3-moe-235b-a22b", 235e9, 0.15), ("olmoe-1b-7b", 6.9e9, 0.2),
     ("yi-9b", 8.8e9, 0.15), ("gemma2-9b", 9.2e9, 0.25),
-    ("command-r-plus-104b", 104e9, 0.15), ("minicpm3-4b", 4.0e9, 0.3)])
+    ("command-r-plus-104b", 104e9, 0.15), ("minicpm3-4b", 4.0e9, 0.3),
+    ("recurrentgemma-2b", 2.7e9, 0.3), ("whisper-large-v3", 1.5e9, 0.4)])
 def test_full_configs_have_expected_params(arch, target, tol):
     n = get_config(arch).param_count()
     assert abs(n - target) / target < tol, (arch, n, target)
@@ -266,15 +302,3 @@ def test_serving_engines_stay_moe_only(arch):
         Engine(cfg, device="cpu")
     with pytest.raises(ValueError, match="MoE models only"):
         SlotBufferEngine(cfg, {}, Model(cfg), 4, device="cpu")
-
-
-def test_unported_layer_kinds_raise():
-    from repro.configs.registry import get_smoke_config as ref_smoke
-    from repro_torch.configs import base
-    for arch in ("recurrentgemma-2b", "xlstm-1.3b", "whisper-large-v3"):
-        rc = ref_smoke(arch)
-        cfg = base.ModelConfig(**{f.name: getattr(rc, f.name) for f in
-                                  dataclasses.fields(rc)
-                                  if f.name not in ("moe", "mla")})
-        with pytest.raises(NotImplementedError):
-            Model(cfg)

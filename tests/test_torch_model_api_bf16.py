@@ -1,5 +1,7 @@
 """The port's `Model` layers in bf16 against the reference's, on the
-attention-only archs at smoke sizes, layer by layer: each layer is handed
+dense archs at smoke sizes (the attention-only ones, recurrentgemma,
+xlstm and whisper, whose encoder layers are held the same way), layer by
+layer: each layer is handed
 the reference's input and cache, and each step's logits come from the
 reference's last hidden state (the reference test's rules: 2e-2; MLA the
 same greedy token and 8e-2 / 2e-1). Free-running, the two frameworks'
@@ -7,7 +9,9 @@ bf16 products round apart in the last bit and the drift passes 2e-2 on the
 smoke logits (up to |50| on the tied models), each run as far from the f32
 model as from the other; f32 is held free-running in
 `test_torch_model_api.py`. gemma2's smoke window is 16 rows: the 16-token
-prompt fills its ring and the 4 decode steps wrap it.
+prompt fills its ring and the 4 decode steps wrap it. The recurrent
+mixers' states are caches like the others; whisper's decoder layers take
+the reference's encoder output (24 frames) for their cross-attention.
 """
 import dataclasses
 
@@ -27,8 +31,10 @@ from repro_torch.models import transformer
 
 B, T, STEPS = 2, 16, 4
 MAX_SEQ = T + 8
+SRC = 24        # whisper's source frames
 DENSE = ["yi-9b", "command-r-plus-104b", "minicpm3-4b", "gemma2-9b",
-         "llava-next-34b"]
+         "llava-next-34b", "recurrentgemma-2b", "xlstm-1.3b",
+         "whisper-large-v3"]
 
 
 def _cfgs(arch, dtype):
@@ -47,12 +53,34 @@ def _t(x):
 def _ref_inputs(jcfg, jm):
     rng = np.random.default_rng(11)
     toks = rng.integers(0, jcfg.vocab_size, (B, T)).astype(np.int32)
-    embeds = None
+    embeds = frames = None
     if jcfg.uses_input_embeds:
         embeds = np.asarray(jnp.asarray(
             rng.standard_normal((B, T + STEPS, jcfg.d_model)) * 0.5,
             jm.dtype))
-    return toks, embeds
+    if jcfg.is_encoder_decoder:
+        frames = np.asarray(jnp.asarray(
+            rng.standard_normal((B, SRC, jcfg.d_model)), jm.dtype))
+    return toks, embeds, frames
+
+
+def _encode_layers(jm, jcfg, params, frames):
+    """The reference's encoder, layer by layer: [(input, output)] and its
+    normed output."""
+    enc = params["encoder"]
+    pos = jnp.broadcast_to(jnp.arange(SRC)[None], (B, SRC))
+    x = jnp.asarray(frames) + jax_tf.sinusoidal_pos(
+        pos, jcfg.d_model).astype(jm.dtype)
+    spec = jax_tf.LayerSpec("attn", 0, False, 0)
+    fwd = jax.jit(lambda p, x: jax_tf.layer_forward(p, jcfg, spec, x, pos,
+                                                    causal=False))
+    layers = []
+    for i in range(jcfg.encoder_layers):
+        y = fwd(jax.tree.map(lambda a: a[i], enc["layers"]), x)
+        layers.append((np.asarray(x), np.asarray(y)))
+        x = y
+    out = jax_tf.rms_norm(x, enc["final_norm"], jcfg.norm_eps)
+    return layers, out, pos
 
 
 @pytest.fixture(scope="module", params=DENSE)
@@ -69,7 +97,12 @@ def run16(request):
     jm = jax_tf.Model(jcfg)
     params = jax.jit(jm.init)(jax.random.PRNGKey(7))
     tree = jax.tree.map(np.asarray, params)
-    toks, embeds = _ref_inputs(jcfg, jm)
+    toks, embeds, frames = _ref_inputs(jcfg, jm)
+    enc, enc_layers = {}, []
+    if frames is not None:
+        enc_layers, enc_out, enc_pos = _encode_layers(jm, jcfg, params,
+                                                      frames)
+        enc = {"enc_out": enc_out, "enc_pos": enc_pos}
     lps = [_layer_params(jm, params, i) for i in range(jcfg.num_layers)]
     specs = [transformer.all_specs(tcfg)[i] for i in range(jcfg.num_layers)]
     jspecs = [jax_tf.LayerSpec(*s) for s in specs]
@@ -77,7 +110,7 @@ def run16(request):
         jm.embed(params, jnp.asarray(toks))
     pos = jnp.broadcast_to(jnp.arange(T)[None], (B, T))
     prefill = {sp: jax.jit(lambda p, x, sp=sp: jax_tf.layer_prefill(
-        p, jcfg, sp, x, pos, MAX_SEQ)) for sp in set(jspecs)}
+        p, jcfg, sp, x, pos, MAX_SEQ, **enc)) for sp in set(jspecs)}
     decode = {sp: jax.jit(lambda p, x, c, n, sp=sp: jax_tf.layer_decode(
         p, jcfg, sp, x, c, n)) for sp in set(jspecs)}
     pre, caches = [], []
@@ -92,7 +125,8 @@ def run16(request):
     dec, nxt = [], jnp.argmax(lp, -1).astype(jnp.int32)
     for i in range(STEPS):
         x = jnp.asarray(embeds[:, T + i])[:, None] if embeds is not None \
-            else jm.embed(params, nxt[:, None])
+            else jm.embed(params, nxt[:, None],
+                          positions=jnp.full((B, 1), T + i))
         layers = []
         for li, (p, sp) in enumerate(zip(lps, jspecs)):
             y, c = decode[sp](p, x, caches[li],
@@ -106,14 +140,25 @@ def run16(request):
         nxt = jnp.argmax(ld, -1).astype(jnp.int32)
     out = {"prefill_layers": pre, "prefill_x": np.asarray(x), "decode": dec,
            "last_h": np.asarray(pre[-1][1][:, -1]), "prefill": _np(lp),
-           "toks": toks, "embeds": embeds}
+           "toks": toks, "embeds": embeds, "frames": frames,
+           "enc_layers": enc_layers,
+           "enc": {k: np.asarray(v) for k, v in enc.items()}}
     return arch, tcfg, specs, params_from_reference(tree), out
 
 
 def _port_inputs(out, n):
     if out["embeds"] is not None:
         return {"embeds": to_tensor(out["embeds"][:, :n])}
-    return {"tokens": torch.as_tensor(out["toks"][:, :n]).long()}
+    inp = {"tokens": torch.as_tensor(out["toks"][:, :n]).long()}
+    if out["enc"]:
+        inp["enc_out"] = to_tensor(out["enc"]["enc_out"])
+    return inp
+
+
+def _enc(out):
+    """The reference's encoder output and positions, for the port's
+    decoder layers."""
+    return {k: to_tensor(v) for k, v in out["enc"].items()}
 
 
 def _cache_t(c):
@@ -145,7 +190,7 @@ def test_bf16_prefill_layer_by_layer(run16):
         for (x, y, c), p, sp in zip(out["prefill_layers"], ported["layers"],
                                     specs):
             yt, ct = transformer.layer_prefill(p, cfg, sp, to_tensor(x), pos,
-                                               MAX_SEQ)
+                                               MAX_SEQ, **_enc(out))
             _close16(yt, y, residual=True)
             assert set(ct) == set(c)
             for name in c:
@@ -153,7 +198,8 @@ def test_bf16_prefill_layer_by_layer(run16):
         lp = m.logits(ported, to_tensor(out["last_h"]))
         inp = _port_inputs(out, T)
         _, cache = m.prefill(ported, inp.get("tokens"),
-                             embeds=inp.get("embeds"), max_seq=MAX_SEQ)
+                             embeds=inp.get("embeds"), max_seq=MAX_SEQ,
+                             enc_out=inp.get("enc_out"))
     _close16(lp, out["prefill"])
     for mine, (_, _, c) in zip(cache["layers"], out["prefill_layers"]):
         assert {k: tuple(v.shape) for k, v in mine.items()} == \
@@ -186,3 +232,19 @@ def test_bf16_decode_layer_by_layer(run16, use_kernel):
                 np.testing.assert_allclose(got, ld, rtol=8e-2, atol=2e-1)
             else:
                 np.testing.assert_allclose(got, ld, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("run16", ["whisper-large-v3"], indirect=True)
+def test_bf16_encoder_layer_by_layer(run16):
+    """whisper's encoder: each layer (bidirectional, no cross-attention)
+    on the reference's input within 2e-2, and `Model.encode` of the same
+    frames against the reference's output."""
+    arch, cfg, specs, ported, out = run16
+    pos = torch.arange(SRC)[None].expand(B, SRC)
+    with torch.no_grad():
+        for (x, y), p in zip(out["enc_layers"], ported["encoder"]["layers"]):
+            yt = transformer.layer_forward(p, cfg, transformer.ENCODER_SPEC,
+                                           to_tensor(x), pos, causal=False)
+            _close16(yt, y, residual=True)
+        enc_out = Model(cfg).encode(ported, to_tensor(out["frames"]))
+    _close16(enc_out, out["enc"]["enc_out"])

@@ -189,3 +189,11 @@ def test_train_cli_needs_cuda_unless_asked_for_cpu(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train.main(["--smoke", "--steps", "1", "--ckpt-dir", str(tmp_path)])
+
+
+def test_train_cli_refuses_an_encoder_decoder(tmp_path):
+    """The CLI feeds token batches only, as the reference's does; whisper's
+    loss takes frames too, so it raises a clear error instead."""
+    with pytest.raises(NotImplementedError, match="encoder-decoder"):
+        train.main(["--arch", "whisper-large-v3", "--smoke", "--device",
+                    "cpu", "--steps", "1", "--ckpt-dir", str(tmp_path)])

@@ -1,8 +1,11 @@
 """Training on the port against the reference, on the CPU at smoke sizes:
 the chunked cross-entropy and the load-balancing loss (f32, 1e-6), AdamW
 (three steps with clipping, 1e-6), the f32 loss value and every gradient
-on olmoe and yi smoke against `jax.value_and_grad` (1e-4), train steps that
-descend, the data pipeline bitwise, and int8 gradient compression."""
+against `jax.value_and_grad` (1e-4) on olmoe, yi, recurrentgemma and xlstm
+smoke (autograd through the recurrent mixers' time loops) and on whisper
+smoke with a batch of frames, train steps that descend (xlstm too, as the
+reference's test), the data pipeline bitwise, and int8 gradient
+compression."""
 import dataclasses
 
 import jax
@@ -114,34 +117,49 @@ def test_adamw_keeps_bf16_params_in_their_dtype():
 # loss and gradients of whole models against jax.value_and_grad (f32)
 # ---------------------------------------------------------------------------
 
-@pytest.fixture(scope="module", params=["olmoe-1b-7b", "yi-9b"])
+@pytest.fixture(scope="module", params=["olmoe-1b-7b", "yi-9b",
+                                        "recurrentgemma-2b", "xlstm-1.3b",
+                                        "whisper-large-v3"])
 def grads_run(request):
+    """The reference's f32 loss and gradients on one batch; whisper's
+    batch adds 24 frames made from a seed (its loss encodes them)."""
     arch = request.param
     jcfg = dataclasses.replace(jax_smoke(arch), dtype="float32")
     tcfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
     jm = jax_tf.Model(jcfg)
     params = jax.jit(jm.init)(jax.random.PRNGKey(4))
     toks, labels = next(jax_pipe.token_batches(jcfg.vocab_size, 2, 16))
-    batch = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)}
+    batch = {"tokens": toks, "labels": labels}
+    if jcfg.is_encoder_decoder:
+        batch["frames"] = np.random.default_rng(5).standard_normal(
+            (2, 24, jcfg.d_model)).astype(np.float32)
     lf = jax_steps.make_loss_fn(jm, remat=False, ce_chunk=8)
-    lv, g = jax.jit(jax.value_and_grad(lf))(params, batch)
+    lv, g = jax.jit(jax.value_and_grad(lf))(
+        params, {k: jnp.asarray(v) for k, v in batch.items()})
     tree = jax.tree.map(np.asarray, params)
     return (arch, tcfg, params_from_reference(tree), float(lv),
-            jax.tree.map(np.asarray, g), toks, labels)
+            jax.tree.map(np.asarray, g), batch)
 
 
 @pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
 def test_loss_and_every_gradient_match_reference(grads_run, remat):
-    arch, cfg, ported, want_loss, want_g, toks, labels = grads_run
+    arch, cfg, ported, want_loss, want_g, batch = grads_run
     m = Model(cfg)
     vg = steps.value_and_grad(steps.make_loss_fn(m, remat=remat,
                                                  ce_chunk=8))
-    got_loss, got_g = vg(ported, {"tokens": _t(toks).long(),
-                                  "labels": _t(labels).long()})
+    got_loss, got_g = vg(ported, {k: _t(v) if k == "frames" else
+                                  _t(v).long() for k, v in batch.items()})
     np.testing.assert_allclose(float(got_loss), want_loss, rtol=1e-4,
                                atol=1e-4)
-    flat_want = {k: _t(want_g[k]) for k in ("embed", "final_norm", "lm_head")}
+    flat_want = {k: _t(want_g[k]) for k in ("embed", "final_norm", "lm_head")
+                 if k in want_g}
     flat_want["layers"] = [tree_map(_t, p) for p in unstack_layers(want_g)]
+    if "encoder" in want_g:
+        enc = want_g["encoder"]
+        flat_want["encoder"] = {
+            "final_norm": _t(enc["final_norm"]),
+            "layers": [tree_map(lambda a, i=i: _t(a[i]), enc["layers"])
+                       for i in range(cfg.encoder_layers)]}
     want = dict(leaves_with_paths(flat_want))
     got = dict(leaves_with_paths(got_g))
     assert set(got) == set(want)
@@ -150,7 +168,7 @@ def test_loss_and_every_gradient_match_reference(grads_run, remat):
                                    atol=1e-4, err_msg=key)
 
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "yi-9b"])
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "yi-9b", "xlstm-1.3b"])
 def test_train_steps_descend(arch):
     """The reference test's contract on the port: 5 steps memorising one
     batch must lower the loss."""
@@ -227,3 +245,21 @@ def test_compression_matches_reference():
     assert np.array_equal(q.numpy(), np.asarray(qj))
     zero = compression.init_error_state(tree_map(_t, g))
     assert all(float(z.abs().sum()) == 0 for z in tree_leaves(zero))
+
+
+def test_prefill_step_encodes_the_frames():
+    """`make_prefill_step` on whisper: the batch's frames go through
+    `encode` into the cross K/V, as `Model.prefill(enc_out=)` takes them."""
+    cfg = get_smoke_config("whisper-large-v3")
+    m = Model(cfg)
+    params = m.init(torch.Generator().manual_seed(6), device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 6))
+    frames = torch.randn((2, 10, cfg.d_model)).to(m.dtype)
+    lp, cache = steps.make_prefill_step(m, 12)(
+        params, {"tokens": toks, "frames": frames})
+    with torch.no_grad():
+        lp2, c2 = m.prefill(params, toks, max_seq=12,
+                            enc_out=m.encode(params, frames))
+    assert torch.equal(lp, lp2)
+    assert torch.equal(cache["layers"][0]["xk"], c2["layers"][0]["xk"])
+    assert cache["layers"][0]["xk"].shape[1] == 10
