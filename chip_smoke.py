@@ -298,7 +298,44 @@ the last line:
      step, and each recurrent kind's time loop against its whole block
      (one layer at the model's prompt length: the loop's share), beside
      the card's name and power limit;
-16. last, a `{"kernels": [...]}` line (per kernel: `launches` summed over
+16. the pre-fused engine path, the superkernel's dense tail, the mesh,
+   the pipeline and the dry run; the card's name and power limit beside
+   every time:
+   - (a) olmoe-1b-7b (16 layers) through `SlotBufferEngine(fused=False)`,
+     batch 4 of 64-token prompts, seed 0: with every expert a slot against
+     the eager unrolled model with a drop-free capacity (bitwise on the
+     CPU; on the card within four bf16 steps of the largest hidden value:
+     the grouped model and the legacy path run the MoE GEMMs at other
+     shapes, and cuBLAS picks its kernels by shape), at 16 slots a layer
+     bitwise that all-resident run; swap calls, host syncs, swapped GB
+     and wall ms a forward beside `fused=True` at 16 slots;
+   - (b) DeepSeek-V2-Lite's widths with `moe_every=2` at 4 layers (dense,
+     dense, MoE, a dense MLA tail), 32 slots (its one MoE layer's pool
+     must hold a decode step's demand, batch 4 x top-6, for the oracle to
+     hold), 1-token prompts at batch 4, 8 superkernel decode steps
+     bitwise their oracle (`sk_reference_decode_step`: the segment
+     functions over every expert, then the tail layer by layer through
+     `layer_decode` and the model's logits, not the engine's tail
+     function), and within one bf16 step of the logit (or TOL) of the
+     oracle with the tail's plain path; the tail's
+     `fused_mla_decode_attention` once a step;
+   - (c) a (1, 1) mesh over a one-rank NCCL group (in-memory store, no
+     port): phase 14 (b)'s olmoe training (4 of 16 layers, 4 x 512
+     tokens, 10 steps) with FSDP against the same steps without a mesh
+     from one init, ms/step and peak memory both ways (beside phase 14
+     (b)'s), the expert-parallel path a step and its collectives (none
+     cross a mesh axis of size 1); yi-9b's forward at 4 of 48 layers on
+     the mesh against without it, bitwise;
+   - (d) one pipeline stage over a one-rank ``pod`` mesh against the stage
+     function, bitwise;
+   - (e) the dry run of olmoe-1b-7b train_4k and qwen3-moe-235b-a22b
+     decode_32k on a fake 16x16 mesh (fake tensors, on the host, one
+     child process a cell, started after (a)-(d), so no timed phase
+     shares the host with them): peak GiB, FLOPs, bytes, collective
+     bytes a device and the dominant term (modeled on the H100's
+     data-sheet peaks).
+   The process group is destroyed before the end;
+17. last, a `{"kernels": [...]}` line (per kernel: `launches` summed over
    the runs whose path runs it, the kernel API's for `topk_gating` and
    `expert_ffn`, `launches_by_path` per run; times at the shape its entry
    names, every measured shape under `shapes`), the total time, then the
@@ -362,6 +399,11 @@ prefetch-on row phase 13 prints beside its own) and phase 13, writes
 
 runs phases 1-2, 14 and 15, writes `chiprun_out/chip_smoke_train.json`
 and prints no result.
+
+    python3 chip_smoke.py --mesh
+
+runs phases 1-2 and 16, writes `chiprun_out/chip_smoke_mesh.json` and
+prints no result.
 """
 import contextlib
 import dataclasses
@@ -1633,13 +1675,18 @@ def kernel_api_phase(torch, ops, ref, moe_mod, g):
 
 # --------------------------------------------------------------- phase 5-7
 
-def sk_reference_decode_step(eng, tok, state, DecodeState, biases=None):
+def sk_reference_decode_step(eng, tok, state, DecodeState, biases=None,
+                             tail_kernel=True):
     """The fully-resident oracle of the superkernel path: the engine's own
     segment functions over every expert of each layer with the identity
     slot table (no slot buffer, no swaps, no pre-gate rows). `biases`: each
     MoE layer's (E,) router-logit bias for `fused_moe_entry`'s operand
-    (None: zeros)."""
-    segs, _ = eng._sk_segments()
+    (None: zeros). Trailing dense layers, where the model has them, run
+    after the last segment layer by layer through `layer_decode` (their
+    attention kernels when `tail_kernel`, else the plain path), then the
+    model's logits: not through the engine's tail function."""
+    from repro_torch.models.transformer import layer_decode
+    segs, tail = eng._sk_segments()
     caches, clen = list(state.caches), state.cache_len
     x = tok
     logits = None
@@ -1648,9 +1695,14 @@ def sk_reference_decode_step(eng, tok, state, DecodeState, biases=None):
             seg, [eng._p[j] for j in seg], [caches[j] for j in seg], x, clen,
             eng._full_experts(li), eng._ident_map, eng._router_stack[:0],
             eng._zero_bias if biases is None else biases[li], first=li == 0,
-            with_logits=li == len(segs) - 1)
+            with_logits=li == len(segs) - 1 and not tail)
         for jj, aj in enumerate(seg):
             caches[aj] = new_cs[jj]
+    for j in tail:      # layer by layer, not through the engine's tail
+        x, caches[j] = layer_decode(eng._p[j], eng.cfg, eng.specs[j], x,
+                                    caches[j], clen, use_kernel=tail_kernel)
+    if tail:
+        logits = eng.model.logits(eng.params, x[:, -1])
     return logits, DecodeState(caches, clen + 1, pos=state.pos + 1)
 
 
@@ -4126,11 +4178,484 @@ def recurrent_phase(torch, np, gpu, dev="cuda", smoke=False):
     return res, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the pre-fused engine path, the superkernel's dense tail, the
+# mesh on one card, the pipeline and the dry run
+# ---------------------------------------------------------------------------
+
+LEGACY_BATCH, LEGACY_PROMPT, LEGACY_SLOTS, LEGACY_REPS = 4, 64, 16, 3
+# (b): DeepSeek-V2-Lite's widths with moe_every=2 at 4 layers (0-1 dense,
+# 2 MoE, 3 a dense MLA tail); its one MoE layer's slots must hold a
+# decode step's demand (batch 4 x top-6 = 24 experts at most) for the
+# oracle to hold, and the prompts are one token each for the prefill's
+TAIL_LAYERS, TAIL_SLOTS, TAIL_BATCH, TAIL_STEPS = 4, 32, 4, 8
+MESH_YI_LAYERS, MESH_YI_TOKENS = 4, (2, 256)
+PIPE_MICRO = 4
+DRYRUN_CELLS = (("olmoe-1b-7b", "train_4k"),
+                ("qwen3-moe-235b-a22b", "decode_32k"))
+DRYRUN_CHILD = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from repro_torch.launch import dryrun
+arch, shape = sys.argv[3].split(":")
+try:
+    out = dryrun.run_cell(arch, shape, multi_pod=False,
+                          with_components=False)
+except Exception as e:
+    out = {"status": "fail", "error": f"{type(e).__name__}: {e}"}
+with open(sys.argv[2], "w") as f:
+    json.dump(out, f)
+"""
+
+
+def run_dryrun(cells=DRYRUN_CELLS):
+    """(e): the dry run of `cells` on the fake 16x16 mesh, one child
+    process a cell, all started together (fake tensors on the CPU: they
+    never touch the card). Called after the card's timed phases, so none
+    shares the host with them. Returns each cell's report."""
+    import os
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    procs = {}
+    try:
+        for a, s in cells:
+            cell = f"{a}:{s}"
+            out = os.path.join(tmp, f"{a}__{s}.json")
+            procs[cell] = (out, subprocess.Popen(
+                [sys.executable, "-c", DRYRUN_CHILD, str(SRC), out, cell],
+                env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                text=True))
+        reports = {}
+        for cell, (out, proc) in procs.items():
+            _, err = proc.communicate()
+            check(proc.returncode == 0,
+                  f"[phase 16 (e)] dry run {cell} exited {proc.returncode}: "
+                  f"{err[-2000:]}")
+            with open(out) as f:
+                reports[cell] = json.load(f)
+        return reports
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def mesh_mods():
+    """The port's modules phase 16 drives, imported after the build."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data.pipeline import token_batches
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.pipeline import pipeline_stages
+    from repro_torch.kernels import decode_superkernel as dsk
+    from repro_torch.kernels import slot_gather
+    from repro_torch.launch import hlo
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.transformer import Model
+    from repro_torch.runtime.engine import DecodeState, SlotBufferEngine
+    from repro_torch.training import steps
+    from repro_torch.tree import tree_leaves
+    return dict(get_config=get_config, get_smoke_config=get_smoke_config,
+                token_batches=token_batches, shd=shd,
+                pipeline_stages=pipeline_stages, dsk=dsk,
+                slot_gather=slot_gather, hlo=hlo, mesh=mesh_mod,
+                moe_mod=moe_mod, Model=Model, DecodeState=DecodeState,
+                SlotBufferEngine=SlotBufferEngine, steps=steps,
+                tree_leaves=tree_leaves)
+
+
+def _sync(torch, dev):
+    if dev == "cuda":
+        torch.cuda.synchronize()
+
+
+def legacy_part(torch, np, mm, gpu, dev, smoke):
+    """(a) olmoe (full depth; smoke: its smoke config) through the
+    pre-fused path: with every expert given a slot against the eager
+    unrolled model (bitwise on the CPU; on the card within four bf16 steps,
+    the GEMMs run at other shapes), at LEGACY_SLOTS a layer bitwise that
+    all-resident run, and its per-forward counters and wall time beside
+    the fused path's at the same slots."""
+    cfg = mm["get_smoke_config"]("olmoe-1b-7b") if smoke else \
+        mm["get_config"]("olmoe-1b-7b")
+    slots = 4 if smoke else LEGACY_SLOTS
+    model = mm["Model"](cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED),
+                        device=dev)
+    toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (LEGACY_BATCH, LEGACY_PROMPT))).to(dev)
+    # the eager unrolled model drop-free, as the smoke configs are (the
+    # legacy path's capacity, B*T*k, drops nothing; the published
+    # capacity factor would drop assignments in the grouped MoE)
+    m = cfg.moe
+    eager = mm["Model"](dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=m.num_experts / m.top_k)))
+    with torch.no_grad():
+        want = eager.forward(params, toks)
+    res = {"batch": [LEGACY_BATCH, LEGACY_PROMPT], "slots": slots,
+           "layers": cfg.num_layers, "gpu": gpu}
+
+    def engine(n, fused):
+        return mm["SlotBufferEngine"](
+            cfg, params, model, n_slots_per_layer=n, fused=fused,
+            use_kernel=fused, max_seq=256, device=dev)
+
+    eng = engine(cfg.moe.num_experts, False)
+    with torch.no_grad():
+        x_all = eng.forward(toks)
+    res["all_resident_vs_eager_max_abs"] = float(
+        (x_all.float() - want.float()).abs().max())
+    res["max_abs_x"] = float(want.float().abs().max())
+    log(f"[phase 16 (a)] legacy with every expert a slot against the eager "
+        f"unrolled model: max |d| {res['all_resident_vs_eager_max_abs']} "
+        f"at |x| up to {res['max_abs_x']} (bitwise on the CPU; on the card "
+        f"the two dispatch the MoE GEMMs at other shapes: the grouped "
+        f"model 64-row capacities a group, the legacy path one 2048-row "
+        f"dispatch over every slot)")
+    check(eng.swap_count > 0, "[phase 16 (a)] nothing was swapped in")
+    del eng
+    gc.collect()
+    for fused in (False, True):
+        name = "fused" if fused else "legacy"
+        eng = engine(slots, fused)
+        walls, per = [], []
+        with torch.no_grad():
+            for _ in range(LEGACY_REPS):
+                before = eng.stats.snapshot()
+                _sync(torch, dev)
+                t0 = time.perf_counter()
+                x = eng.forward(toks)
+                _sync(torch, dev)
+                walls.append(1e3 * (time.perf_counter() - t0))
+                after = eng.stats.snapshot()
+                per.append({k: after[k] - before[k] for k in
+                            ("swap_calls", "swap_experts", "swap_bytes",
+                             "host_syncs", "demand_misses", "dispatches")})
+                if not fused:
+                    d = float((x.float() - x_all.float()).abs().max())
+                    res["slots_vs_all_resident_max_abs"] = max(
+                        d, res.get("slots_vs_all_resident_max_abs", 0.0))
+        if fused:
+            res["fused_max_abs_vs_eager"] = float(
+                (x.float() - want.float()).abs().max())
+        res[name] = {
+            "wall_ms_median": statistics.median(walls), "wall_ms": walls,
+            "first_forward": per[0], "per_forward": per[-1],
+            "swapped_gb_per_forward": per[-1]["swap_bytes"] / 1e9}
+        log(f"[phase 16 (a)] {name} at {slots} slots a layer ({gpu}): "
+            f"{json.dumps(res[name])}")
+        del eng
+        gc.collect()
+    # within four bf16 steps of the largest hidden value (one GEMM's
+    # rounding carried through 16 layers' residual stream)
+    check(res["all_resident_vs_eager_max_abs"]
+          <= 4 * 2 ** -7 * res["max_abs_x"],
+          f"[phase 16 (a)] the all-resident legacy forward parts from the "
+          f"eager unrolled model by {res['all_resident_vs_eager_max_abs']}")
+    check(res["slots_vs_all_resident_max_abs"] == 0.0,
+          f"[phase 16 (a)] legacy at {slots} slots a layer differs from "
+          f"all-resident: max |d| {res['slots_vs_all_resident_max_abs']}")
+    return res
+
+
+def tail_part(torch, np, mm, gpu, dev, smoke, kern):
+    """(b) the superkernel's dense tail on DeepSeek-V2-Lite's widths
+    (smoke: its smoke widths) at moe_every=2: TAIL_STEPS decode steps at
+    batch TAIL_BATCH bitwise the fully-resident oracle (the engine's own
+    segment functions over every expert, then the tail layer by layer
+    through `layer_decode` and the model's logits), and within one bf16
+    step of the logit (or TOL) of the same oracle with the tail's plain
+    path; the tail's fused_mla_decode_attention launched once a step.
+    Returns (results, the slot path's launches: its prefill and decode
+    steps, not the oracle's)."""
+    base = mm["get_smoke_config"]("deepseek-v2-lite") if smoke else \
+        mm["get_config"]("deepseek-v2-lite")
+    cfg = dataclasses.replace(
+        base, num_layers=TAIL_LAYERS,
+        moe=dataclasses.replace(base.moe, moe_every=2))
+    model = mm["Model"](cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED),
+                        device=dev)
+    eng = mm["SlotBufferEngine"](cfg, params, model,
+                                 n_slots_per_layer=TAIL_SLOTS,
+                                 use_kernel=True, use_superkernel=True,
+                                 max_seq=256, device=dev)
+    del params
+    segs, tail = eng._sk_segments()
+    check(tail == [TAIL_LAYERS - 1] and len(segs) == 1,
+          f"[phase 16 (b)] layout {segs} + tail {tail}")
+    prompt = np.random.default_rng(SEED).integers(0, cfg.vocab_size,
+                                                  (TAIL_BATCH, 1))
+    DecodeState = mm["DecodeState"]
+    mla = kern["fused_mla_decode_attention"]
+    launches = dict.fromkeys(kern, 0)
+
+    def counted(fn, *a):
+        """fn(*a) with the kernels' launches during it added to the
+        path's (the counts are set to 0 just before, read just after)."""
+        for k in kern.values():
+            k.launches = 0
+        out = fn(*a)
+        for n, k in kern.items():
+            launches[n] += k.launches
+        return out
+
+    tail_mla = []
+    sk_tail = eng._sk_tail
+
+    def tail_counted(*a, **kw):
+        n0 = mla.launches
+        out = sk_tail(*a, **kw)
+        tail_mla.append(mla.launches - n0)
+        return out
+
+    eng._sk_tail = tail_counted
+    lg, s_slot = counted(eng.prefill, prompt)
+    lr, s_ref = eng.reference_prefill(prompt)
+    worst = float((lg - lr).abs().max())
+    plain_worst, plain_ok = 0.0, True
+    for _ in range(TAIL_STEPS):
+        tok = lr.argmax(-1)
+        lg, s_slot = counted(eng.decode_step, tok, s_slot)
+        # the oracle with the tail's plain path: within one bf16 step of
+        # the logit, or TOL
+        lp, _ = sk_reference_decode_step(eng, tok, s_ref, DecodeState,
+                                         tail_kernel=False)
+        lr, s_ref = sk_reference_decode_step(eng, tok, s_ref, DecodeState)
+        worst = max(worst, float((lg - lr).abs().max()))
+        d = (lg - lp).abs()
+        plain_worst = max(plain_worst, float(d.max()))
+        plain_ok &= bool((d <= torch.clamp(2.0 ** -7 * lp.abs(),
+                                           min=TOL)).all())
+    del eng._sk_tail
+    check(worst == 0.0, f"[phase 16 (b)] the superkernel step with a dense "
+          f"tail differs from its oracle: max |dlogit| {worst}")
+    check(plain_ok, f"[phase 16 (b)] the superkernel step parts from the "
+          f"oracle with the tail's plain path by {plain_worst}")
+    tail_steps = tail_mla      # the slot path's (the oracle's tail is its own)
+    if dev == "cuda":
+        check(tail_steps == [1] * TAIL_STEPS, f"[phase 16 (b)] the tail's "
+              f"fused_mla_decode_attention launches a step: {tail_steps}")
+    res = {"layers": TAIL_LAYERS, "slots": TAIL_SLOTS, "batch": TAIL_BATCH,
+           "steps": TAIL_STEPS, "tail": tail, "bitwise": True,
+           "max_abs_dlogit_plain_tail": plain_worst,
+           "tail_mla_launches_per_step": tail_steps,
+           "path_launches": launches, "replays": eng.stats.replays,
+           "evictions": eng.stats.evictions}
+    log(f"[phase 16 (b)] ({gpu}) {json.dumps(res)}")
+    eng.drop_resident_experts()
+    del eng
+    gc.collect()
+    return res, launches
+
+
+def mesh_part(torch, np, mm, gpu, dev, smoke, base_train=None):
+    """(c) a (1, 1) mesh on one device (NCCL on the card, gloo on the CPU,
+    a one-rank group with an in-memory store): olmoe's training of phase
+    14 (b) with FSDP against the same steps without a mesh; the EP path
+    and its collectives a step; yi-9b's forward on the mesh against
+    without it. (d) one pipeline stage on a one-rank ``pod`` mesh against
+    the stage function."""
+    import torch.distributed as dist
+    shd, hlo, moe_mod = mm["shd"], mm["hlo"], mm["moe_mod"]
+    mm["mesh"].init_local_group(dev)
+    try:
+        mesh = mm["mesh"].make_host_mesh()
+        res = {"mesh": list(mesh.shape), "backend": dist.get_backend(),
+               "gpu": gpu}
+        # (c) training, the same params and batches both ways
+        cfg = mm["get_smoke_config"]("olmoe-1b-7b") if smoke else \
+            cut(mm["get_config"]("olmoe-1b-7b"), TRAIN_DEPTH["olmoe-1b-7b"][0])
+        B, T = (2, 32) if smoke else (TRAIN_BATCH, TRAIN_SEQ)
+        model = mm["Model"](cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(SEED),
+                            device=dev)
+        step = mm["steps"].make_train_step(model, lr=TRAIN_LR, remat=True,
+                                           ce_chunk=2048)
+        from repro_torch.training.optimizer import adamw_init
+
+        def run(p, meshed):
+            o = adamw_init(p)
+            losses, times = [], []
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            for i, (toks, labels) in zip(range(TRAIN_STEPS), mm[
+                    "token_batches"](cfg.vocab_size, B, T, seed=0)):
+                b = {"tokens": torch.from_numpy(toks).long().to(dev),
+                     "labels": torch.from_numpy(labels).long().to(dev)}
+                if meshed:
+                    b = {k: shd.distribute(v, ("data", None))
+                         for k, v in b.items()}
+                t0 = time.perf_counter()
+                if meshed and i == 1:
+                    # each MoE call's choice of formulation, read from
+                    # `_can_shard_map` as `_moe_mesh` calls it
+                    can, taken = moe_mod._can_shard_map, []
+                    moe_mod._can_shard_map = \
+                        lambda *a: taken.append(can(*a)) or taken[-1]
+                    try:
+                        with hlo.record() as rec:
+                            p, o, m = step(p, o, b)
+                            loss = float(m["loss"])
+                    finally:
+                        moe_mod._can_shard_map = can
+                    res["ep_paths_a_step"] = {
+                        "shard_map": taken.count(True),
+                        "gathered": taken.count(False)}
+                    st = hlo.collective_stats(rec)
+                    res["collectives_a_step"] = {
+                        "count_by_kind": st.count_by_kind,
+                        "bytes_by_kind": st.bytes_by_kind}
+                else:
+                    p, o, m = step(p, o, b)
+                    loss = float(m["loss"])
+                losses.append(loss)
+                times.append(time.perf_counter() - t0)
+            mem = torch.cuda.max_memory_allocated() / 1e9 \
+                if dev == "cuda" else None
+            return losses, 1e3 * statistics.median(times[1:]), mem
+
+        plain = run(params, False)
+        with shd.mesh_context(mesh, fsdp=True):
+            meshed = run(shd.distribute_params(params, mesh, fsdp=True),
+                         True)
+        parted = max(abs(a - b) for a, b in zip(plain[0], meshed[0]))
+        res["train"] = {
+            "arch": cfg.name, "layers": cfg.num_layers, "batch": [B, T],
+            "losses_no_mesh": plain[0], "losses_mesh": meshed[0],
+            "bitwise": plain[0] == meshed[0], "max_abs_loss_diff": parted,
+            "ms_per_step_no_mesh": plain[1], "ms_per_step_mesh": meshed[1],
+            "max_memory_allocated_gb_no_mesh": plain[2],
+            "max_memory_allocated_gb_mesh": meshed[2],
+            "phase_14b": None if base_train is None else {
+                k: base_train.get(k) for k in
+                ("ms_per_step", "max_memory_allocated_gb", "losses")}}
+        log(f"[phase 16 (c)] olmoe training, (1, 1) mesh with FSDP against "
+            f"no mesh ({gpu}): {json.dumps(res['train'])}")
+        if not res["train"]["bitwise"]:
+            log(f"[phase 16 (c)] the losses part by {parted}: not bitwise")
+        check(parted <= 1e-3 * abs(plain[0][0]),
+              f"[phase 16 (c)] mesh losses {meshed[0]} against {plain[0]}")
+        check(res["ep_paths_a_step"]["shard_map"] > 0
+              and res["ep_paths_a_step"]["gathered"] == 0,
+              f"[phase 16 (c)] the EP path was not taken: "
+              f"{res['ep_paths_a_step']}")
+        check(moe_mod._can_shard_map(mesh, cfg.moe, B, T, cfg.d_model),
+              "[phase 16 (c)] _can_shard_map is false at Tg > 1")
+        log(f"[phase 16 (c)] EP path a step {res['ep_paths_a_step']}, "
+            f"collectives a step {json.dumps(res['collectives_a_step'])}")
+        del params
+        gc.collect()
+        # yi-9b's forward
+        cfg = mm["get_smoke_config"]("yi-9b") if smoke else \
+            cut(mm["get_config"]("yi-9b"), MESH_YI_LAYERS)
+        model = mm["Model"](cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(SEED),
+                            device=dev)
+        toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+            0, cfg.vocab_size, MESH_YI_TOKENS)).to(dev)
+        with torch.no_grad():
+            want = model.forward(params, toks)
+            with shd.mesh_context(mesh, fsdp=True):
+                got = model.forward(shd.distribute_params(params, mesh, True),
+                                    shd.distribute(toks, ("data", None)))
+                got = got.full_tensor()
+        res["yi_forward"] = {
+            "layers": cfg.num_layers, "tokens": list(MESH_YI_TOKENS),
+            "bitwise": bool(torch.equal(got, want)),
+            "max_abs_diff": float((got.float() - want.float()).abs().max())}
+        check(res["yi_forward"]["bitwise"], f"[phase 16 (c)] yi-9b's mesh "
+              f"forward differs: {res['yi_forward']}")
+        log(f"[phase 16 (c)] yi-9b forward on the mesh: "
+            f"{json.dumps(res['yi_forward'])}")
+        del params
+        gc.collect()
+        # (d) one pipeline stage
+        from torch.distributed.device_mesh import init_device_mesh
+        pmesh = init_device_mesh(dev, (1,), mesh_dim_names=("pod",))
+        w = torch.randn(64, 64, generator=torch.Generator(
+            device=dev).manual_seed(SEED), device=dev)
+        x = torch.randn(PIPE_MICRO, 8, 64, generator=torch.Generator(
+            device=dev).manual_seed(SEED + 1), device=dev)
+        stage = lambda p, h: torch.tanh(h @ p)  # noqa: E731
+        with hlo.record() as rec:
+            y = mm["pipeline_stages"](stage, 1, PIPE_MICRO, "pod",
+                                      pmesh)(w, x)
+        want = torch.stack([stage(w, x[i]) for i in range(PIPE_MICRO)])
+        res["pipeline"] = {
+            "stages": 1, "microbatches": PIPE_MICRO,
+            "bitwise": bool(torch.equal(y, want)),
+            "permutes": hlo.collective_stats(rec).count_by_kind}
+        check(res["pipeline"]["bitwise"], "[phase 16 (d)] one pipeline "
+              "stage differs from the stage function")
+        log(f"[phase 16 (d)] {json.dumps(res['pipeline'])}")
+        return res
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_phase(torch, np, gpu, dev="cuda", smoke=False, base_train=None):
+    """Phase 16 (see the module docstring). Returns (results, launches of
+    its kernel paths)."""
+    t_phase = time.perf_counter()
+    mm = mesh_mods()
+    res = {"gpu": gpu}
+    launches = {}
+    from repro_torch.kernels import ops
+    dsk, sg = mm["dsk"], mm["slot_gather"]
+    kern = {"slot_ffn": sg.slot_ffn, "fused_moe_entry": dsk.fused_moe_entry,
+            "fused_decode_attention": dsk.fused_decode_attention,
+            "fused_mla_decode_attention": dsk.fused_mla_decode_attention,
+            "topk_gating": ops.topk, "expert_ffn": ops.expert_ffn}
+    assert set(kern) == set(KERNELS)
+    for k in kern.values():
+        k.launches = 0
+    res["legacy"] = legacy_part(torch, np, mm, gpu, dev, smoke)
+    launches["phase 16 (a) legacy and fused forwards"] = {
+        n: k.launches for n, k in kern.items()}
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    res["tail"], launches["phase 16 (b) superkernel tail"] = tail_part(
+        torch, np, mm, gpu, dev, smoke, kern)
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    res["mesh"] = mesh_part(torch, np, mm, gpu, dev, smoke, base_train)
+    t_dry = time.perf_counter()
+    reports = run_dryrun()
+    dry = {}
+    for cell, r in reports.items():
+        check(r.get("status") == "ok",
+              f"[phase 16 (e)] dry run {cell}: {r.get('error', r)}")
+        roof = r["roofline"]
+        dry[cell] = {"peak_gib": r["peak_memory_bytes"] / 2 ** 30,
+                     "flops_per_device": r["raw_flops_per_device"],
+                     "bytes_per_device": r["raw_bytes_per_device"],
+                     "collective_bytes_per_device":
+                         r["raw_collective_bytes"],
+                     "dominant": roof["dominant"],
+                     "run_s": r["compile_seconds"]}
+        log(f"[phase 16 (e)] dry run {cell} on a fake 16x16 mesh (host, "
+            f"modeled on H100 data-sheet peaks): {json.dumps(dry[cell])}")
+    res["dryrun"] = {"cells": dry, "wall_s": time.perf_counter() - t_dry}
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"[phase 16] done in {res['phase_s']:.1f} s (the dry run's "
+        f"children {res['dryrun']['wall_s']:.1f} s of it)")
+    return res, launches
+
+
 def main(argv) -> int:
     only = None            # --kernels[=a,b]: phases 1-3 only, no result
     disk_only = False      # --disk: phase 1 and the disk probe, no result
     horizon_only = False   # --horizon: phases 1-2, 5's base and 13
     train_only = False     # --train: phases 1-2, 14 and 15
+    mesh_only = False      # --mesh: phases 1-2 and 16
     for a in argv:
         if a == "--disk":
             disk_only = True
@@ -4138,6 +4663,8 @@ def main(argv) -> int:
             horizon_only = True
         elif a == "--train":
             train_only = True
+        elif a == "--mesh":
+            mesh_only = True
         elif a == "--kernels" or a.startswith("--kernels="):
             only = [n for n in a.partition("=")[2].split(",") if n]
             bad = set(only) - set(KERNELS)
@@ -4186,6 +4713,18 @@ def main(argv) -> int:
     floor_lib = floor_build()
     log(f"build: {json.dumps(secs)} ({time.perf_counter() - t0:.1f} s wall)")
     build_info = build_report(build)
+    if mesh_only:
+        res, counts = mesh_phase(torch, np, smi[0])
+        teardown(torch)
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_mesh.json").write_text(json.dumps(
+            {"gpu": smi[0], "mesh_phase": res, "launches": counts,
+             "total_s": time.perf_counter() - t_start}, indent=1,
+            default=str))
+        log(f"--mesh: phases 3-15 skipped, no result "
+            f"({time.perf_counter() - t_start:.1f} s)")
+        return 0
     if train_only:
         res, counts = train_phase(torch, np)
         rec_res, rec_counts = recurrent_phase(torch, np, smi[0])
@@ -4345,6 +4884,14 @@ def main(argv) -> int:
     rec_res, _ = recurrent_phase(torch, np, smi[0])
     launches["phase 15 recurrent and enc-dec"] = counters(mods)
     log(f"phase 15 done at {time.perf_counter() - t_start:.1f} s")
+
+    # ---- phase 16: the pre-fused path, the superkernel's dense tail, the
+    # mesh, the pipeline and the dry run; each kernel path's counts set to 0
+    # just before it and read just after
+    mesh_res, mesh_launches = mesh_phase(
+        torch, np, smi[0], base_train=train_res.get("train_olmoe"))
+    launches.update(mesh_launches)
+    log(f"phase 16 done at {time.perf_counter() - t_start:.1f} s")
     teardown(torch)
 
     src = "src/repro_torch/kernels/csrc/"
@@ -4381,7 +4928,7 @@ def main(argv) -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"gpu": smi[0], "kernels": kernels["kernels"], "serving": serving,
          "faults": fault_runs, "tier": tier_runs, "horizon": horizon_runs,
-         "train": train_res, "recurrent": rec_res,
+         "train": train_res, "recurrent": rec_res, "mesh": mesh_res,
          "kernel_api_max_abs_err": api_errs,
          "total_s": time.perf_counter() - t_start}, indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -25,13 +25,18 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import distribute_tensor
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.checkpoint.serde import decode_raw, dtype_name, encode_raw
 from repro_torch.tree import leaves_with_paths, tree_map, tree_unflatten
 
 
 def _host(x) -> Any:
-    """A leaf as a host array or CPU tensor of its own (a copy)."""
+    """A leaf as a host array or CPU tensor of its own (a copy); a DTensor
+    whole (gathered from its shards)."""
+    if shd.is_dtensor(x):
+        x = x.full_tensor()
     if isinstance(x, torch.Tensor):
         return x.detach().to("cpu", copy=True)
     return np.array(x)
@@ -64,7 +69,8 @@ def save_checkpoint(path: str, tree: Any, step: int = 0,
 
 def load_checkpoint(path: str, like: Any) -> Tuple[Any, int]:
     """Restore into the structure of `like` (leaf for leaf, shapes must
-    match); each leaf takes `like`'s leaf's dtype and device."""
+    match); each leaf takes `like`'s leaf's dtype and device (a DTensor's
+    mesh and placements: each rank keeps its shards)."""
     path = pathlib.Path(path)
     manifest = json.loads((path / "manifest.json").read_text())
     with np.load(path / "arrays.npz") as z:
@@ -80,7 +86,11 @@ def load_checkpoint(path: str, like: Any) -> Tuple[Any, int]:
         if tuple(arr.shape) != tuple(ref.shape):
             raise ValueError(f"shape mismatch {tuple(arr.shape)} vs "
                              f"{tuple(ref.shape)}")
-        if isinstance(ref, torch.Tensor):
+        if shd.is_dtensor(ref):
+            out.append(distribute_tensor(
+                arr.to(device=ref.device, dtype=ref.dtype), ref.device_mesh,
+                ref.placements, src_data_rank=None))
+        elif isinstance(ref, torch.Tensor):
             out.append(arr.to(device=ref.device, dtype=ref.dtype))
         else:
             out.append(arr.numpy().astype(np.asarray(ref).dtype))

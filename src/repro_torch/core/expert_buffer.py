@@ -2,8 +2,9 @@
 
 A bounded number of *slots* hold expert FFN weights in device memory; an
 indirection table maps (layer, expert) -> slot. The host-side controller
-(`TwoLevelLRU` + prefetcher) owns the replacement policy. `swap_in_many`
-writes experts into slots with asynchronous host -> device copies straight
+(`TwoLevelLRU` + prefetcher) owns the replacement policy. `swap_in` writes
+one expert into one slot (the pre-fused path's per-expert swap);
+`swap_in_many` writes experts into slots with asynchronous host -> device copies straight
 from `HostExpertStore`'s pinned per-layer tensors, on a copy stream of the
 caller's, ordered after every reader already enqueued on the compute stream.
 """
@@ -65,6 +66,16 @@ class HostExpertStore:
     def nbytes(self) -> int:
         return sum(w.numel() * w.element_size()
                    for ws in self._layers.values() for w in ws)
+
+
+def swap_in(slots: Dict[str, torch.Tensor], slot_idx: int,
+            w_gate: torch.Tensor, w_up: torch.Tensor,
+            w_down: torch.Tensor) -> None:
+    """Write one expert's weights into slot `slot_idx`, in place, on the
+    current stream (after every reader already enqueued there). From a
+    pinned host tensor the copy is asynchronous to the host."""
+    for name, w in zip(_NAMES, (w_gate, w_up, w_down)):
+        slots[name][slot_idx].copy_(w, non_blocking=True)
 
 
 SwapTiming = Union[float, Tuple[torch.cuda.Event, torch.cuda.Event]]

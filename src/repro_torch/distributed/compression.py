@@ -30,8 +30,9 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor,
 
 
 def init_error_state(params: Any) -> Any:
-    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                          device=p.device), params)
+    """Zero fp32 errors laid out like the params (DTensors on a mesh)."""
+    return tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                    params)
 
 
 def compress_with_feedback(grads: Any, error: Any) -> Tuple[Any, Any]:

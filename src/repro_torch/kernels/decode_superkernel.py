@@ -26,6 +26,7 @@ import ctypes
 from typing import Optional
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.kernels.build import LIBS
 from repro_torch.kernels.ref import (fused_decode_attention_ref,
@@ -254,7 +255,7 @@ def fused_mla_decode_attention(q_abs: torch.Tensor, q_pe: torch.Tensor,
         if max_len >= S:
             raise ValueError(f"cache_len up to {max_len} does not fit a "
                              f"cache of {S} positions")
-    else:
+    elif not is_fake(cache_len):     # a fake tensor has no lengths to read
         lo, hi = (int(v) for v in
                   torch.stack(torch.aminmax(cache_len)).tolist())
         if lo < 0 or hi >= S:

@@ -4,12 +4,22 @@
         --smoke --steps 200 --batch 8 --seq 64
 
 The reference's flags, plus `--device` (default `cuda`; `cpu` on request;
-without CUDA, `cuda` raises). Remat, asynchronous checkpoints with
-restart (`--ckpt-dir`, `--ckpt-every`, `--resume`), and optional int8
-gradient compression with error feedback (`--compress-grads`). One
-device: `--mesh host`; the pod meshes (`16x16`, `2x16x16`) arrive with the
-mesh/sharding slice and raise. `main` returns the losses and the final
-state, so a caller in the same process can read them.
+without CUDA, `cuda` raises). FSDP sharding, remat, asynchronous
+checkpoints with restart (`--ckpt-dir`, `--ckpt-every`, `--resume`), and
+optional int8 gradient compression with error feedback
+(`--compress-grads`). Training runs inside the mesh's context with the
+params distributed over it (FSDP), as the reference's does:
+
+- `--mesh host` (default): every rank of the running process group as a
+  (n, 1) ("data", "model") mesh; without a group, a one-rank group of this
+  process (NCCL on the card, gloo on the CPU; no port), closed at the end.
+- `--mesh 16x16` / `2x16x16`: the production meshes, over a process group
+  of 256 / 512 ranks (the running one, or one started from torchrun's
+  environment, each rank on its `LOCAL_RANK`'s card); otherwise they
+  raise, naming the ranks they need.
+
+`main` returns the losses and the final state, so a caller in the same
+process can read them.
 """
 from __future__ import annotations
 
@@ -19,6 +29,7 @@ import tempfile
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs.registry import get_config, get_smoke_config
@@ -26,7 +37,10 @@ from repro_torch.data.pipeline import token_batches
 from repro_torch.device import resolve_device
 from repro_torch.distributed.compression import (compress_with_feedback,
                                                  init_error_state)
+from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.fault_tolerance import TrainRunner
+from repro_torch.launch.mesh import (init_local_group, make_host_mesh,
+                                     make_production_mesh)
 from repro_torch.models.transformer import Model
 from repro_torch.training.optimizer import adamw_init, adamw_update
 from repro_torch.training.steps import make_loss_fn, value_and_grad
@@ -51,17 +65,36 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
+    own_group = not dist.is_initialized()
     if args.mesh != "host":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the pod meshes arrive with the port's "
-            "mesh/sharding slice; the port trains on one device (--mesh "
-            "host)")
+        if own_group and "WORLD_SIZE" in os.environ:
+            dist.init_process_group()          # torchrun's environment
+        try:
+            mesh = make_production_mesh(multi_pod=args.mesh == "2x16x16")
+        except RuntimeError:
+            if own_group and dist.is_initialized():
+                dist.destroy_process_group()
+            raise
     dev = resolve_device(args.device)
+    if dev.type == "cuda" and "LOCAL_RANK" in os.environ:
+        torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+    if args.mesh == "host":
+        init_local_group(dev.type)
+        mesh = make_host_mesh()
+    try:
+        with shd.mesh_context(mesh, fsdp=True):
+            return _train(args, dev, mesh)
+    finally:
+        if own_group and dist.is_initialized():
+            dist.destroy_process_group()
 
+
+def _train(args, dev, mesh) -> dict:
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = Model(cfg)
     gen = torch.Generator(dev).manual_seed(0)
-    params = model.init(gen, device=dev)
+    params = shd.distribute_params(model.init(gen, device=dev), mesh,
+                                   fsdp=True)
     opt_state = adamw_init(params)
     err = init_error_state(params) if args.compress_grads else None
     vg = value_and_grad(make_loss_fn(model, remat=True, ce_chunk=512))
@@ -93,8 +126,9 @@ def main(argv=None) -> dict:
 
     def batches():
         for toks, labels in data:
-            yield {"tokens": torch.from_numpy(toks).long().to(dev),
-                   "labels": torch.from_numpy(labels).long().to(dev)}
+            yield {k: shd.distribute(torch.from_numpy(a).long().to(dev),
+                                     ("data", None))
+                   for k, a in (("tokens", toks), ("labels", labels))}
 
     losses = []
     t0 = time.time()

@@ -11,6 +11,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding as shd
+
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6, *,
              zero_centered: bool = False) -> torch.Tensor:
@@ -50,7 +52,13 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor, act: str = "silu") -> torch.Tensor:
     """Gated FFN: (act(x@Wg) * (x@Wu)) @ Wd; `act` is "silu" or "gelu"
-    (tanh approximation, as the reference's)."""
+    (tanh approximation, as the reference's). On DTensors (a mesh) it runs
+    on the local shards: hidden units sharded over ``model`` give partial
+    sums, all-reduced once."""
+    if shd.is_dtensor(x):
+        return shd.region(
+            lambda *a: swiglu(*a, act=act), x, w_gate, w_up, w_down, like=x,
+            out=shd.Out((shd.BATCH,), partial=shd.model_dim(w_down) == 0))
     g = x @ w_gate
     u = x @ w_up
     h = F.gelu(g, approximate="tanh") if act == "gelu" else F.silu(g)

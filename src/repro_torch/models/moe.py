@@ -2,7 +2,9 @@
 
 - `moe_reference` dense all-experts oracle (smoke sizes only)
 - `moe_grouped`   capacity-buffer grouped MoE over resident weights (the
-                  reference's single-device `moe_grouped`)
+                  reference's `moe_grouped`); on a mesh, expert-parallel
+                  (`_moe_shard_map`): experts over ``model``, groups over
+                  the batch axes
 - `moe_slotbuf`   ExpertFlow runtime path: expert weights are read from a
                   bounded slot buffer through an expert -> slot table
 - `moe_slotbuf_fused` the decode superkernel's MoE entry: routing, top-k,
@@ -23,6 +25,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels.decode_superkernel import fused_moe_entry
 from repro_torch.kernels.slot_gather import slot_ffn
 from repro_torch.models.layers import swiglu, trunc_normal
@@ -138,7 +141,10 @@ def _dispatch_plan(expert_ids: torch.Tensor, num_experts: int,
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
     sorted_tok = order // k
-    counts = torch.bincount(sorted_e, minlength=num_experts)
+    # a fixed-length bincount (bincount's length follows the data)
+    counts = torch.zeros(num_experts, dtype=sorted_e.dtype,
+                         device=sorted_e.device).scatter_add_(
+        0, sorted_e, torch.ones_like(sorted_e))
     starts = torch.cumsum(counts, 0) - counts              # exclusive cumsum
     pos = torch.arange(T * k, device=expert_ids.device) - starts[sorted_e]
     keep = pos < capacity
@@ -232,40 +238,52 @@ def moe_slotbuf(params, slot_weights, slot_of_expert: torch.Tensor,
     """
     T, d = x.shape
     E, k = moe.num_experts, moe.top_k
-    n_slots = slot_weights["w_gate"].shape[0]
     r = router_out if router_out is not None else route(
         params["router"], x, k, moe.router_norm_topk)
     slot_raw = slot_of_expert.long()[r.expert_ids]              # (T, k)
     resident = slot_raw >= 0
     gates = r.gates * resident.float()
 
-    if use_kernel:
-        buf, tok, eid, keep, order, flat_slot, counts = _dispatch_gather(
-            x, r.expert_ids, E, capacity)
-        counts = slot_ffn_row_counts(counts, slot_of_expert, capacity)
-        # clamped, so no entry reads outside the buffer
-        slot_valid = torch.clamp(slot_of_expert, min=0).to(torch.int32)
-        y = slot_ffn(buf, slot_valid, slot_weights["w_gate"],
-                     slot_weights["w_up"], slot_weights["w_down"],
-                     counts=counts)                                 # (E,C,d)
-        weight = gates.reshape(-1)[order] * keep.float()
-        valid = keep & resident.reshape(-1)[order]
-        out = _combine_gather(y.reshape(E * capacity, d), flat_slot, order,
-                              weight, T, k, valid=valid).to(x.dtype)
-    else:
-        slot_ids = torch.where(resident, slot_raw,
-                               torch.full_like(slot_raw, n_slots))
-        buf, tok, sid, keep, order, flat_slot, _ = _dispatch_gather(
-            x, slot_ids, n_slots, capacity)
-        g = torch.bmm(buf, slot_weights["w_gate"])
-        u = torch.bmm(buf, slot_weights["w_up"])
-        h = F.silu(g) * u
-        y = torch.bmm(h, slot_weights["w_down"])
-        weight = gates.reshape(-1)[order] * keep.float()
-        out = _combine_gather(y.reshape(n_slots * capacity, d), flat_slot,
-                              order, weight, T, k,
-                              valid=keep & (sid < n_slots)).to(x.dtype)
+    if not use_kernel:
+        out = _slot_sum(slot_weights, slot_raw, resident, gates, x, k,
+                        capacity).to(x.dtype)
+        return _add_shared(params, x, out), r
+    buf, tok, eid, keep, order, flat_slot, counts = _dispatch_gather(
+        x, r.expert_ids, E, capacity)
+    counts = slot_ffn_row_counts(counts, slot_of_expert, capacity)
+    # clamped, so no entry reads outside the buffer
+    slot_valid = torch.clamp(slot_of_expert, min=0).to(torch.int32)
+    y = slot_ffn(buf, slot_valid, slot_weights["w_gate"],
+                 slot_weights["w_up"], slot_weights["w_down"],
+                 counts=counts)                                     # (E,C,d)
+    weight = gates.reshape(-1)[order] * keep.float()
+    valid = keep & resident.reshape(-1)[order]
+    out = _combine_gather(y.reshape(E * capacity, d), flat_slot, order,
+                          weight, T, k, valid=valid).to(x.dtype)
     return _add_shared(params, x, out), r
+
+
+def _slot_sum(slot_weights, slot_raw: torch.Tensor, resident: torch.Tensor,
+              gates: torch.Tensor, x: torch.Tensor, k: int,
+              capacity: int) -> torch.Tensor:
+    """`moe_slotbuf`'s einsum path up to its fp32 combine: the bf16
+    per-slot FFN over the slot-grouped dispatch buffer, each token's k
+    gate-weighted rows summed in fp32. slot_raw (T, k): each assignment's
+    slot; resident (T, k): whether it has one; gates (T, k) already zero
+    where not resident."""
+    T, d = x.shape
+    n_slots = slot_weights["w_gate"].shape[0]
+    slot_ids = torch.where(resident, slot_raw,
+                           torch.full_like(slot_raw, n_slots))
+    buf, tok, sid, keep, order, flat_slot, _ = _dispatch_gather(
+        x, slot_ids, n_slots, capacity)
+    g = torch.bmm(buf, slot_weights["w_gate"])
+    u = torch.bmm(buf, slot_weights["w_up"])
+    h = F.silu(g) * u
+    y = torch.bmm(h, slot_weights["w_down"])
+    weight = gates.reshape(-1)[order] * keep.float()
+    return _combine_gather(y.reshape(n_slots * capacity, d), flat_slot,
+                           order, weight, T, k, valid=keep & (sid < n_slots))
 
 
 def moe_slotbuf_fused(params, slot_weights, slot_of_expert: torch.Tensor,
@@ -297,7 +315,10 @@ def moe_grouped(params, x: torch.Tensor, moe,
     exactly the slot path's einsum branch under the identity slot table.
     x: (T, d), or (G, Tg, d) with one dispatch (and capacity) per group.
     Returns (out, router output), the latter over every token (G * Tg
-    rows, group-major)."""
+    rows, group-major). On a mesh (x a DTensor) see `_moe_mesh`."""
+    mesh = shd.get_mesh()
+    if mesh is not None and shd.is_dtensor(x):
+        return _moe_mesh(params, x, moe, capacity, mesh)
     if x.dim() == 3:
         outs = [moe_grouped(params, xg, moe, capacity) for xg in x]
         r = RouterOutput(*(torch.cat(f) for f in zip(*(o[1] for o in outs))))
@@ -308,3 +329,94 @@ def moe_grouped(params, x: torch.Tensor, moe,
     ident = torch.arange(moe.num_experts, dtype=torch.int32, device=x.device)
     full = {n: params[n] for n in ("w_gate", "w_up", "w_down")}
     return moe_slotbuf(params, full, ident, x, moe, capacity=capacity)
+
+
+# ---------------------------------------------------------------------------
+# Expert-parallel formulation (a mesh)
+# ---------------------------------------------------------------------------
+
+def _dsize(mesh, axes) -> int:
+    n = 1
+    for a in axes:
+        n *= shd.axis_size(mesh, a)
+    return n
+
+
+def _fsdp_gather_ok(mesh, fsdp: bool, dim: int) -> bool:
+    """FSDP weight all-gather is legal iff `dim` tiles evenly over `data`."""
+    return (fsdp and "data" in shd.axis_names(mesh)
+            and dim % _dsize(mesh, ("data",)) == 0)
+
+
+def _can_shard_map(mesh, moe, G, Tg, d) -> bool:
+    if mesh is None or "model" not in shd.axis_names(mesh) or Tg <= 1:
+        return False
+    dsz = _dsize(mesh, shd.batch_axes(mesh))
+    return (moe.num_experts % shd.axis_size(mesh, "model") == 0
+            and G % max(dsz, 1) == 0)
+
+
+def _moe_mesh(params, x, moe, capacity, mesh):
+    """`moe_grouped` on a mesh. (G, Tg, d) groups that tile the batch axes
+    with Tg > 1 take the hand-scheduled expert-parallel layer
+    (`_can_shard_map`, as the reference's shard_map); anything else (a
+    (T, d) decode batch is one group) first gathers its tokens over the
+    batch axes and runs the same local dispatch there, the output sliced
+    back to the batch sharding. Shared experts follow as a dense FFN."""
+    squeeze = x.dim() == 2
+    G, Tg = (1, x.shape[0]) if squeeze else tuple(x.shape[:2])
+    d = x.shape[-1]
+    if capacity is None:
+        capacity = max(1, int(Tg * moe.top_k / moe.num_experts
+                              * moe.capacity_factor))
+    ep = _can_shard_map(mesh, moe, G, Tg, d)
+    xin = x if ep else shd.constrain(x, (None,) * x.dim())
+    out, r = _moe_shard_map(params, xin, moe, capacity, mesh)
+    out = _add_shared(params, xin, out.to(x.dtype))
+    out = shd.constrain(out, ("data",) + (None,) * (x.dim() - 1))
+    return out, r
+
+
+def _moe_shard_map(params, x, moe, capacity, mesh):
+    """Hand-scheduled EP MoE: experts sharded over `model` (E / m a rank,
+    when E divides), x's groups as x is sharded over the batch axes. The
+    collectives are EXACTLY: one weight all-gather over `data` per
+    projection when the weights are stored FSDP-sharded, and one fp32
+    all-reduce of the layer output over `model`. Each rank routes its own
+    tokens (the router is replicated) and dispatches them to its own
+    experts only (the others' gates zeroed, their tokens to the dead
+    sentinel slot), through the einsum path of `moe_slotbuf`; the fp32
+    per-token sums of the ranks add up to the one-device sum. Returns the
+    fp32 output and the router output, as DTensors."""
+    E, k = moe.num_experts, moe.top_k
+    msize = shd.axis_size(mesh, "model")
+    sharded = E % msize == 0
+    E_loc = E // msize if sharded else E
+    e0 = shd.model_rank(mesh) * E_loc if sharded else 0
+    # weights stored FSDP-sharded (`_fsdp_gather_ok`: d_model tiles over
+    # data) are all-gathered over data once per projection; the expert dim
+    # stays over model
+    espec = "model" if sharded else None
+    ws = [shd.constrain(params[n], (espec, None, None))
+          for n in ("w_gate", "w_up", "w_down")]
+
+    def local_fn(router, wg, wu, wd, xb):
+        e = torch.arange(E, device=xb.device) - e0
+        slot_map = torch.where((e >= 0) & (e < E_loc), e,
+                               torch.full_like(e, -1))
+        w = {"w_gate": wg, "w_up": wu, "w_down": wd}
+        outs, rs = [], []
+        for xg in ([xb] if xb.dim() == 2 else list(xb)):
+            r = route(router, xg, k, moe.router_norm_topk)
+            slot_raw = slot_map[r.expert_ids]
+            resident = slot_raw >= 0
+            outs.append(_slot_sum(w, slot_raw, resident,
+                                  r.gates * resident.float(), xg, k,
+                                  capacity))
+            rs.append(r)
+        out = outs[0] if xb.dim() == 2 else torch.stack(outs)
+        return out, RouterOutput(*(torch.cat(f) for f in zip(*rs)))
+
+    return shd.region(local_fn, params["router"], *ws, x, like=x,
+                      out=(shd.Out((shd.BATCH,), partial=sharded),
+                           shd.Out((shd.BATCH,))))

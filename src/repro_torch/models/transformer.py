@@ -30,16 +30,29 @@ prefill cursor and are copied when the prompt is committed to a batch row.
 Attention layers decode through their decode kernel (`use_kernel=True`);
 the recurrent mixers and cross-attention run plain PyTorch on every
 device, as the reference computes them outside its kernels.
+
+On a mesh (`distributed.sharding.mesh_context`, params from
+`distribute_params`, inputs DTensors sharded over the batch axes) the
+same entry points run SPMD, with the reference's sharding hooks at its
+sites (`gather_for_compute` at each layer's entry, `constrain` on the
+residual stream). Each mixer and FFN runs as a region on local shards
+(`sharding.region`): attention over the rank's heads, a dense FFN over its
+hidden units, each all-reduced over ``model``; the MoE FFN expert-parallel
+(`moe._moe_mesh`); the embedding vocab-parallel. The recurrent mixers and
+cross-attention have no tensor-parallel rule here: their weights are
+gathered over ``model`` first. Without a mesh nothing of this runs.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, NamedTuple, Optional
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.sharding import BATCH, Out
 from repro_torch.kernels.decode_superkernel import fused_decode_attention
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
@@ -216,7 +229,7 @@ def _ffn_part(p, cfg: ModelConfig, x: torch.Tensor,
         ff = out.reshape(B, 1, -1)
     if "post_ffn_norm" in p:
         ff = _norm(ff, p["post_ffn_norm"], cfg)
-    return x + ff
+    return shd.constrain(x + ff, ("data", None, None))
 
 
 def _post_attn(p, cfg: ModelConfig, x: torch.Tensor,
@@ -229,11 +242,16 @@ def _post_attn(p, cfg: ModelConfig, x: torch.Tensor,
 
 
 def _mix_prefill(p, cfg: ModelConfig, spec: LayerSpec, h: torch.Tensor,
-                 positions: torch.Tensor, causal: bool = True):
+                 positions: torch.Tensor, causal: bool = True,
+                 kv_slice: Optional[slice] = None):
     """The layer's mixer over the whole normed sequence h (B, T, d).
     Returns (mix (B, T, d), what the cache keeps): attention (GQA or MLA,
     the layer's window and soft-cap) its T rows by cache name; a recurrent
-    mixer its final state by cache name."""
+    mixer its final state by cache name. `kv_slice`: the K/V heads the
+    attention reads (a rank's query heads on a mesh, `_kv_slice`); the
+    cache rows keep all of them."""
+    if shd.is_dtensor(h):
+        return _mix_prefill_mesh(p, cfg, spec, h, positions, causal)
     if spec.kind == "rec":
         mix, conv, rec = rec_mod.rglru_block(p["rec"], h)
         return mix, {"conv": conv, "rec": rec}
@@ -259,14 +277,67 @@ def _mix_prefill(p, cfg: ModelConfig, spec: LayerSpec, h: torch.Tensor,
         k, v = attn_mod.gqa_project_kv(p["attn"], h, positions,
                                        cfg.rope_theta, cfg.norm_eps)
         rows = {"k": k, "v": v}
+        if kv_slice is not None:
+            k, v = k[:, :, kv_slice], v[:, :, kv_slice]
         mix = attn_mod.flash_attention(q, k, v, causal=causal,
                                        window=spec.window,
                                        logit_softcap=cfg.attn_logit_softcap)
     return attn_mod.gqa_out(p["attn"], mix), rows
 
 
+# ---------------------------------------------------------------------------
+# The mixers on a mesh
+# ---------------------------------------------------------------------------
+
+def _mixer_params(p):
+    return {k: p[k] for k in ("attn", "rec", "mix") if k in p}
+
+
+def _kv_slice(attn) -> Tuple[bool, Optional[slice]]:
+    """(tensor-parallel, kv heads) of an attention layer on a mesh. Its
+    query heads (wq / wq_b, wo) are sharded over ``model`` when they divide;
+    GQA K/V heads when theirs do too. Query heads sharded without their
+    K/V heads read the slice of K/V heads their group needs; a split that
+    leaves no whole groups gathers the weights instead (not
+    tensor-parallel)."""
+    q_sharded = shd.model_dim(attn["wo"]) == 0
+    if not q_sharded or "wk" not in attn or shd.model_dim(attn["wk"]) == 1:
+        return True, None
+    mesh = attn["wo"].device_mesh
+    m, r = shd.axis_size(mesh, "model"), shd.model_rank(mesh)
+    H, Hkv = attn["wo"].shape[0], attn["wk"].shape[1]
+    G, hl = H // Hkv, H // m
+    if hl % G and G % hl:
+        return False, None
+    return True, slice(r * hl // G, ((r + 1) * hl - 1) // G + 1)
+
+
+def _mix_out(cfg: ModelConfig, spec: LayerSpec, p, tp: bool):
+    """The region outputs of a mixer: (mix, its cache rows)."""
+    if spec.kind != "attn":
+        return Out((BATCH,)), Out((BATCH,))
+    attn = p["attn"]
+    partial = tp and shd.model_dim(attn["wo"]) == 0
+    heads = "model" if tp and cfg.attention != "mla" and \
+        shd.model_dim(attn["wk"]) == 1 else None
+    return Out((BATCH,), partial), Out((BATCH, None, heads))
+
+
+def _mix_prefill_mesh(p, cfg, spec, h, positions, causal):
+    tp, kvs = _kv_slice(p["attn"]) if spec.kind == "attn" else (False, None)
+    return shd.region(
+        lambda p_, h_, pos_: _mix_prefill(p_, cfg, spec, h_, pos_, causal,
+                                          kvs),
+        _mixer_params(p), h, positions, like=h,
+        out=_mix_out(cfg, spec, p, tp), tp=tp)
+
+
 def _cross_kv(p, enc_out: torch.Tensor):
     """The cross-attention's K/V of the encoder output (B, S, d)."""
+    if shd.is_dtensor(enc_out):
+        return shd.region(lambda c, e: _cross_kv({"cross": c}, e),
+                          p["cross"], enc_out, like=enc_out,
+                          out=Out((BATCH,)), tp=False)
     return (torch.einsum("bsd,dhk->bshk", enc_out, p["cross"]["wk"]),
             torch.einsum("bsd,dhk->bshk", enc_out, p["cross"]["wv"]))
 
@@ -275,6 +346,12 @@ def _cross_part(p, cfg: ModelConfig, x: torch.Tensor, xk, xv,
                 enc_pos) -> torch.Tensor:
     """x + cross-attention (bidirectional, no rope) of x's rows over the
     encoder's K/V; its norm is never zero-centred."""
+    if shd.is_dtensor(x):
+        return shd.region(
+            lambda c, n, x_, k_, v_, e_: _cross_part(
+                {"cross": c, "cross_norm": n}, cfg, x_, k_, v_, e_),
+            p["cross"], p["cross_norm"], x, xk, xv, enc_pos, like=x,
+            out=Out((BATCH,)), tp=False)
     hc = rms_norm(x, p["cross_norm"], cfg.norm_eps)
     return x + attn_mod.gqa_attention(
         p["cross"], hc, positions=enc_pos, rope_theta=0.0, causal=False,
@@ -289,9 +366,10 @@ def layer_forward(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
     """Full-sequence layer (train / prefill without a cache). x: (B, T,
     d). `causal=False` for the encoder; `enc_out` (B, S, d) / `enc_pos`
     (B, S) feed a decoder layer's cross-attention."""
+    p = shd.gather_for_compute(p)   # FSDP: weight all-gather
     mix, _ = _mix_prefill(p, cfg, spec, _norm(x, p["pre_norm"], cfg),
                           positions, causal)
-    x = _post_attn(p, cfg, x, mix)
+    x = shd.constrain(_post_attn(p, cfg, x, mix), ("data", None, None))
     if enc_out is not None and "cross" in p:
         x = _cross_part(p, cfg, x, *_cross_kv(p, enc_out), enc_pos)
     return _ffn_part(p, cfg, x, router_sink=router_sink)
@@ -344,25 +422,38 @@ def layer_prefill(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
     at position t in slot t % size (the ring decode continues); a
     recurrent mixer keeps its state after the prompt; a decoder layer with
     `enc_out` keeps the cross K/V {"xk", "xv"}."""
-    B, T, _ = x.shape
+    p = shd.gather_for_compute(p)
     mix, rows = _mix_prefill(p, cfg, spec, _norm(x, p["pre_norm"], cfg),
                              positions)
-    x = _post_attn(p, cfg, x, mix)
-    if spec.kind == "attn":
-        cache = init_layer_cache(cfg, spec, B, max_seq, x.dtype, x.device)
-        for name, r in rows.items():
-            size = cache[name].shape[1]
-            if T >= size and name in ("k", "v"):
-                slots = torch.arange(T - size, T, device=x.device) % size
-                cache[name][:, slots] = r[:, T - size:]
-            else:
-                cache[name][:, :T] = r
-    else:
-        cache = rows
+    x = shd.constrain(_post_attn(p, cfg, x, mix), ("data", None, None))
+    cache = _cache_of_rows(cfg, spec, rows, max_seq) \
+        if spec.kind == "attn" else rows
     if enc_out is not None and "cross" in p:
         cache["xk"], cache["xv"] = _cross_kv(p, enc_out)
         x = _cross_part(p, cfg, x, cache["xk"], cache["xv"], enc_pos)
     return _ffn_part(p, cfg, x, router_sink=router_sink), cache
+
+
+def _cache_of_rows(cfg: ModelConfig, spec: LayerSpec, rows, max_seq: int):
+    """An attention layer's cache holding a prompt's K/V (or latent) rows
+    (B, T, ...): a GQA ring the prompt fills keeps its last rows, row t in
+    slot t % size. On a mesh, built from each rank's rows."""
+    first = next(iter(rows.values()))
+    if shd.is_dtensor(first):
+        return shd.region(
+            lambda r: _cache_of_rows(cfg, spec, r, max_seq), rows,
+            like=first, out={n: Out(shd.spec_of(r)) for n, r in rows.items()})
+    B, T = first.shape[:2]
+    cache = init_layer_cache(cfg, spec, B, max_seq, first.dtype,
+                             first.device)
+    for name, r in rows.items():
+        size = cache[name].shape[1]
+        if T >= size and name in ("k", "v"):
+            slots = torch.arange(T - size, T, device=r.device) % size
+            cache[name][:, slots] = r[:, T - size:]
+        else:
+            cache[name][:, :T] = r
+    return cache
 
 
 def layer_prefill_chunk(p, cfg: ModelConfig, spec: LayerSpec,
@@ -389,6 +480,7 @@ def layer_prefill_chunk(p, cfg: ModelConfig, spec: LayerSpec,
     if "cross" in p:
         raise NotImplementedError(
             "chunked prefill takes no cross-attention layer")
+    p = shd.gather_for_compute(p)
     h = _norm(x, p["pre_norm"], cfg)
     if cfg.attention == "mla":
         mix, _, _ = attn_mod.mla_prefill_chunk(
@@ -400,12 +492,14 @@ def layer_prefill_chunk(p, cfg: ModelConfig, spec: LayerSpec,
             p["attn"], h, positions, cache["k"], cache["v"], cache_len,
             n_valid, rope_theta=cfg.rope_theta,
             logit_softcap=cfg.attn_logit_softcap, norm_eps=cfg.norm_eps)
-    return _ffn_part(p, cfg, _post_attn(p, cfg, x, mix)), cache
+    x = shd.constrain(_post_attn(p, cfg, x, mix), ("data", None, None))
+    return _ffn_part(p, cfg, x), cache
 
 
 def attn_decode(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
                 cache, cache_len: torch.Tensor, use_kernel: bool = False,
-                max_len: Optional[int] = None):
+                max_len: Optional[int] = None,
+                kv_slice: Optional[slice] = None):
     """The attention half of a one-token layer step on the layer's input x
     (B, 1, d). Returns (out (B, 1, d), new_cache): the attention's output
     after the pre-norm and the output projection, before the post-norm and
@@ -423,7 +517,14 @@ def attn_decode(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
     call, which writes the new caches itself (on CPU tensors the wrapper
     runs its plain version); `max_len`, a host int that bounds every
     `cache_len`, lets the MLA kernel's wrapper check the room in the cache
-    without reading the lengths from the device."""
+    without reading the lengths from the device. `kv_slice` (GQA on a
+    mesh, `_kv_slice`): the K/V heads this rank's query heads read; the
+    attention reads contiguous copies of those heads (through the kernel
+    when `use_kernel`), and the new row still goes into every head of the
+    cache."""
+    if shd.is_dtensor(x):
+        return _attn_decode_mesh(p, cfg, spec, x, cache, cache_len,
+                                 use_kernel, max_len)
     B = x.shape[0]
     h = _norm(x, p["pre_norm"], cfg)
     if cfg.attention == "mla":
@@ -439,22 +540,57 @@ def attn_decode(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
                                cfg.norm_eps)
     k, v = attn_mod.gqa_project_kv(p["attn"], h, positions,
                                    cfg.rope_theta, cfg.norm_eps)
-    if use_kernel:
+    if use_kernel and kv_slice is None:
         mix, kc, vc = fused_decode_attention(
             q.contiguous(), k.contiguous(), v.contiguous(), cache["k"],
             cache["v"], cache_len,
             logit_softcap=cfg.attn_logit_softcap)
+        return attn_mod.gqa_out(p["attn"], mix), dict(cache, k=kc, v=vc)
+    rows = torch.arange(B, device=x.device)
+    slot = torch.remainder(clen, size)
+    kc = cache["k"].clone()
+    vc = cache["v"].clone()
+    kc[rows, slot] = k[:, 0]
+    vc[rows, slot] = v[:, 0]
+    if use_kernel:
+        # the kernel over copies of the rank's K/V heads (it inserts the
+        # new row into its copies itself)
+        sl = lambda t: t[:, :, kv_slice].contiguous()  # noqa: E731
+        mix, _, _ = fused_decode_attention(
+            q.contiguous(), sl(k), sl(v), sl(cache["k"]), sl(cache["v"]),
+            cache_len, logit_softcap=cfg.attn_logit_softcap)
     else:
-        rows = torch.arange(B, device=x.device)
-        slot = torch.remainder(clen, size)
-        kc = cache["k"].clone()
-        vc = cache["v"].clone()
-        kc[rows, slot] = k[:, 0]
-        vc[rows, slot] = v[:, 0]
         valid = torch.clamp(clen + 1, max=size)
+        ka, va = (kc, vc) if kv_slice is None else \
+            (kc[:, :, kv_slice], vc[:, :, kv_slice])
         mix = attn_mod.decode_attention(
-            q, kc, vc, valid, logit_softcap=cfg.attn_logit_softcap)
+            q, ka, va, valid, logit_softcap=cfg.attn_logit_softcap)
     return attn_mod.gqa_out(p["attn"], mix), dict(cache, k=kc, v=vc)
+
+
+def _cache_out(cache, own: Out, names):
+    """Region outputs of a layer cache: `own` for the entries the layer's
+    mixer writes, each other entry as it came."""
+    return {n: own if n in names else
+            (Out(shd.spec_of(c)) if shd.is_dtensor(c) else None)
+            for n, c in cache.items()}
+
+
+def _attn_decode_mesh(p, cfg, spec, x, cache, cache_len, use_kernel,
+                      max_len):
+    """`attn_decode` on a mesh: the rank's heads over its batch rows, the
+    cache first laid out as that needs (K/V heads as wk's, the latent
+    whole over ``model``)."""
+    tp, kvs = _kv_slice(p["attn"])
+    mix_out, rows_out = _mix_out(cfg, spec, p, tp)
+    own = ("latent", "pe") if cfg.attention == "mla" else ("k", "v")
+    cache = {n: shd.relayout(c, rows_out.spec, x) if n in own else c
+             for n, c in cache.items()}
+    return shd.region(
+        lambda p_, x_, c_, l_: attn_decode(p_, cfg, spec, x_, c_, l_,
+                                           use_kernel, max_len, kvs),
+        {"attn": p["attn"], "pre_norm": p["pre_norm"]}, x, cache, cache_len,
+        like=x, out=(mix_out, _cache_out(cache, rows_out, own)), tp=tp)
 
 
 def _recurrent_decode(p, cfg: ModelConfig, spec: LayerSpec,
@@ -463,6 +599,14 @@ def _recurrent_decode(p, cfg: ModelConfig, spec: LayerSpec,
     mLSTM or sLSTM) on the layer's input x (B, 1, d), plain PyTorch.
     Returns (out (B, 1, d) before the residual add, new_cache); the input
     cache is left as it was."""
+    if shd.is_dtensor(x):
+        own = [n for n in cache if n not in ("xk", "xv")]
+        return shd.region(
+            lambda p_, x_, c_: _recurrent_decode(p_, cfg, spec, x_, c_),
+            {k: p[k] for k in ("pre_norm", "rec", "mix") if k in p}, x,
+            cache, like=x,
+            out=(Out((BATCH,)), _cache_out(cache, Out((BATCH,)), own)),
+            tp=False)
     h = _norm(x, p["pre_norm"], cfg)
     if spec.kind == "rec":
         out, conv, rec = rec_mod.rglru_block(
@@ -491,20 +635,33 @@ def layer_decode(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
     attention and its arguments as `attn_decode`, a recurrent mixer as
     `_recurrent_decode`. A decoder layer whose cache holds the cross K/V
     attends to its first `src_len` rows (default: all of them), plain."""
+    p = shd.gather_for_compute(p)
     if spec.kind == "attn":
         out, cache = attn_decode(p, cfg, spec, x, cache, cache_len,
                                  use_kernel, max_len)
     else:
         out, cache = _recurrent_decode(p, cfg, spec, x, cache)
-    x = _post_attn(p, cfg, x, out)
+    x = shd.constrain(_post_attn(p, cfg, x, out), ("data", None, None))
     if "xk" in cache and "cross" in p:
-        hc = rms_norm(x, p["cross_norm"], cfg.norm_eps)
         slen = cache["xk"].shape[1] if src_len is None else src_len
-        cmix, _, _ = attn_mod.gqa_decode(p["cross"], hc, cache["xk"],
-                                         cache["xv"], slen, rope_theta=0.0,
-                                         cross=True)
-        x = x + cmix
+        x = _cross_decode(p, cfg, x, cache["xk"], cache["xv"], slen)
     return _decode_ffn(p, cfg, x), cache
+
+
+def _cross_decode(p, cfg: ModelConfig, x: torch.Tensor, xk, xv,
+                  src_len: int) -> torch.Tensor:
+    """x + the one-token cross-attention over the first `src_len` rows of
+    the cached encoder K/V."""
+    if shd.is_dtensor(x):
+        return shd.region(
+            lambda c, n, x_, k_, v_: _cross_decode(
+                {"cross": c, "cross_norm": n}, cfg, x_, k_, v_, src_len),
+            p["cross"], p["cross_norm"], x, xk, xv, like=x,
+            out=Out((BATCH,)), tp=False)
+    hc = rms_norm(x, p["cross_norm"], cfg.norm_eps)
+    cmix, _, _ = attn_mod.gqa_decode(p["cross"], hc, xk, xv, src_len,
+                                     rope_theta=0.0, cross=True)
+    return x + cmix
 
 
 def _decode_ffn(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -563,16 +720,44 @@ class Model:
         """Token embeddings; the gemma family scales them by sqrt(d) in the
         params' dtype, as the reference does; with absolute positions
         (whisper) the sinusoids of `positions` (default 0..T-1) are added
-        in the params' dtype."""
-        x = params["embed"][tokens]
+        in the params' dtype. On a mesh (DTensor tokens), see
+        `_embed_mesh`."""
+        if shd.is_dtensor(tokens):
+            return self._embed_mesh(params, tokens, positions)
+        return self._embed_finish(params["embed"][tokens], positions)
+
+    def _embed_finish(self, x: torch.Tensor,
+                      positions: Optional[torch.Tensor]) -> torch.Tensor:
         if _zc(self.cfg):
             x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype,
                                  device=x.device)
         if self.cfg.abs_pos:
             if positions is None:
-                positions = torch.arange(tokens.shape[-1], device=x.device)
+                positions = torch.arange(x.shape[-2], device=x.device)
             x = x + sinusoidal_pos(positions, self.cfg.d_model).to(x.dtype)
         return x
+
+    def _embed_mesh(self, params, tokens, positions):
+        """Vocab-parallel lookup: each rank looks up the tokens in its rows
+        of the embedding (sharded over ``model``, gathered over ``data``),
+        zeros for the others', and one all-reduce over ``model`` sums the
+        rows (exact: one rank holds each). Then the scale and positions."""
+        emb = shd.constrain(params["embed"], ("model", None))
+        split = shd.model_dim(emb) == 0
+        V_loc = emb.to_local().shape[0]
+        v0 = shd.model_rank(emb.device_mesh) * V_loc if split else 0
+
+        def rows(e, t):
+            inr = (t >= v0) & (t < v0 + V_loc)
+            r = e[torch.where(inr, t - v0, torch.zeros_like(t))]
+            return torch.where(inr[..., None], r, torch.zeros_like(r))
+
+        x = shd.region(rows, emb, tokens, like=tokens,
+                       out=Out((BATCH,), partial=split))
+        if positions is not None:
+            positions = shd.batch_like(positions, tokens)
+        return shd.region(self._embed_finish, x, positions, like=x,
+                          out=Out((BATCH,)))
 
     def final_hidden(self, params, h: torch.Tensor) -> torch.Tensor:
         return _norm(h, params["final_norm"], self.cfg)
@@ -585,7 +770,15 @@ class Model:
     def logits(self, params, h: torch.Tensor) -> torch.Tensor:
         """Final norm + LM head (+ the final soft-cap); the product rounds
         to the params' dtype before widening to fp32, as the reference's
-        does."""
+        does. On a mesh the head is gathered over ``data`` and the logits
+        stay sharded over ``model`` by vocabulary."""
+        if shd.is_dtensor(h):
+            w = shd.constrain(self.lm_head_weight(params), (None, "model"))
+            return shd.region(
+                lambda h_, w_: softcap((h_ @ w_).float(),
+                                       self.cfg.final_logit_softcap),
+                self.final_hidden(params, h), w, like=h,
+                out=Out((BATCH, "model" if shd.model_dim(w) == 1 else None)))
         out = (self.final_hidden(params, h)
                @ self.lm_head_weight(params)).float()
         return softcap(out, self.cfg.final_logit_softcap)
@@ -600,7 +793,14 @@ class Model:
         B, S, _ = frames.shape
         positions = torch.arange(S, device=frames.device)[None].expand(B, S)
         x = frames
-        if cfg.abs_pos:
+        if shd.is_dtensor(frames):
+            positions = shd.batch_like(positions, frames)
+            if cfg.abs_pos:
+                x = shd.region(
+                    lambda f, pos: f + sinusoidal_pos(
+                        pos, cfg.d_model).to(f.dtype),
+                    frames, positions, like=frames, out=Out((BATCH,)))
+        elif cfg.abs_pos:
             x = x + sinusoidal_pos(positions, cfg.d_model).to(x.dtype)
         for lp in enc["layers"]:
             x = layer_forward(lp, cfg, ENCODER_SPEC, x, positions,
@@ -609,6 +809,7 @@ class Model:
 
     def _inputs(self, params, tokens, embeds, enc_out):
         x = self.embed(params, tokens) if embeds is None else embeds
+        x = shd.constrain(x, ("data", None, None))
         B, T, _ = x.shape
         positions = torch.arange(T, device=x.device)[None, :].expand(B, T)
         enc = {}
@@ -616,6 +817,10 @@ class Model:
             S = enc_out.shape[1]
             enc = {"enc_out": enc_out, "enc_pos": torch.arange(
                 S, device=x.device)[None, :].expand(B, S)}
+        if shd.is_dtensor(x):
+            positions = shd.batch_like(positions, x)
+            if enc:
+                enc["enc_pos"] = shd.batch_like(enc["enc_pos"], x)
         return x, positions, enc
 
     # -- full-sequence forward ---------------------------------------------------

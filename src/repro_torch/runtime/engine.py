@@ -47,7 +47,8 @@ the MoE layer index `li` counts MoE layers only.
 call per MoE layer, which also runs the dense layers before it (attention
 through `fused_decode_attention` or `fused_mla_decode_attention`, routing
 and the expert FFN through `fused_moe_entry`, the needed / pre-gate mask
-block, and the logits folded into the last segment). Routing happens
+block, and the logits folded into the last segment, or into one call of
+the trailing dense layers after it). Routing happens
 inside the call, so every segment runs against the residency it finds;
 sync segments pull the accumulated masks, verify, and replay from the
 first segment that needed an expert it did not find, with that demand made
@@ -67,7 +68,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.cache import TwoLevelLRU
 from repro_torch.core.cache_aware import residency_logit_bias
 from repro_torch.core.expert_buffer import (HostExpertStore, SlotTable,
-                                            make_buffer, swap_in_many)
+                                            make_buffer, swap_in,
+                                            swap_in_many)
 from repro_torch.core.faults import FaultInjector, FaultPlan, StepWatchdog
 from repro_torch.core.prefetcher import Prefetcher, TransferLink
 from repro_torch.core.step_size import StepSizeController
@@ -75,7 +77,7 @@ from repro_torch.core.trace import TraceLog
 from repro_torch.device import resolve_device
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import rms_norm
-from repro_torch.models.transformer import (LayerSpec, Model,
+from repro_torch.models.transformer import (LayerSpec, Model, _norm,
                                             init_layer_cache, layer_decode,
                                             layer_forward, layer_prefill,
                                             layer_prefill_chunk,
@@ -398,7 +400,10 @@ class SlotBufferEngine:
     oracles read the shards. `prefetch=False` turns speculation off (the
     no-prefetch baseline: horizon 0, no pre-gate); `link_bandwidth` sets
     the virtual link's rate; a caller's `controller` is used as given.
-    `device` defaults to CUDA;
+    `fused=False` keeps the pre-fused `forward` (`_forward_legacy`), the
+    benchmark's baseline: eager per-layer compute, host routing and one
+    swap-in per missing expert; it has no prefetch, no tiered store and no
+    incremental or chunked decode. `device` defaults to CUDA;
     without CUDA the engine raises unless the caller passes
     ``device="cpu"``."""
 
@@ -415,7 +420,8 @@ class SlotBufferEngine:
                  degraded_route_bias: float = 4.0,
                  degraded_recover_streak: int = 8,
                  watchdog: Optional[StepWatchdog] = None,
-                 store: Optional[Any] = None, device="cuda"):
+                 store: Optional[Any] = None, fused: bool = True,
+                 device="cuda"):
         _require_moe(cfg, "SlotBufferEngine")
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -432,9 +438,10 @@ class SlotBufferEngine:
         self.stats = SlotPathStats()
         self._dispatch = Dispatcher(self.stats)
         self.use_superkernel = use_superkernel
-        # the reference gates speculation on `prefetch and fused`; the port
-        # has no unfused (per-expert) forward, so prefetch alone decides
-        self.prefetch_enabled = prefetch
+        # speculation belongs to the fused runtime: the pre-fused forward
+        # (`fused=False`) swaps in on demand only, as the reference's does
+        self.fused = fused
+        self.prefetch_enabled = prefetch and fused
         self._sk_segs: Optional[Tuple[List[List[int]], List[int]]] = None
         # experts live in the host store (pinned on CUDA), or in a
         # caller's TieredExpertStore (core.expert_tiers) whose host
@@ -447,6 +454,7 @@ class SlotBufferEngine:
         else:
             self.store = store
             if self.tiers is not None:
+                assert fused, "tiered expert store requires the fused path"
                 tm = self.tiers.model
                 assert (tm.L, tm.E) == (L, E), (
                     f"shard store shape ({tm.L},{tm.E}) != model ({L},{E})")
@@ -1013,6 +1021,8 @@ class SlotBufferEngine:
 
     def forward(self, tokens) -> torch.Tensor:
         """Full forward with slot-buffer MoE. tokens: (B, T) -> (B, T, d)."""
+        if not self.fused:
+            return self._forward_legacy(tokens)
         self.stats.steps += 1
         tokens = torch.as_tensor(tokens, device=self.device)
         x, positions = self._dispatch(self._embed, tokens)
@@ -1060,6 +1070,68 @@ class SlotBufferEngine:
                                       nxt if want_pred else None)
             x = self._ffn(p, self._full_experts(li), self._ident_map, x, flat,
                           r)
+            li += 1
+        return x
+
+    # -- pre-fused execution (the benchmark's baseline) ----------------------
+    @property
+    def swap_count(self) -> int:
+        """Experts written into the slot buffer so far, on every path."""
+        return self.stats.swap_experts
+
+    def _ensure_resident_seq(self, li: int, experts) -> int:
+        """The pre-fused swap path: one swap-in per missing expert, each
+        its own copy on the compute stream, with no pinning of the layer's
+        working set. Returns #experts swapped."""
+        swaps = 0
+        for e in experts:
+            key = (li, int(e))
+            if self.cache.touch(key):
+                continue
+            self.stats.demand_misses += 1
+            victim = self.cache.insert(key)
+            if victim is not None:
+                self.table.release(*victim)
+            slot = self.table.assign(li, int(e))
+            swap_in(self.buffer, slot, *self.store.expert(li, int(e)))
+            self.stats.swap_calls += 1
+            self.stats.swap_experts += 1
+            self.stats.swap_bytes += int(self._expert_nbytes)
+            swaps += 1
+        return swaps
+
+    def _forward_legacy(self, tokens) -> torch.Tensor:
+        """The pre-fused forward, kept as the benchmark's baseline: eager
+        per-layer compute, host routing that pulls the whole (B*T, k)
+        assignment tensor (one host sync a MoE layer), sequential per-expert
+        swap-ins, and `moe_slotbuf` on its plain path re-routing the
+        tokens."""
+        self.stats.steps += 1
+        cfg, k = self.cfg, self.cfg.moe.top_k
+        tokens = torch.as_tensor(tokens, device=self.device)
+        B, T = tokens.shape
+        x, positions = self._embed(tokens)
+        li = 0
+        for i, spec in enumerate(self.specs):
+            p = self._p[i]
+            if not spec.is_moe:
+                x = layer_forward(p, cfg, spec, x, positions)
+                continue
+            stripped, spec_nf = split_ffn_params(p, spec)
+            x = layer_forward(stripped, cfg, spec_nf, x, positions)
+            flat = _norm(x, p["ffn_norm"], cfg).reshape(B * T, -1)
+            r = moe_mod.route(p["moe"]["router"], flat, k,
+                              cfg.moe.router_norm_topk)
+            needed = sorted({int(e) for e in self._pull(r.expert_ids).ravel()})
+            self._ensure_resident_seq(li, needed)
+            slot_map = torch.from_numpy(self.table.layer_slot_map(li)).to(
+                self.device)
+            out, _ = moe_mod.moe_slotbuf(p["moe"], self.buffer, slot_map, flat,
+                                         cfg.moe, capacity=B * T * k)
+            ff = out.reshape(B, T, -1)
+            if "post_ffn_norm" in p:
+                ff = _norm(ff, p["post_ffn_norm"], cfg)
+            x = x + ff
             li += 1
         return x
 
@@ -1218,6 +1290,7 @@ class SlotBufferEngine:
     def prefill(self, tokens) -> Tuple[torch.Tensor, DecodeState]:
         """Run the prompt through the slot path, populating per-layer KV
         caches. Returns (last-token logits (B, V), DecodeState)."""
+        assert self.fused, "incremental decode requires the fused runtime"
         tokens = torch.as_tensor(tokens, device=self.device)
         B, T = tokens.shape
         assert T <= self.max_seq, f"prompt {T} exceeds max_seq {self.max_seq}"
@@ -1257,6 +1330,7 @@ class SlotBufferEngine:
         """Open a resumable chunked prefill for ONE prompt, (T,) or (1, T).
         Drive it with `prefill_chunk`; commit it with
         `finish_prefill_into`, or let `prefill_chunked` run it through."""
+        assert self.fused, "chunked prefill requires the fused runtime"
         if isinstance(tokens, torch.Tensor):
             tokens = tokens.cpu()
         toks = np.asarray(tokens, np.int64)
@@ -1422,6 +1496,7 @@ class SlotBufferEngine:
         states run the same control flow over the union of active rows.
         An engine built with `use_superkernel=True` takes the
         segment-fused step instead (`_decode_step_superkernel`)."""
+        assert self.fused, "incremental decode requires the fused runtime"
         batched = state.batched
         if batched:
             act = np.asarray(state.active, bool)
@@ -1613,8 +1688,8 @@ class SlotBufferEngine:
         `bias`: the (E,) router-logit bias `fused_moe_entry` adds (the
         layer's residency bias, or zeros); `bias_next`: the pre-gate's
         (s, E) bias, or None.
-        `with_logits`: the last segment of an all-MoE stack also computes
-        the final-norm logits. `max_len`: the host's bound on `clen` (its
+        `with_logits`: the last segment of a stack that ends in a MoE layer
+        also computes the final-norm logits (otherwise `_sk_tail` does). `max_len`: the host's bound on `clen` (its
         mirror of the lengths), passed to MLA's kernel so that it reads no
         length back from the device. Returns (x, masks, new caches,
         logits)."""
@@ -1640,6 +1715,19 @@ class SlotBufferEngine:
         masks = self._pregate(flat, needed, routers_next, active, bias_next)
         logits = self._logits(x) if with_logits else None
         return x, masks, new_caches, logits
+
+    def _sk_tail(self, tail: List[int], ps, tail_caches, x, clen,
+                 max_len: Optional[int] = None):
+        """The trailing dense layers (after the last MoE layer), each
+        attention through its decode kernel, then the final-norm logits, in
+        one call. Returns (logits, new caches)."""
+        new_caches = []
+        for j, i in enumerate(tail):
+            x, c = layer_decode(ps[j], self.cfg, self.specs[i], x,
+                                tail_caches[j], clen, use_kernel=True,
+                                max_len=max_len)
+            new_caches.append(c)
+        return self._logits(x), new_caches
 
     def _decode_step_superkernel(self, tok, state: DecodeState,
                                  active_dev: Optional[torch.Tensor]
@@ -1668,10 +1756,6 @@ class SlotBufferEngine:
         caches, clen = list(state.caches), state.cache_len
         max_len = int(np.max(state.pos))     # the host mirror of clen
         segs, tail = self._sk_segments()
-        if tail:
-            raise NotImplementedError(
-                "trailing dense layers on the superkernel path are not "
-                "ported yet")
         n_segs = len(segs)
         logits = x = None
 
@@ -1762,8 +1846,8 @@ class SlotBufferEngine:
                 [caches[j] for j in seg], x_in, clen, self.buffer,
                 torch.from_numpy(slot_map).to(self.device),
                 self._router_stack[li + 1: li + 1 + s], bias_this, active_dev,
-                bias_next=bias_next, first=first, with_logits=last,
-                max_len=max_len)
+                bias_next=bias_next, first=first,
+                with_logits=last and not tail, max_len=max_len)
             if last:
                 logits = lg
             for jj, aj in enumerate(seg):
@@ -1797,6 +1881,12 @@ class SlotBufferEngine:
             commit()
             si += 1
 
+        if tail:
+            logits, new_tc = self._dispatch(
+                self._sk_tail, tail, [self._p[j] for j in tail],
+                [caches[j] for j in tail], x, clen, max_len=max_len)
+            for jj, aj in enumerate(tail):
+                caches[aj] = new_tc[jj]
         self.cache.protect_early_layers(
             max(1, min(self._s_eff(), len(self.moe_layer_ids))))
         step_s = time.perf_counter() - t0

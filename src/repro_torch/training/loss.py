@@ -1,10 +1,12 @@
 """Chunked cross-entropy: the (tokens, vocab) logits matrix is never
 materialised — a loop over token chunks computes logsumexp and the NLL of
-each chunk (256k vocab x 1M tokens would otherwise need ~33 GB at bf16)."""
+each chunk (256k vocab x 1M tokens would otherwise need ~33 GB at bf16).
+On a mesh each rank runs the same loop over its own batch rows."""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.models.layers import softcap
 
 
@@ -18,6 +20,15 @@ def chunked_cross_entropy(h: torch.Tensor, w: torch.Tensor,
     product in h's dtype widened to fp32 (then soft-capped), as the
     reference's; the last chunk is shorter where the tokens do not fill
     it, which is the reference's padded tail without the padding."""
+    if shd.is_dtensor(h):
+        return _cross_entropy_mesh(h, w, labels, chunk, logit_softcap,
+                                   ignore_index)
+    total, count = _nll_sums(h, w, labels, chunk, logit_softcap, ignore_index)
+    return total / torch.clamp(count, min=1.0)
+
+
+def _nll_sums(h, w, labels, chunk, logit_softcap, ignore_index):
+    """(summed NLL, number of counted positions), both () fp32."""
     B, T, d = h.shape
     x = h.reshape(B * T, d)
     y = labels.reshape(B * T)
@@ -32,4 +43,16 @@ def chunked_cross_entropy(h: torch.Tensor, w: torch.Tensor,
         mask = (yb != ignore_index).float()
         total = total + torch.sum((lse - picked) * mask)
         count = count + torch.sum(mask)
-    return total / torch.clamp(count, min=1.0)
+    return total, count
+
+
+def _cross_entropy_mesh(h, w, labels, chunk, logit_softcap, ignore_index):
+    """On a mesh: the whole head (gathered over every axis) against each
+    rank's batch rows; the ranks' sums add up over the batch axes. A plain
+    () tensor, like the loss without a mesh."""
+    w = shd.constrain(w, (None, None))
+    total, count = shd.region(
+        lambda h_, w_, y_: tuple(t.reshape(1) for t in _nll_sums(
+            h_, w_, y_, chunk, logit_softcap, ignore_index)),
+        h, w, shd.batch_like(labels, h), like=h, out=shd.Out((shd.BATCH,)))
+    return (total.sum() / torch.clamp(count.sum(), min=1.0)).full_tensor()

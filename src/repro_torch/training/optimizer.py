@@ -10,6 +10,7 @@ from typing import Any, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -20,8 +21,8 @@ class AdamWState(NamedTuple):
 
 
 def adamw_init(params) -> AdamWState:
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,  # noqa: E731
-                                  device=p.device)
+    """Zero moments laid out like the params (DTensors on a mesh)."""
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
     dev = tree_leaves(params)[0].device
     return AdamWState(torch.zeros((), dtype=torch.long, device=dev),
                       tree_map(zeros, params), tree_map(zeros, params))
@@ -42,8 +43,9 @@ def adamw_update(grads, state: AdamWState, params, *, lr: float = 3e-4,
                                for g in g_leaves))
         scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-9),
                             max=1.0)
-    b1c = 1.0 - b1 ** step.float()
-    b2c = 1.0 - b2 ** step.float()
+    m0 = tree_leaves(state.m)[0]
+    b1c = shd.replicate_like(1.0 - b1 ** step.float(), m0)
+    b2c = shd.replicate_like(1.0 - b2 ** step.float(), m0)
     new_p, new_m, new_v = [], [], []
     for g, m, v, p in zip(g_leaves, tree_leaves(state.m),
                           tree_leaves(state.v), tree_leaves(params)):

@@ -14,6 +14,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.models.transformer import Model
 from repro_torch.training.loss import chunked_cross_entropy
 from repro_torch.training.optimizer import (AdamWState, adamw_init,
@@ -57,11 +58,19 @@ def value_and_grad(loss_fn: Callable) -> Callable:
         with torch.enable_grad():
             loss = loss_fn(tracked, batch)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
+        grads = [torch.zeros_like(p) if g is None else _like_param(g, p)
                  for p, g in zip(leaves, grads)]
         return loss.detach(), tree_unflatten(params, grads)
 
     return vg
+
+
+def _like_param(g, p):
+    """A gradient laid out as its param (on a mesh the backward pass may
+    leave it a partial sum over the batch axes: this all-reduces it)."""
+    if shd.is_dtensor(g) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def make_train_step(model: Model, *, lr: float = 3e-4, remat: bool = True,

@@ -23,7 +23,7 @@ from repro_torch.kernels.ref import (expert_ffn_ref,
                                      fused_moe_entry_ref, slot_ffn_ref,
                                      topk_gating_ref)
 from repro_torch.models import moe
-from repro_torch.models.transformer import Model
+from repro_torch.models.transformer import Model, layer_decode
 from repro_torch.runtime.engine import DecodeState, SlotBufferEngine
 
 pytestmark = pytest.mark.cuda
@@ -279,11 +279,13 @@ def test_superkernel_wrappers_reject_what_the_kernels_do_not_take(gen):
                                    .contiguous().transpose(1, 2), vc, clen)
 
 
-def sk_reference_decode_step(eng, tok, state):
+def sk_reference_decode_step(eng, tok, state, tail_kernel=True):
     """The fully-resident oracle of the superkernel path: the engine's own
     segment functions over every expert of each layer with the identity
-    slot table."""
-    segs, _ = eng._sk_segments()
+    slot table, then its trailing dense layers where it has them, each
+    through `layer_decode` (their attention kernels when `tail_kernel`,
+    else the plain path), and the model's logits."""
+    segs, tail = eng._sk_segments()
     caches, clen = list(state.caches), state.cache_len
     x = torch.as_tensor(tok, device=eng.device)
     logits = None
@@ -291,9 +293,15 @@ def sk_reference_decode_step(eng, tok, state):
         x, _, new_cs, logits = eng._sk_seg(
             seg, [eng._p[j] for j in seg], [caches[j] for j in seg], x, clen,
             eng._full_experts(li), eng._ident_map, eng._router_stack[:0],
-            eng._zero_bias, first=li == 0, with_logits=li == len(segs) - 1)
+            eng._zero_bias, first=li == 0,
+            with_logits=li == len(segs) - 1 and not tail)
         for jj, aj in enumerate(seg):
             caches[aj] = new_cs[jj]
+    for j in tail:      # layer by layer, not through the engine's tail
+        x, caches[j] = layer_decode(eng._p[j], eng.cfg, eng.specs[j], x,
+                                    caches[j], clen, use_kernel=tail_kernel)
+    if tail:
+        logits = eng.model.logits(eng.params, x[:, -1])
     return logits, DecodeState(caches, clen + 1, pos=state.pos + 1)
 
 
@@ -1347,3 +1355,99 @@ def test_recurrent_mixers_card_against_cpu(gen, block):
                        if hasattr(st, "_fields") else tuple(on_card))
     for a, b in zip((got, got_d, *st_c, *st2_c), (want, want_d, *st, *st2)):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the pre-fused path and the superkernel's dense tail
+# ---------------------------------------------------------------------------
+
+def test_legacy_forward_on_the_card(gen):
+    """`SlotBufferEngine(fused=False)` on the card: with every expert given
+    a slot bitwise the eager unrolled model (per-expert swap-ins on the
+    compute stream, `moe_slotbuf`'s plain path); at 2 slots a layer, on
+    2-token batches, bitwise the all-resident legacy run under churn."""
+    cfg = get_smoke_config("olmoe-1b-7b")
+    model = Model(cfg)
+    params = model.init(gen, device="cuda")
+    rng = np.random.default_rng(2)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 10))).cuda()
+    full = SlotBufferEngine(cfg, params, model, n_slots_per_layer=8,
+                            fused=False)
+    assert torch.equal(full.forward(toks), model.forward(params, toks))
+    assert full.swap_count > 0 and full.stats.host_syncs == 2
+    small = SlotBufferEngine(cfg, params, model, n_slots_per_layer=2,
+                             fused=False)
+    for _ in range(4):
+        t = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 2))).cuda()
+        assert torch.equal(small.forward(t), full.forward(t))
+    assert small.stats.demand_misses > full.stats.demand_misses
+
+
+@pytest.mark.parametrize("arch,layers", [("olmoe-1b-7b", 2),
+                                         ("deepseek-v2-lite", 4)])
+def test_superkernel_dense_tail_on_the_card(gen, arch, layers):
+    """moe_every=2 (a dense tail after the last MoE layer): the superkernel
+    step bitwise its oracle, the tail's attention through its decode
+    kernel once a step."""
+    import dataclasses
+    base = reduce_config(get_config(arch), layers=layers, d_model=64,
+                         heads=4, kv_heads=4, d_ff=128, vocab=512, experts=8,
+                         top_k=2, d_expert=32)
+    cfg = dataclasses.replace(base, moe=dataclasses.replace(base.moe,
+                                                            moe_every=2))
+    model = Model(cfg)
+    eng = SlotBufferEngine(cfg, model.init(gen, device="cuda"), model,
+                           n_slots_per_layer=4, use_kernel=True,
+                           use_superkernel=True, max_seq=64, step_size=1,
+                           pregate_margin=0)
+    _, tail = eng._sk_segments()
+    assert tail == [layers - 1]
+    kernel = dsk.fused_mla_decode_attention if cfg.attention == "mla" \
+        else dsk.fused_decode_attention
+    prompt = np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 1))
+    lg, st = eng.prefill(prompt)
+    lr, sr = eng.reference_prefill(prompt)
+    assert torch.equal(lg, lr)
+    for _ in range(6):
+        tok = lr.argmax(-1)
+        n0 = kernel.launches
+        lg, st = eng.decode_step(tok, st)
+        assert kernel.launches - n0 >= layers   # every layer, tail included
+        lp, _ = sk_reference_decode_step(eng, tok, sr, tail_kernel=False)
+        lr, sr = sk_reference_decode_step(eng, tok, sr)
+        assert torch.equal(lg, lr)
+        # the tail's plain path: one bf16 step of the logits, or 2e-2
+        assert bool(((lg - lp).abs() <= torch.clamp(
+            2.0 ** -7 * lp.abs(), min=2e-2)).all())
+
+
+def test_attn_decode_kernel_on_a_kv_slice(gen):
+    """A rank's GQA decode on a mesh: its two of four query heads read K/V
+    head 1 of two (`kv_slice`). With `use_kernel=True` the attention runs
+    in `fused_decode_attention` on copies of that head; its output within
+    the bf16 tolerance of the plain path's, and the new row in every head
+    of the caches, bitwise the plain path's."""
+    from repro_torch.models.transformer import attn_decode
+    cfg = reduce_config(get_config("yi-9b"), layers=1, d_model=64, heads=4,
+                        kv_heads=2, d_ff=128, vocab=512)
+    model = Model(cfg)
+    p = model.init(gen, device="cuda")["layers"][0]
+    p["attn"] = dict(p["attn"], wq=p["attn"]["wq"][:, 2:].contiguous(),
+                     wo=p["attn"]["wo"][2:].contiguous())
+    spec = model.specs[0]
+    B, S = 3, 32
+    cache = {n: torch.randn((B, S, 2, cfg.resolved_head_dim), generator=gen,
+                            device="cuda").bfloat16() for n in ("k", "v")}
+    x = torch.randn((B, 1, cfg.d_model), generator=gen,
+                    device="cuda").bfloat16()
+    clen = torch.tensor([5, 17, 31], device="cuda")
+    n0 = dsk.fused_decode_attention.launches
+    got, gc = attn_decode(p, cfg, spec, x, cache, clen, use_kernel=True,
+                          kv_slice=slice(1, 2))
+    assert dsk.fused_decode_attention.launches == n0 + 1
+    want, wc = attn_decode(p, cfg, spec, x, cache, clen, use_kernel=False,
+                           kv_slice=slice(1, 2))
+    assert all(torch.equal(gc[n], wc[n]) for n in ("k", "v"))
+    assert not torch.equal(gc["k"], cache["k"])
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)

@@ -69,3 +69,24 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
                            device="cpu")
     assert eng.device.type == "cpu" and eng.buffer["w_gate"].device.type == "cpu"
     ServingEngine(eng)
+
+
+REF_MODULES = sorted(p.relative_to(ROOT / "src" / "repro")
+                     for p in (ROOT / "src" / "repro").rglob("*.py"))
+# reference functions the port does not carry, by module: the HLO-text
+# parsers, which have no input without HLO (the port records collectives
+# as they run); `launch/hlo.py` names each of them
+NOT_PORTED = {Path("launch/hlo.py"): ("_shape_bytes", "_group_size",
+                                      "_collective_of_line",
+                                      "_split_computations", "_trip_count")}
+
+
+@pytest.mark.parametrize("rel", REF_MODULES, ids=str)
+def test_every_reference_module_has_a_counterpart(rel):
+    """The port does all that the JAX package does: each of its modules
+    has one of the same path under `src/repro_torch/`."""
+    port = ROOT / "src" / "repro_torch" / rel
+    assert port.is_file(), f"no counterpart of src/repro/{rel}"
+    text = port.read_text()
+    for name in NOT_PORTED.get(rel, ()):
+        assert name in text, f"{port} does not name {name}, not ported"

@@ -178,11 +178,48 @@ def test_train_cli_compress_grads_on_a_dense_arch(tmp_path):
     assert res["state"][2] is not None
 
 
-@pytest.mark.parametrize("mesh", ["16x16", "2x16x16"])
-def test_train_cli_pod_meshes_raise(mesh, tmp_path):
-    with pytest.raises(NotImplementedError, match="mesh"):
+@pytest.mark.parametrize("mesh,ranks", [("16x16", 256), ("2x16x16", 512)])
+def test_train_cli_pod_meshes_raise(mesh, ranks, tmp_path):
+    """Without a process group of the mesh's size (torchrun), a pod mesh
+    raises, naming the ranks it needs."""
+    with pytest.raises(RuntimeError, match=f"{ranks} ranks"):
         train.main(["--smoke", "--device", "cpu", "--mesh", mesh,
                     "--ckpt-dir", str(tmp_path)])
+    assert not torch.distributed.is_initialized()
+
+
+def test_train_cli_host_mesh_losses_unchanged(tmp_path, monkeypatch):
+    """`--mesh host` trains inside a one-rank mesh's context with the
+    params distributed (FSDP): its losses are bitwise those of the same
+    steps without a mesh (f32 smoke), and the CLI closes the group it
+    opened."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import token_batches
+    from repro_torch.models.transformer import Model
+    from repro_torch.training.optimizer import adamw_init, adamw_update
+    from repro_torch.training.steps import make_loss_fn, value_and_grad
+    smoke = train.get_smoke_config
+    f32 = lambda a: dataclasses.replace(smoke(a),  # noqa: E731
+                                        dtype="float32")
+    monkeypatch.setattr(train, "get_smoke_config", f32)
+    res = train.main(["--arch", "olmoe-1b-7b", "--smoke", "--device", "cpu",
+                      "--steps", "3", "--batch", "2", "--seq", "16",
+                      "--lr", "3e-3", "--ckpt-dir", str(tmp_path)])
+    assert not torch.distributed.is_initialized()
+    cfg = f32("olmoe-1b-7b")
+    model = Model(cfg)
+    params = model.init(torch.Generator("cpu").manual_seed(0), device="cpu")
+    opt = adamw_init(params)
+    vg = value_and_grad(make_loss_fn(model, remat=True, ce_chunk=512))
+    want = []
+    for (toks, labels), _ in zip(token_batches(cfg.vocab_size, 2, 16),
+                                 range(3)):
+        loss, grads = vg(params, {"tokens": torch.from_numpy(toks).long(),
+                                  "labels": torch.from_numpy(labels).long()})
+        params, opt = adamw_update(grads, opt, params, lr=3e-3)
+        want.append(float(loss))
+    assert res["losses"] == want
 
 
 def test_train_cli_needs_cuda_unless_asked_for_cpu(monkeypatch, tmp_path):
