@@ -200,9 +200,17 @@ class ServingReport:
     n_requarantined: int = 0      # corrupt episodes healed by re-fetch
     n_scrubbed: int = 0           # background re-verifications run
     n_quarantined_experts: int = 0  # permanently quarantined (gauge)
+    # every gap between two output tokens of one request, s (the real
+    # engine's server records them; empty elsewhere)
+    token_gaps_s: List[float] = field(default_factory=list)
 
-    def add_request(self, m: RequestMetrics) -> None:
+    def add_request(self, m: RequestMetrics,
+                    token_times_s: Sequence[float] = ()) -> None:
+        """Record a finished request; `token_times_s`: its tokens' times,
+        whose gaps `itl()` reads."""
         self.requests.append(m)
+        self.token_gaps_s.extend(b - a for a, b in zip(token_times_s,
+                                                        token_times_s[1:]))
 
     def _dist(self, attr: str) -> Dict[str, float]:
         xs = [getattr(r, attr) for r in self.requests]
@@ -238,6 +246,16 @@ class ServingReport:
                            ("first_step", "first_step_s")):
             xs = [getattr(r, attr) for r in self.requests]
             out[name] = float(np.mean(xs)) if xs else 0.0
+        return out
+
+    def itl(self) -> Dict[str, float]:
+        """Inter-token latency over EVERY gap between two output tokens of
+        one request (not per-request means, as TPOT is): p50 / p95 / p99
+        and the mean, in seconds; zeros where no token times were
+        recorded."""
+        xs = self.token_gaps_s
+        out = {f"p{q}": percentile(xs, q) for q in PERCENTILES}
+        out["mean"] = float(np.mean(xs)) if xs else 0.0
         return out
 
     @property

@@ -15,7 +15,13 @@ Two backends behind ONE Request/Scheduler/Report surface:
   real `SlotBufferEngine` via `runtime.serving.ServingEngine` — batched
   KV-cached decode through the shared expert slot buffer, adaptive
   prefetch horizon, working-set-capped admission — and reports measured
-  wall-clock TTFT / TPOT / throughput.
+  wall-clock TTFT / TPOT / throughput, and the inter-token latency over
+  every gap. `--spans <path>` also records the engine's and the server's
+  host spans (`runtime.instrument.SpanLog`) and writes them as a Chrome
+  trace (open it in Perfetto or chrome://tracing; its
+  `baseTimeNanoseconds` is the wall-clock time the log started, so the
+  events merge into a `torch.profiler` trace of the same process with
+  `SpanLog.chrome_events(<that trace's baseTimeNanoseconds>)`).
 
 Both emit the same `core.metrics.ServingReport`. `main` returns the
 backend's reports (and, for the simulator, the inputs it replayed), so a
@@ -24,6 +30,7 @@ caller in the same process can read them.
 from __future__ import annotations
 
 import argparse
+import json
 
 import numpy as np
 
@@ -56,6 +63,7 @@ def _serve_engine(args, cfg, specs, rng) -> dict:
     """--backend engine: the request population on the real slot-path
     runtime under continuous batching."""
     from repro_torch.runtime.engine import SlotBufferEngine
+    from repro_torch.runtime.instrument import SpanLog
     from repro_torch.runtime.request import Request
     from repro_torch.runtime.serving import (EngineServingConfig,
                                              ServingEngine)
@@ -109,6 +117,8 @@ def _serve_engine(args, cfg, specs, rng) -> dict:
         route_bias=args.route_bias,
         route_bias_adaptive=args.route_bias_adaptive,
         deadline_s=args.deadline))
+    if args.spans:
+        sb.tracer.log = SpanLog()
     rep = srv.serve(requests)
     s = rep.summary()
     print(f"engine backend: slots/layer={slots} batch={args.batch} "
@@ -126,6 +136,18 @@ def _serve_engine(args, cfg, specs, rng) -> dict:
     print(f"  ttft split: queue={s['ttft_queue_mean_s']*1e3:.3f}ms "
           f"prefill={s['ttft_prefill_mean_s']*1e3:.3f}ms "
           f"first_step={s['ttft_first_step_mean_s']*1e3:.3f}ms")
+    itl = rep.itl()
+    print(f"  itl (every gap): p50={itl['p50']*1e3:.3f}ms "
+          f"p95={itl['p95']*1e3:.3f}ms p99={itl['p99']*1e3:.3f}ms")
+    if args.spans:
+        log = sb.tracer.log
+        base = log.anchor[1]
+        with open(args.spans, "w") as f:
+            json.dump({"traceEvents": log.chrome_events(base),
+                       "baseTimeNanoseconds": base,
+                       "displayTimeUnit": "ms"}, f)
+        print(f"  spans: {len(log.records)} written to {args.spans} "
+              f"({log.dropped} past the log's capacity)")
     if plan is not None:
         print(f"  health: link_failures={s['n_link_failures']} "
               f"retries={s['n_retries']} "
@@ -209,6 +231,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--scrub-budget", type=int, default=2,
                     help="host-copy re-verifications per idle scrubber "
                          "tick (--verify scrub)")
+    ap.add_argument("--spans", default=None,
+                    help="engine backend: write the engine's and the "
+                         "server's host spans here as a Chrome trace (JSON)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device the model runs on (cuda or cpu)")

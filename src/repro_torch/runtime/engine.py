@@ -82,7 +82,7 @@ from repro_torch.models.transformer import (LayerSpec, Model, _norm,
                                             layer_forward, layer_prefill,
                                             layer_prefill_chunk,
                                             split_ffn_params)
-from repro_torch.runtime.instrument import Dispatcher
+from repro_torch.runtime.instrument import Dispatcher, Tracer
 from repro_torch.runtime.sampler import sample
 from repro_torch.simulator.events import RoutingTrace, StepTrace
 
@@ -319,6 +319,17 @@ class SlotPathStats:
     host_hits: int = 0         # demanded experts already staged in host tier
     host_misses: int = 0       # demanded experts promoted disk->host first
     disk_stall_s: float = 0.0  # exposed disk-link stall (link-clock units)
+    # measured (`runtime.instrument`): device seconds the compute stream
+    # waited on expert copies, and the part whose newest awaited copy was
+    # a demand copy; host seconds in engine entries (`decode_step`,
+    # `prefill_chunk`, ...) and, within them, in `_pull`, in dispatches
+    # and in residency work
+    copy_wait_s: float = 0.0
+    copy_wait_demand_s: float = 0.0
+    step_host_s: float = 0.0
+    pull_s: float = 0.0
+    launch_s: float = 0.0
+    residency_s: float = 0.0
 
     def snapshot(self) -> Dict[str, float]:
         return dataclasses.asdict(self)
@@ -436,7 +447,8 @@ class SlotBufferEngine:
         self.buffer = make_buffer(cfg, self.n_slots, model.dtype, self.device)
         self.use_kernel = use_kernel
         self.stats = SlotPathStats()
-        self._dispatch = Dispatcher(self.stats)
+        self.tracer = Tracer(self.stats)
+        self._dispatch = Dispatcher(self.tracer)
         self.use_superkernel = use_superkernel
         # speculation belongs to the fused runtime: the pre-fused forward
         # (`fused=False`) swaps in on demand only, as the reference's does
@@ -540,11 +552,16 @@ class SlotBufferEngine:
             if self.faults is not None:
                 self.tiers.set_faults(self.faults, retry_max=self.retry_max)
         # asynchronous swap-ins (CUDA): the copy stream, the copy-end event
-        # each slot's FFN readers must wait on, and timing events not read yet
+        # each slot's FFN readers must wait on with its copy's (issue
+        # number, demand?), and timing events not read yet: the copies'
+        # and the compute stream's waits on them
         self._copy_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
         self._slot_ready: Dict[int, Any] = {}
+        self._slot_kind: Dict[int, Tuple[int, bool]] = {}
+        self._copies_issued = 0
         self._copy_timers: List[Tuple[Any, Any, float]] = []
+        self._wait_timers: List[Tuple[Any, Any, bool]] = []
         self._resident: Dict[int, Dict[str, torch.Tensor]] = {}
 
     # -- per-layer functions -------------------------------------------------
@@ -644,8 +661,9 @@ class SlotBufferEngine:
     def _slot_ffn(self, p, slot_map: np.ndarray, x, flat, r):
         """A MoE layer's FFN through the slot buffer, once the compute
         stream has waited for every pending copy into a slot it reads."""
-        self._wait_slots(slot_map)
-        sm = torch.from_numpy(slot_map).to(self.device)
+        with self.tracer.span("residency", "residency_s", kind="wait"):
+            self._wait_slots(slot_map)
+            sm = torch.from_numpy(slot_map).to(self.device)
         return self._dispatch(self._ffn, p, self.buffer, sm, x, flat, r)
 
     def _full_experts(self, li: int) -> Dict[str, torch.Tensor]:
@@ -683,16 +701,29 @@ class SlotBufferEngine:
         else:
             read = set(self._slot_ready)
         stream = torch.cuda.current_stream(self.device)
-        waited = set()
+        timed = self._copy_stream is not None
+        waited, kinds = set(), []
         for s in read:
             ev = self._slot_ready.pop(s, None)
+            kind = self._slot_kind.pop(s, None)
             if ev is not None and id(ev) not in waited:
+                if timed and not waited:
+                    before = torch.cuda.Event(enable_timing=True)
+                    before.record(stream)
                 waited.add(id(ev))
+                kinds.append(kind)
                 stream.wait_event(ev)
+        if timed and waited:
+            # the compute stream waits from reaching `before` until the
+            # newest awaited copy ends: that copy's kind is the wait's
+            after = torch.cuda.Event(enable_timing=True)
+            after.record(stream)
+            self._wait_timers.append((before, after, max(kinds)[1]))
 
-    def _dispatch_swap(self, slots: List[int],
-                       keys: List[Tuple[int, int]]) -> None:
-        """One batched swap-in of `keys` into `slots`."""
+    def _dispatch_swap(self, slots: List[int], keys: List[Tuple[int, int]],
+                       demand: bool) -> None:
+        """One batched swap-in of `keys` into `slots`; `demand`: copies the
+        step needs now (a miss, a replay's demand), not predicted ones."""
         nbytes = len(slots) * self._expert_nbytes
         timing = swap_in_many(self.buffer, slots, self.store, keys,
                               self._copy_stream)
@@ -703,6 +734,8 @@ class SlotBufferEngine:
             return
         for s in slots:
             self._slot_ready[s] = timing[1]
+            self._slot_kind[s] = (self._copies_issued, demand)
+        self._copies_issued += 1
         self._copy_timers.append((timing[0], timing[1], nbytes))
         if self.tiers is not None:
             # the host records these copies read stay until they end
@@ -715,7 +748,8 @@ class SlotBufferEngine:
     def _read_copy_timers(self) -> None:
         """Feed every completed copy's device-timed duration to the
         controller's bandwidth estimate (issue time would say nothing:
-        the copies are asynchronous)."""
+        the copies are asynchronous), and count every completed wait of
+        the compute stream on copies."""
         pending = []
         for start, end, nbytes in self._copy_timers:
             if end.query():
@@ -723,12 +757,23 @@ class SlotBufferEngine:
             else:
                 pending.append((start, end, nbytes))
         self._copy_timers = pending
+        waits = []
+        for before, after, demand in self._wait_timers:
+            if after.query():
+                wait_s = before.elapsed_time(after) / 1e3
+                self.stats.copy_wait_s += wait_s
+                if demand:
+                    self.stats.copy_wait_demand_s += wait_s
+            else:
+                waits.append((before, after, demand))
+        self._wait_timers = waits
 
     def _pull(self, t: torch.Tensor) -> np.ndarray:
         """ONE blocking device -> host pull (a host sync)."""
-        h = t.cpu().numpy()
-        self.stats.host_syncs += 1
-        self._read_copy_timers()
+        with self.tracer.span("pull", "pull_s"):
+            h = t.cpu().numpy()
+            self.stats.host_syncs += 1
+            self._read_copy_timers()
         return h
 
     def synchronize(self) -> None:
@@ -864,70 +909,75 @@ class SlotBufferEngine:
         `speculative=True` (the decode window demanding its PREDICTED set):
         prediction accounting is deferred to `_settle_prediction` when the
         layer's actual routing is verified."""
-        keys = [(li, int(e)) for e in experts]
-        if self.tiers is not None and not speculative:
-            # host-tier demand-size EWMA: the n_e term of S_disk
-            self.tiers.note_layer_demand(len(keys))
-            # the bytes of this batch's likely promotions start moving now
-            self.tiers.read_ahead([k for k in keys if k not in self.cache])
-        for key in keys:
-            self.cache.pin(key)
-        missing: List[Tuple[int, int]] = []
-        slots: List[int] = []
-        try:
+        with self.tracer.span("residency", "residency_s", layer=li,
+                              kind="speculative" if speculative
+                              else "demand") as span:
+            keys = [(li, int(e)) for e in experts]
+            if self.tiers is not None and not speculative:
+                # host-tier demand-size EWMA: the n_e term of S_disk
+                self.tiers.note_layer_demand(len(keys))
+                # the bytes of this batch's likely promotions start moving now
+                self.tiers.read_ahead([k for k in keys if k not in self.cache])
             for key in keys:
-                if self.cache.touch(key):
-                    if self.tiers is not None and not speculative:
-                        self.tiers.note_access(key)
-                    if not speculative and key in self._prefetch_pending:
-                        self._prefetch_pending.discard(key)
-                        self._settle_hit(
-                            key, self.prefetcher.is_ready(key, self._clock))
-                    continue
-                if not speculative:
-                    self.stats.demand_misses += 1
-                    self.controller.record_stall()
-                    if not self._fault_transfer_ok(key, demand=True):
-                        # retries exhausted: the expert stays non-resident
-                        # this step, its tokens drop through the dead slot
-                        # (as on capacity overflow) and routing degrades
+                self.cache.pin(key)
+            missing: List[Tuple[int, int]] = []
+            slots: List[int] = []
+            try:
+                for key in keys:
+                    if self.cache.touch(key):
+                        if self.tiers is not None and not speculative:
+                            self.tiers.note_access(key)
+                        if not speculative and key in self._prefetch_pending:
+                            self._prefetch_pending.discard(key)
+                            self._settle_hit(key, self.prefetcher.is_ready(
+                                key, self._clock))
                         continue
-                    if not self._tier_demand(key):
-                        # the disk link defeated the promotion: degrade
-                        # exactly like an exhausted device demand above
+                    if not speculative:
+                        self.stats.demand_misses += 1
+                        self.controller.record_stall()
+                        if not self._fault_transfer_ok(key, demand=True):
+                            # retries exhausted: the expert stays non-resident
+                            # this step, its tokens drop through the dead slot
+                            # (as on capacity overflow) and routing degrades
+                            continue
+                        if not self._tier_demand(key):
+                            # the disk link defeated the promotion: degrade
+                            # exactly like an exhausted device demand above
+                            continue
+                        self.prefetcher.demand(key, self._clock)
+                    else:
+                        if not self._fault_transfer_ok(key, demand=False):
+                            continue
+                        if not self._tier_ready(key):
+                            # speculative fills never block on the disk: the
+                            # promotion is queued, a later window takes it
+                            continue
+                    try:
+                        victim = self.cache.insert(key)
+                    except RuntimeError:  # every resident expert is needed NOW
                         continue
-                    self.prefetcher.demand(key, self._clock)
-                else:
-                    if not self._fault_transfer_ok(key, demand=False):
-                        continue
-                    if not self._tier_ready(key):
-                        # speculative fills never block on the disk: the
-                        # promotion is queued, a later window takes it
-                        continue
-                try:
-                    victim = self.cache.insert(key)
-                except RuntimeError:     # every resident expert is needed NOW
-                    continue
-                if speculative:
-                    # a predicted expert the prefetch window couldn't fit:
-                    # booked as speculation, settled at verification
-                    self.stats.prefetched += 1
-                    self.prefetcher.prefetch(key, self._clock)
-                    self._prefetch_pending.add(key)
-                if victim is not None:
-                    self._evict(victim)
-                slots.append(self.table.assign(li, key[1]))
-                if self.tiers is not None:
-                    # slot residency pins the host copy
-                    self.tiers.pin(key)
-                missing.append(key)
-        finally:
-            for key in keys:
-                self.cache.unpin(key)
-        if missing:
-            self._dispatch_swap(slots, missing)
-            self.stats.swap_experts += len(missing)
-        return len(missing)
+                    if speculative:
+                        # a predicted expert the prefetch window couldn't fit:
+                        # booked as speculation, settled at verification
+                        self.stats.prefetched += 1
+                        self.prefetcher.prefetch(key, self._clock)
+                        self._prefetch_pending.add(key)
+                    if victim is not None:
+                        self._evict(victim)
+                    slots.append(self.table.assign(li, key[1]))
+                    if self.tiers is not None:
+                        # slot residency pins the host copy
+                        self.tiers.pin(key)
+                    missing.append(key)
+            finally:
+                for key in keys:
+                    self.cache.unpin(key)
+            if missing:
+                self._dispatch_swap(slots, missing, demand=not speculative)
+                self.stats.swap_experts += len(missing)
+            span.set(experts=len(missing),
+                     bytes=len(missing) * self._expert_nbytes)
+            return len(missing)
 
     def _settle_hit(self, key: Tuple[int, int], ready: bool, *,
                     forgotten: bool = False) -> None:
@@ -967,51 +1017,73 @@ class SlotBufferEngine:
         batched copy. `plan`: [(layer, experts)] nearest layer first.
         Guesses only take free slots or evict the cold low-reuse tier —
         never the high tier holding demand residency. Returns #issued."""
-        slots: List[int] = []
-        issued: List[Tuple[int, int]] = []
-        if self.tiers is not None:
-            # predictor output feeds the disk tier's popularity stats even
-            # for keys the device window cannot take this round
-            self.tiers.note_predicted(
-                [(li, int(e)) for li, experts in plan for e in experts])
-        try:
-            for li, experts in plan:
-                stop = False
-                for e in experts:
-                    key = (li, int(e))
-                    if key in self.cache:
-                        continue
-                    if not self._fault_transfer_ok(key, demand=False):
-                        continue     # a failed speculative fill: skip it
-                    if not self._tier_ready(key):
-                        continue     # host-absent: promotion queued instead
-                    if self.cache.free_slots <= 0 and not any(
-                            k not in self.cache.pinned
-                            for k in self.cache.low):
-                        # no free slot and no evictable cold victim
-                        stop = True
+        with self.tracer.span("residency", "residency_s", kind="prefetch",
+                              layers=[li for li, _ in plan]) as span:
+            slots: List[int] = []
+            issued: List[Tuple[int, int]] = []
+            if self.tiers is not None:
+                # predictor output feeds the disk tier's popularity stats even
+                # for keys the device window cannot take this round
+                self.tiers.note_predicted(
+                    [(li, int(e)) for li, experts in plan for e in experts])
+            try:
+                for li, experts in plan:
+                    stop = False
+                    for e in experts:
+                        key = (li, int(e))
+                        if key in self.cache:
+                            continue
+                        if not self._fault_transfer_ok(key, demand=False):
+                            continue     # a failed speculative fill: skip it
+                        if not self._tier_ready(key):
+                            continue     # host-absent: promotion queued
+                        if self.cache.free_slots <= 0 and not any(
+                                k not in self.cache.pinned
+                                for k in self.cache.low):
+                            # no free slot and no evictable cold victim
+                            stop = True
+                            break
+                        victim = self.cache.insert(key, high=False)
+                        if victim is not None:
+                            self._evict(victim)
+                        # pin so a later insert in THIS batch cannot evict it
+                        self.cache.pin(key)
+                        issued.append(key)
+                        slots.append(self.table.assign(li, int(e)))
+                        if self.tiers is not None:
+                            self.tiers.pin(key)
+                        self._prefetch_pending.add(key)
+                    if stop:
                         break
-                    victim = self.cache.insert(key, high=False)
-                    if victim is not None:
-                        self._evict(victim)
-                    # pin so a later insert in THIS batch cannot evict it
-                    self.cache.pin(key)
-                    issued.append(key)
-                    slots.append(self.table.assign(li, int(e)))
-                    if self.tiers is not None:
-                        self.tiers.pin(key)
-                    self._prefetch_pending.add(key)
-                if stop:
-                    break
-            self.prefetcher.prefetch_many(issued, self._clock)
-        finally:
-            for key in issued:
-                self.cache.unpin(key)
-        if issued:
-            self._dispatch_swap(slots, issued)
-            self.stats.swap_experts += len(issued)
-            self.stats.prefetched += len(issued)
-        return len(issued)
+                self.prefetcher.prefetch_many(issued, self._clock)
+            finally:
+                for key in issued:
+                    self.cache.unpin(key)
+            if issued:
+                self._dispatch_swap(slots, issued, demand=False)
+                self.stats.swap_experts += len(issued)
+                self.stats.prefetched += len(issued)
+            span.set(experts=len(issued),
+                     bytes=len(issued) * self._expert_nbytes)
+            return len(issued)
+
+    def _retier(self, li: int, needed, predicted: Dict[int, Any]) -> None:
+        """Re-tier the cache around MoE layer li: its `needed` experts and
+        the `predicted` ones ({layer: experts}) go high."""
+        with self.tracer.span("residency", "residency_s", kind="retier",
+                              layer=li):
+            self.cache.retier(
+                [(li, int(e)) for e in needed]
+                + [(lj, int(e)) for lj, es in predicted.items() for e in es],
+                recent_layers=(), current_layer=li)
+
+    def _protect_early_layers(self, s: Optional[int] = None) -> None:
+        """Keep the first `s` MoE layers' experts high for the next step
+        (default: the horizon, at least 1)."""
+        if s is None:
+            s = max(1, min(self._s_eff(), len(self.moe_layer_ids)))
+        with self.tracer.span("residency", "residency_s", kind="protect"):
+            self.cache.protect_early_layers(s)
 
     # -- forward (no cache) ------------------------------------------------------
     def _next_router(self, li: int) -> Optional[torch.Tensor]:
@@ -1021,8 +1093,12 @@ class SlotBufferEngine:
 
     def forward(self, tokens) -> torch.Tensor:
         """Full forward with slot-buffer MoE. tokens: (B, T) -> (B, T, d)."""
-        if not self.fused:
-            return self._forward_legacy(tokens)
+        with self.tracer.span("forward", "step_host_s"):
+            if not self.fused:
+                return self._forward_legacy(tokens)
+            return self._forward_fused(tokens)
+
+    def _forward_fused(self, tokens) -> torch.Tensor:
         self.stats.steps += 1
         tokens = torch.as_tensor(tokens, device=self.device)
         x, positions = self._dispatch(self._embed, tokens)
@@ -1041,17 +1117,14 @@ class SlotBufferEngine:
             self._advance_clock()
             needed = np.nonzero(masks_h[0])[0]
             predicted = np.nonzero(masks_h[1])[0] if want_pred else []
-            self.cache.retier(
-                [(li, int(e)) for e in needed]
-                + [(li + 1, int(e)) for e in predicted],
-                recent_layers=(), current_layer=li)
+            self._retier(li, needed, {li + 1: predicted})
             self.ensure_resident(li, needed)
             if want_pred:
                 # issue next-layer swap-ins BEFORE this layer's FFN dispatch
                 self.prefetch_layer(li + 1, predicted)
             x = self._slot_ffn(p, self.table.layer_slot_map(li), x, flat, r)
             li += 1
-        self.cache.protect_early_layers(1)
+        self._protect_early_layers(1)
         return x
 
     def reference_forward(self, tokens) -> torch.Tensor:
@@ -1262,10 +1335,7 @@ class SlotBufferEngine:
         demand swap-ins, and the speculative multi-layer prefetch fan-out —
         all issued BEFORE the FFN dispatch."""
         self._settle_prediction(li, {int(e) for e in needed})
-        self.cache.retier(
-            [(li, int(e)) for e in needed]
-            + [(lj, int(e)) for lj, es in predicted.items() for e in es],
-            recent_layers=(), current_layer=li)
+        self._retier(li, needed, predicted)
         self.ensure_resident(li, needed)
         if predicted:
             self.prefetch_window(
@@ -1290,32 +1360,33 @@ class SlotBufferEngine:
     def prefill(self, tokens) -> Tuple[torch.Tensor, DecodeState]:
         """Run the prompt through the slot path, populating per-layer KV
         caches. Returns (last-token logits (B, V), DecodeState)."""
-        assert self.fused, "incremental decode requires the fused runtime"
-        tokens = torch.as_tensor(tokens, device=self.device)
-        B, T = tokens.shape
-        assert T <= self.max_seq, f"prompt {T} exceeds max_seq {self.max_seq}"
-        self.stats.steps += 1
-        x, positions = self._dispatch(self._embed, tokens)
-        caches: List[Any] = []
-        li = 0
-        for i, spec in enumerate(self.specs):
-            p = self._p[i]
-            if not spec.is_moe:
-                x, c = self._dispatch(layer_prefill, p, self.cfg, spec, x,
-                                      positions, self.max_seq)
+        with self.tracer.span("prefill", "step_host_s"):
+            assert self.fused, "incremental decode requires the fused runtime"
+            tokens = torch.as_tensor(tokens, device=self.device)
+            B, T = tokens.shape
+            assert T <= self.max_seq, \
+                f"prompt {T} exceeds max_seq {self.max_seq}"
+            self.stats.steps += 1
+            x, positions = self._dispatch(self._embed, tokens)
+            caches: List[Any] = []
+            li = 0
+            for i, spec in enumerate(self.specs):
+                p = self._p[i]
+                if not spec.is_moe:
+                    x, c = self._dispatch(layer_prefill, p, self.cfg, spec, x,
+                                          positions, self.max_seq)
+                    caches.append(c)
+                    continue
+                x, flat, r, needed_dev, c = self._dispatch(
+                    self._pre_prefill, p, spec, x, positions)
                 caches.append(c)
-                continue
-            x, flat, r, needed_dev, c = self._dispatch(
-                self._pre_prefill, p, spec, x, positions)
-            caches.append(c)
-            slot_map = self._prefill_moe_sync(li, flat, needed_dev)
-            x = self._slot_ffn(p, slot_map, x, flat, r)
-            li += 1
-        self.cache.protect_early_layers(
-            max(1, min(self._s_eff(), len(self.moe_layer_ids))))
-        logits = self._dispatch(self._logits, x)
-        return logits, DecodeState(
-            caches, torch.tensor(T, device=self.device), pos=int(T))
+                slot_map = self._prefill_moe_sync(li, flat, needed_dev)
+                x = self._slot_ffn(p, slot_map, x, flat, r)
+                li += 1
+            self._protect_early_layers()
+            logits = self._dispatch(self._logits, x)
+            return logits, DecodeState(
+                caches, torch.tensor(T, device=self.device), pos=int(T))
 
     # -- chunked prefill -------------------------------------------------------
     @property
@@ -1372,29 +1443,30 @@ class SlotBufferEngine:
         pads it to a power-of-two bucket so that its jit compiles a
         bounded number of shapes; eager PyTorch compiles nothing, so the
         port reads no cache row that has not been written."""
-        o, t, buf = self._next_chunk(cursor)
-        self.stats.steps += 1
-        x, positions, active = self._dispatch(self._embed_chunk, buf, o, t)
-        li = 0
-        for i, spec in enumerate(self.specs):
-            p = self._p[i]
-            if not spec.is_moe:
-                x, cursor.caches[i] = self._dispatch(
-                    layer_prefill_chunk, p, self.cfg, spec, x, positions,
-                    cursor.caches[i], o, t)
-                continue
-            x, flat, r, needed_dev, cursor.caches[i] = self._dispatch(
-                self._pre_prefill_chunk, p, spec, x, positions,
-                cursor.caches[i], o, t, active)
-            slot_map = self._prefill_moe_sync(li, flat, needed_dev, active)
-            x = self._slot_ffn(p, slot_map, x, flat, r)
-            li += 1
-        self.cache.protect_early_layers(
-            max(1, min(self._s_eff(), len(self.moe_layer_ids))))
-        cursor.offset = o + t
-        if cursor.done:
-            cursor.logits = self._dispatch(self._logits_at, x, t - 1)
-        return cursor.done
+        with self.tracer.span("prefill_chunk", "step_host_s",
+                              offset=cursor.offset):
+            o, t, buf = self._next_chunk(cursor)
+            self.stats.steps += 1
+            x, positions, active = self._dispatch(self._embed_chunk, buf, o, t)
+            li = 0
+            for i, spec in enumerate(self.specs):
+                p = self._p[i]
+                if not spec.is_moe:
+                    x, cursor.caches[i] = self._dispatch(
+                        layer_prefill_chunk, p, self.cfg, spec, x, positions,
+                        cursor.caches[i], o, t)
+                    continue
+                x, flat, r, needed_dev, cursor.caches[i] = self._dispatch(
+                    self._pre_prefill_chunk, p, spec, x, positions,
+                    cursor.caches[i], o, t, active)
+                slot_map = self._prefill_moe_sync(li, flat, needed_dev, active)
+                x = self._slot_ffn(p, slot_map, x, flat, r)
+                li += 1
+            self._protect_early_layers()
+            cursor.offset = o + t
+            if cursor.done:
+                cursor.logits = self._dispatch(self._logits_at, x, t - 1)
+            return cursor.done
 
     def _run_prefill_cursor(self, tokens, chunk_size: int) -> PrefillCursor:
         """Open a cursor and drive it to completion."""
@@ -1496,22 +1568,27 @@ class SlotBufferEngine:
         states run the same control flow over the union of active rows.
         An engine built with `use_superkernel=True` takes the
         segment-fused step instead (`_decode_step_superkernel`)."""
-        assert self.fused, "incremental decode requires the fused runtime"
-        batched = state.batched
-        if batched:
-            act = np.asarray(state.active, bool)
-            if act.any():
-                assert int(np.asarray(state.pos)[act].max()) < self.max_seq, (
-                    f"decode past max_seq={self.max_seq} would wrap the KV "
-                    "ring buffer or overflow the positional latent cache")
-            active_dev = torch.from_numpy(act).to(self.device)
-        else:
-            assert state.pos < self.max_seq, (
+        with self.tracer.span("decode_step", "step_host_s"):
+            assert self.fused, "incremental decode requires the fused runtime"
+            batched = state.batched
+            if batched:
+                act = np.asarray(state.active, bool)
+                top = int(np.asarray(state.pos)[act].max()) if act.any() else 0
+                active_dev = torch.from_numpy(act).to(self.device)
+            else:
+                top, active_dev = state.pos, None
+            assert top < self.max_seq, (
                 f"decode past max_seq={self.max_seq} would wrap the KV ring "
                 "buffer or overflow the positional latent cache")
-            active_dev = None
-        if self.use_superkernel:
-            return self._decode_step_superkernel(tok, state, active_dev)
+            step = (self._decode_step_superkernel if self.use_superkernel
+                    else self._decode_step_unfused)
+            return step(tok, state, active_dev)
+
+    def _decode_step_unfused(self, tok, state: DecodeState,
+                             active_dev: Optional[torch.Tensor]
+                             ) -> Tuple[torch.Tensor, DecodeState]:
+        """`decode_step` layer by layer: about two dispatches a MoE
+        layer."""
         # cache-aware routing is switched by the ceiling, not the strength
         # now: an adaptive engine at strength 0 routes with a zero bias;
         # degraded routing (link faults) takes the same biased calls
@@ -1534,31 +1611,33 @@ class SlotBufferEngine:
             """Roll back to the first mis-speculated layer."""
             plj, pabs = pending[fail_idx][0], pending[fail_idx][1]
             self.stats.replays += 1
-            for k, (_, old_c) in ckpt.items():
-                if k >= pabs:
-                    caches[k] = old_c
-            x_r = ckpt[pabs][0]
-            # mid-window evictions parked for rolled-back layers: their
-            # consuming dispatch is discarded, so the transfer was wasted
-            for k in [k for k in self._evicted_spec if k[0] >= plj]:
-                del self._evicted_spec[k]
-                self.prefetcher.note_unused(k)
-                self.controller.record_overfetch()
-            predicted.clear()
-            pending.clear()
-            ckpt.clear()
-            self._window_layers.clear()
+            with self.tracer.span("replay", layer=plj):
+                for k, (_, old_c) in ckpt.items():
+                    if k >= pabs:
+                        caches[k] = old_c
+                x_r = ckpt[pabs][0]
+                # mid-window evictions parked for rolled-back layers: their
+                # consuming dispatch is discarded, so the transfer was wasted
+                for k in [k for k in self._evicted_spec if k[0] >= plj]:
+                    del self._evicted_spec[k]
+                    self.prefetcher.note_unused(k)
+                    self.controller.record_overfetch()
+                predicted.clear()
+                pending.clear()
+                ckpt.clear()
+                self._window_layers.clear()
             return pabs, plj, x_r
 
         def verify(masks_h: np.ndarray) -> int:
             """First pending index whose actual routing escaped the
             residency it was dispatched with, or -1."""
-            for idx, (plj, _, _, snap, rsnap) in enumerate(pending):
-                needed = np.nonzero(masks_h[idx])[0]
-                self._settle_prediction(plj, {int(e) for e in needed},
-                                        ready_at_dispatch=rsnap)
-                if any(snap[int(e)] < 0 for e in needed):
-                    return idx
+            with self.tracer.span("verify", layers=len(pending)):
+                for idx, (plj, _, _, snap, rsnap) in enumerate(pending):
+                    needed = np.nonzero(masks_h[idx])[0]
+                    self._settle_prediction(plj, {int(e) for e in needed},
+                                            ready_at_dispatch=rsnap)
+                    if any(snap[int(e)] < 0 for e in needed):
+                        return idx
             return -1
 
         def pull_and_verify(extra):
@@ -1634,8 +1713,7 @@ class SlotBufferEngine:
             i += 1
             li += 1
 
-        self.cache.protect_early_layers(
-            max(1, min(self._s_eff(), len(self.moe_layer_ids))))
+        self._protect_early_layers()
         logits = self._dispatch(self._logits, x)
         step_s = time.perf_counter() - t0
         self.controller.update_layer_time(step_s / max(len(self.specs), 1))
@@ -1775,19 +1853,20 @@ class SlotBufferEngine:
         def replay_from(fail_idx: int, needed_h):
             plj, psi = pending[fail_idx][0], pending[fail_idx][1]
             self.stats.replays += 1
-            for kk, (_, cs_old) in ckpt.items():
-                if kk >= psi:
-                    for jj, aj in enumerate(segs[kk]):
-                        caches[aj] = cs_old[jj]
-            x_r = ckpt[psi][0]
-            for kk in [kk for kk in self._evicted_spec if kk[0] >= plj]:
-                del self._evicted_spec[kk]
-                self.prefetcher.note_unused(kk)
-                self.controller.record_overfetch()
-            demand_hint[plj] = demand_hint.get(plj, set()) | {
-                int(e) for e in needed_h}
-            predicted.clear()
-            commit()
+            with self.tracer.span("replay", seg=psi):
+                for kk, (_, cs_old) in ckpt.items():
+                    if kk >= psi:
+                        for jj, aj in enumerate(segs[kk]):
+                            caches[aj] = cs_old[jj]
+                x_r = ckpt[psi][0]
+                for kk in [kk for kk in self._evicted_spec if kk[0] >= plj]:
+                    del self._evicted_spec[kk]
+                    self.prefetcher.note_unused(kk)
+                    self.controller.record_overfetch()
+                demand_hint[plj] = demand_hint.get(plj, set()) | {
+                    int(e) for e in needed_h}
+                predicted.clear()
+                commit()
             return psi, x_r
 
         def pull_and_verify():
@@ -1796,18 +1875,21 @@ class SlotBufferEngine:
             success, with sync_rows the last segment's (1 + s, E) block."""
             masks_h = self._pull(torch.cat([pp[2] for pp in pending]))
             row = 0
-            for idx, (plj, _, mdev, snap, rsnap, hint) in enumerate(pending):
-                needed = np.nonzero(masks_h[row])[0]
-                self._settle_prediction(plj, {int(e) for e in needed},
-                                        ready_at_dispatch=rsnap)
-                if any(snap[int(e)] < 0 for e in needed):
-                    # within a replay's hint a still-absent expert is
-                    # capacity overflow, not a misprediction
-                    if not (hint and {int(e) for e in needed} <= hint):
-                        return idx, needed, None
-                row += mdev.shape[0]
+            with self.tracer.span("verify", segs=len(pending)):
+                for idx, (plj, _, mdev, snap, rsnap, hint) in enumerate(
+                        pending):
+                    needed = np.nonzero(masks_h[row])[0]
+                    self._settle_prediction(plj, {int(e) for e in needed},
+                                            ready_at_dispatch=rsnap)
+                    if any(snap[int(e)] < 0 for e in needed):
+                        # within a replay's hint a still-absent expert is
+                        # capacity overflow, not a misprediction
+                        if not (hint and {int(e) for e in needed} <= hint):
+                            return idx, needed, None
+                    row += mdev.shape[0]
             return -1, None, masks_h[row - pending[-1][2].shape[0]: row]
 
+        replays0 = self.stats.replays
         si = 0
         while True:
             if si == n_segs:
@@ -1818,77 +1900,79 @@ class SlotBufferEngine:
                         continue
                     commit()
                 break
-            li = si
-            seg = segs[si]
-            first = si == 0
-            hint = demand_hint.pop(li, set())
-            if hint:
-                self.cache.retier([(li, int(e)) for e in sorted(hint)],
-                                  recent_layers=(), current_layer=li)
-                self.ensure_resident(li, sorted(hint))
-            elif li in predicted:
-                self.ensure_resident(li, sorted(predicted[li]),
-                                     speculative=True)
-            sync = li not in predicted or bool(hint)
-            s = self._horizon(li) if sync else 0
-            if ca:
-                bias_this = self._residency_bias(li)
-                bias_next = self._pregate_bias(li, s) if s > 0 else None
-            else:
-                bias_this, bias_next = self._zero_bias, None
-            x_in = tok if first else x
-            last = si == n_segs - 1
-            ckpt[si] = (x_in, [caches[j] for j in seg])
-            slot_map = self.table.layer_slot_map(li)
-            self._wait_slots(slot_map, fused=True)
-            x, masks_dev, new_cs, lg = self._dispatch(
-                self._sk_seg, seg, [self._p[j] for j in seg],
-                [caches[j] for j in seg], x_in, clen, self.buffer,
-                torch.from_numpy(slot_map).to(self.device),
-                self._router_stack[li + 1: li + 1 + s], bias_this, active_dev,
-                bias_next=bias_next, first=first,
-                with_logits=last and not tail, max_len=max_len)
-            if last:
-                logits = lg
-            for jj, aj in enumerate(seg):
-                caches[aj] = new_cs[jj]
-            self._advance_clock()
-            ready_snap = {kk: self.prefetcher.is_ready(kk, self._clock)
-                          for kk in self._prefetch_pending if kk[0] == li}
-            pending.append((li, si, masks_dev, slot_map, ready_snap, hint))
-            self._window_layers.add(li)
-            if not sync:
-                self.stats.spec_layers += 1
+            with self.tracer.span("segment", seg=si,
+                                  replay=self.stats.replays - replays0
+                                  ) as span:
+                li = si
+                seg = segs[si]
+                first = si == 0
+                hint = demand_hint.pop(li, set())
+                if hint:
+                    self._retier(li, hint, {})
+                    self.ensure_resident(li, sorted(hint))
+                elif li in predicted:
+                    self.ensure_resident(li, sorted(predicted[li]),
+                                         speculative=True)
+                sync = li not in predicted or bool(hint)
+                span.set(sync=sync)
+                s = self._horizon(li) if sync else 0
+                if ca:
+                    bias_this = self._residency_bias(li)
+                    bias_next = self._pregate_bias(li, s) if s > 0 else None
+                else:
+                    bias_this, bias_next = self._zero_bias, None
+                x_in = tok if first else x
+                last = si == n_segs - 1
+                ckpt[si] = (x_in, [caches[j] for j in seg])
+                slot_map = self.table.layer_slot_map(li)
+                with self.tracer.span("residency", "residency_s", kind="wait"):
+                    self._wait_slots(slot_map, fused=True)
+                    slot_map_dev = torch.from_numpy(slot_map).to(self.device)
+                x, masks_dev, new_cs, lg = self._dispatch(
+                    self._sk_seg, seg, [self._p[j] for j in seg],
+                    [caches[j] for j in seg], x_in, clen, self.buffer,
+                    slot_map_dev, self._router_stack[li + 1: li + 1 + s],
+                    bias_this, active_dev, bias_next=bias_next, first=first,
+                    with_logits=last and not tail, max_len=max_len)
+                if last:
+                    logits = lg
+                for jj, aj in enumerate(seg):
+                    caches[aj] = new_cs[jj]
+                self._advance_clock()
+                ready_snap = {kk: self.prefetcher.is_ready(kk, self._clock)
+                              for kk in self._prefetch_pending if kk[0] == li}
+                pending.append((li, si, masks_dev, slot_map, ready_snap,
+                                hint))
+                self._window_layers.add(li)
+                if not sync:
+                    self.stats.spec_layers += 1
+                    si += 1
+                    continue
+                fail, needed_h, sync_rows = pull_and_verify()
+                if fail >= 0:
+                    si, x = replay_from(fail, needed_h)
+                    continue
+                needed, pred = self._decode_sync_rows(li, s, sync_rows)
+                predicted.clear()
+                predicted.update(pred)
+                self._retier(li, needed, pred)
+                # verified: LRU touches only, unless a hinted segment
+                # overflowed capacity, in which case this books the miss
+                self.ensure_resident(li, needed)
+                if pred:
+                    self.prefetch_window(
+                        [(lj, sorted(es)) for lj, es in sorted(pred.items())])
+                commit()
                 si += 1
-                continue
-            fail, needed_h, sync_rows = pull_and_verify()
-            if fail >= 0:
-                si, x = replay_from(fail, needed_h)
-                continue
-            needed, pred = self._decode_sync_rows(li, s, sync_rows)
-            predicted.clear()
-            predicted.update(pred)
-            self.cache.retier(
-                [(li, int(e)) for e in needed]
-                + [(lj, int(e)) for lj, es in pred.items() for e in es],
-                recent_layers=(), current_layer=li)
-            # verified: LRU touches only, unless a hinted segment overflowed
-            # capacity, in which case this books the miss
-            self.ensure_resident(li, needed)
-            if pred:
-                self.prefetch_window(
-                    [(lj, sorted(es)) for lj, es in sorted(pred.items())])
-            commit()
-            si += 1
 
         if tail:
-            logits, new_tc = self._dispatch(
-                self._sk_tail, tail, [self._p[j] for j in tail],
-                [caches[j] for j in tail], x, clen, max_len=max_len)
+            with self.tracer.span("tail"):
+                logits, new_tc = self._dispatch(
+                    self._sk_tail, tail, [self._p[j] for j in tail],
+                    [caches[j] for j in tail], x, clen, max_len=max_len)
             for jj, aj in enumerate(tail):
                 caches[aj] = new_tc[jj]
-        self.cache.protect_early_layers(
-            max(1, min(self._s_eff(), len(self.moe_layer_ids))))
+        self._protect_early_layers()
         step_s = time.perf_counter() - t0
         self.controller.update_layer_time(step_s / max(len(self.specs), 1))
         self._fault_step_end(step_s)

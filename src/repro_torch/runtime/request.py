@@ -44,6 +44,9 @@ class Request:
     first_token_s: float = -1.0              # prefill done, first token out
     finish_s: float = -1.0
     slot: int = -1
+    # each emitted token's time, on the clock of first_token_s (the real
+    # engine's server fills it)
+    token_times_s: List[float] = field(default_factory=list)
 
     def __post_init__(self) -> None:
         if self.prompt is not None and not self.prompt_len:

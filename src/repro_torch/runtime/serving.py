@@ -21,6 +21,11 @@ admitting iteration (the head-of-line baseline chunked serving beats).
 
 Timing is wall-clock on the host; every decode iteration ends in a host
 pull of its sampled tokens, so a step's time includes its device work.
+Each emitted token's time goes on its request (`Request.token_times_s`).
+The loop's phases are spans of the engine's tracer (`serve.admit`,
+`serve.prefill`, `serve.decode`, `serve.sample`, `serve.retire`, each with
+its request ids), recorded when a `runtime.instrument.SpanLog` is
+attached: `engine.tracer.log = SpanLog()`.
 Serving through the decode superkernel is
 `ServingEngine(SlotBufferEngine(..., use_superkernel=True))`: the loop is
 the same, the engine's `decode_step` takes the segment-fused path.
@@ -162,18 +167,20 @@ class ServingEngine:
                           it: int) -> None:
         """Sample the prompt's first output token and stamp TTFT."""
         eng = self.engine
-        gen = None
-        if req.temperature > 0.0:
-            gen = torch.Generator(device=eng.device)
-            gen.manual_seed(self.seed * 1_000_003 + req.request_id)
-        tok = sample(logits, gen, req.temperature)
-        self._row_gen[slot] = gen
-        self._row_temp[slot] = max(float(req.temperature), 0.0)
-        req.output.append(int(tok[0]))
-        req.first_token_s = time.perf_counter() - self._t0
-        if self.cfg.trace_logits:
-            self.logits_trace.setdefault(req.request_id, []).append(
-                logits[0].float().cpu().numpy())
+        with eng.tracer.span("serve.sample", requests=[req.request_id]):
+            gen = None
+            if req.temperature > 0.0:
+                gen = torch.Generator(device=eng.device)
+                gen.manual_seed(self.seed * 1_000_003 + req.request_id)
+            tok = sample(logits, gen, req.temperature)
+            self._row_gen[slot] = gen
+            self._row_temp[slot] = max(float(req.temperature), 0.0)
+            req.output.append(int(tok[0]))
+            req.first_token_s = time.perf_counter() - self._t0
+            req.token_times_s.append(req.first_token_s)
+            if self.cfg.trace_logits:
+                self.logits_trace.setdefault(req.request_id, []).append(
+                    logits[0].float().cpu().numpy())
         report.run.add(StepMetrics(step=it,
                                    compute_s=req.first_token_s - t_start,
                                    step_size=eng.controller.s))
@@ -186,30 +193,32 @@ class ServingEngine:
         `prefill_starve_limit` consecutive iterations is advanced
         regardless, so a stream of shorter arrivals cannot starve a long
         prompt."""
-        eng = self.engine
-        t0 = time.perf_counter() - self._t0
-        self._prefills.sort(key=lambda rc: rc[1].remaining)
-        pick = max(range(len(self._prefills)),
-                   key=lambda i: self._prefills[i][1].skipped)
-        if self._prefills[pick][1].skipped < self.cfg.prefill_starve_limit:
-            pick = 0                       # nobody starving: pure SRF
-        req, cursor = self._prefills[pick]
-        for _, other in self._prefills:
-            other.skipped += 1
-        cursor.skipped = 0
-        eng.prefill_chunk(cursor)
-        if not cursor.done:
-            report.run.add(StepMetrics(
-                step=it, compute_s=(time.perf_counter() - self._t0) - t0,
-                step_size=eng.controller.s))
-            return
-        self._prefills.pop(pick)
-        logits = eng.finish_prefill_into(state, req.slot, cursor)
-        req.prefill_done_s = time.perf_counter() - self._t0
-        self._emit_first_token(req, req.slot, logits, t0, report, it)
-        if req.done:                 # 1-token request: done at prefill
-            finish(req)
-            self.batcher.release(req)
+        with self.engine.tracer.span("serve.prefill") as span:
+            eng = self.engine
+            t0 = time.perf_counter() - self._t0
+            self._prefills.sort(key=lambda rc: rc[1].remaining)
+            pick = max(range(len(self._prefills)),
+                       key=lambda i: self._prefills[i][1].skipped)
+            if self._prefills[pick][1].skipped < self.cfg.prefill_starve_limit:
+                pick = 0                       # nobody starving: pure SRF
+            req, cursor = self._prefills[pick]
+            span.set(requests=[req.request_id])
+            for _, other in self._prefills:
+                other.skipped += 1
+            cursor.skipped = 0
+            eng.prefill_chunk(cursor)
+            if not cursor.done:
+                report.run.add(StepMetrics(
+                    step=it, compute_s=(time.perf_counter() - self._t0) - t0,
+                    step_size=eng.controller.s))
+                return
+            self._prefills.pop(pick)
+            logits = eng.finish_prefill_into(state, req.slot, cursor)
+            req.prefill_done_s = time.perf_counter() - self._t0
+            self._emit_first_token(req, req.slot, logits, t0, report, it)
+            if req.done:                 # 1-token request: done at prefill
+                finish(req)
+                self.batcher.release(req)
 
     # -- the serving loop ----------------------------------------------------
     def serve(self, requests: List[Request]) -> ServingReport:
@@ -237,9 +246,12 @@ class ServingEngine:
             for r in pending:
                 if r.deadline_s is None:
                     r.deadline_s = cfg.deadline_s
-        for r in pending:
-            if self.batcher.admission is not None and r.predicted_ws is None:
-                r.predicted_ws = self.predict_working_set(r)
+        tr = eng.tracer
+        with tr.span("serve.admit", requests=[r.request_id for r in pending]):
+            for r in pending:
+                if self.batcher.admission is not None \
+                        and r.predicted_ws is None:
+                    r.predicted_ws = self.predict_working_set(r)
         # the engine's health counters are cumulative: diff around this run
         failures0 = eng.stats.link_failures
         retries0 = eng.stats.retries
@@ -259,7 +271,7 @@ class ServingEngine:
             # the request (step() clears req.slot)
             req.finish_s = now()
             eng.retire_slot(state, req.slot if slot is None else slot)
-            report.add_request(request_metrics(req))
+            report.add_request(request_metrics(req), req.token_times_s)
 
         while pending or self.batcher.has_work:
             if it >= cfg.max_iterations:
@@ -272,20 +284,25 @@ class ServingEngine:
                 time.sleep(max(pending[0].arrival_s - tnow, 1e-4))
                 continue
 
-            for req in self.batcher.admit(now=tnow):
-                if self._chunked:
-                    # admission only opens the cursor; chunks are
-                    # scheduled one per iteration below
-                    req.admitted_s = now()
-                    self._prefills.append((req, eng.start_prefill(
-                        np.asarray(req.prompt, np.int64),
-                        cfg.prefill_chunk)))
-                    continue
-                self._admit_one(req, req.slot, state, now(), report, it)
-                it += 1
-                if req.done:          # 1-token request: done at prefill
-                    finish(req)
-                    self.batcher.release(req)
+            with tr.span("serve.admit") as span:
+                admitted = self.batcher.admit(now=tnow)
+                span.set(requests=[r.request_id for r in admitted])
+                for req in admitted:
+                    if self._chunked:
+                        # admission only opens the cursor; chunks are
+                        # scheduled one per iteration below
+                        req.admitted_s = now()
+                        self._prefills.append((req, eng.start_prefill(
+                            np.asarray(req.prompt, np.int64),
+                            cfg.prefill_chunk)))
+                        continue
+                    with tr.span("serve.prefill", requests=[req.request_id]):
+                        self._admit_one(req, req.slot, state, now(), report,
+                                        it)
+                    it += 1
+                    if req.done:          # 1-token request: done at prefill
+                        finish(req)
+                        self.batcher.release(req)
 
             if self._prefills:
                 self._advance_prefill(state, report, it, finish)
@@ -304,22 +321,31 @@ class ServingEngine:
             misses0 = eng.stats.demand_misses
             hits0 = eng.stats.prefetch_hits
             pf0 = eng.stats.prefetched
-            for slot in active_slots:
-                toks[slot] = self.batcher.active[slot].output[-1]
-            logits, state = eng.decode_step(toks, state)
-            sampled = sample_rows(logits, self._row_gen,
-                                  self._row_temp).cpu().numpy()
-            if cfg.trace_logits:
-                logits_h = logits.float().cpu().numpy()
-                for slot in active_slots:
-                    rid = self.batcher.active[slot].request_id
-                    self.logits_trace.setdefault(rid, []).append(
-                        logits_h[slot])
-            next_tokens = {slot: int(sampled[slot]) for slot in active_slots}
-            slot_of = {self.batcher.active[s].request_id: s
-                       for s in active_slots}
-            for req in self.batcher.step(next_tokens):
-                finish(req, slot_of[req.request_id])
+            rows = [self.batcher.active[s] for s in active_slots]
+            rids = [r.request_id for r in rows]
+            for slot, req in zip(active_slots, rows):
+                toks[slot] = req.output[-1]
+            with tr.span("serve.decode", requests=rids):
+                logits, state = eng.decode_step(toks, state)
+            with tr.span("serve.sample", requests=rids):
+                sampled = sample_rows(logits, self._row_gen,
+                                      self._row_temp).cpu().numpy()
+                t_tok = now()
+                if cfg.trace_logits:
+                    logits_h = logits.float().cpu().numpy()
+                    for slot, rid in zip(active_slots, rids):
+                        self.logits_trace.setdefault(rid, []).append(
+                            logits_h[slot])
+                for req in rows:
+                    req.token_times_s.append(t_tok)
+                done = self.batcher.step(
+                    {slot: int(sampled[slot]) for slot in active_slots})
+            if done:
+                slot_of = dict(zip(rids, active_slots))
+                with tr.span("serve.retire",
+                             requests=[r.request_id for r in done]):
+                    for req in done:
+                        finish(req, slot_of[req.request_id])
             sm.compute_s = now() - t_step
             sm.n_misses = eng.stats.demand_misses - misses0
             sm.n_hits = eng.stats.prefetch_hits - hits0

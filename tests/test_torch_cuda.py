@@ -8,7 +8,9 @@ with one (and the CUDA toolkit), run them with
 
 This file imports no JAX: the card's machine need not have it.
 """
+import bisect
 import ctypes
+import json
 
 import numpy as np
 import pytest
@@ -25,6 +27,9 @@ from repro_torch.kernels.ref import (expert_ffn_ref,
 from repro_torch.models import moe
 from repro_torch.models.transformer import Model, layer_decode
 from repro_torch.runtime.engine import DecodeState, SlotBufferEngine
+from repro_torch.runtime.instrument import SpanLog
+from repro_torch.runtime.request import Request
+from repro_torch.runtime.serving import EngineServingConfig, ServingEngine
 
 pytestmark = pytest.mark.cuda
 TOL = 2e-2
@@ -1451,3 +1456,129 @@ def test_attn_decode_kernel_on_a_kv_slice(gen):
     assert not torch.equal(gc["k"], cache["k"])
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
                                atol=2e-2)
+
+
+# ---------------------------------------------------------------------------
+# the engine's measured waits and host spans (runtime.instrument)
+# ---------------------------------------------------------------------------
+
+def test_copy_wait_of_a_forced_demand_miss(gen):
+    """Eight experts of olmoe's width (12.6 MB each) demanded into an empty
+    buffer, then read: the compute stream waits for the whole copy, and
+    the wait is the demand's. Eight predicted ones for the next layer
+    then add a wait that is not."""
+    cfg = reduce_config(get_config("olmoe-1b-7b"), layers=2, d_model=2048,
+                        heads=16, kv_heads=16, vocab=512, experts=16,
+                        top_k=8, d_expert=1024)
+    model = Model(cfg)
+    eng = SlotBufferEngine(cfg, model.init(gen, device="cuda"), model,
+                           n_slots_per_layer=16, use_superkernel=True,
+                           max_seq=32)
+    s = eng.stats
+    assert eng.ensure_resident(0, range(8)) == 8
+    assert s.swap_bytes == s.demand_misses * cfg.expert_bytes() \
+        == 8 * cfg.expert_bytes()
+    eng._wait_slots(eng.table.layer_slot_map(0), fused=True)
+    eng.synchronize()
+    assert 0.0 < s.copy_wait_demand_s == s.copy_wait_s <= s.copy_s + 1e-3
+    demand = s.copy_wait_demand_s
+    assert eng.prefetch_window([(1, range(8))]) == 8
+    eng._wait_slots(eng.table.layer_slot_map(1), fused=True)
+    eng.synchronize()
+    assert s.copy_wait_demand_s == demand < s.copy_wait_s <= s.copy_s + 1e-3
+    print(f"copy_s {s.copy_s:.6f} copy_wait_s {s.copy_wait_s:.6f} "
+          f"demand {s.copy_wait_demand_s:.6f}")
+
+
+def _contained(calls, spans, names) -> float:
+    """Share of runtime calls whose midpoint lies inside a span named in
+    `names` (Chrome-trace microseconds)."""
+    iv = sorted((e["ts"], e["ts"] + e["dur"]) for e in spans
+                if e["name"] in names)
+    merged = []
+    for a, b in iv:
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    starts = [a for a, _ in merged]
+    hit = 0
+    for e in calls:
+        mid = e["ts"] + e.get("dur", 0) / 2
+        i = bisect.bisect_right(starts, mid) - 1
+        hit += i >= 0 and merged[i][1] >= mid
+    return hit / len(calls)
+
+
+def test_program_spans_hold_the_copies_and_launches(gen, tmp_path):
+    """A short profiled serve with the span log on: mapped onto the
+    profiler's clock (`chrome_events(baseTimeNanoseconds)`), 95 % of the
+    expert copies' `cudaMemcpyAsync` calls (pinned host to device) lie in
+    `residency` spans, 95 % of every host-to-device copy call in some
+    span of the program (the engine also copies small pageable tensors
+    from inside its dispatches), and 95 % of the kernel launches in
+    `decode_step`, `prefill_chunk` or `serve.sample`. The tokens are
+    those of the same serve without the log."""
+    cfg = reduce_config(get_config("olmoe-1b-7b"), layers=4, d_model=128,
+                        heads=4, kv_heads=4, vocab=512, experts=32, top_k=8,
+                        d_expert=64)
+    model = Model(cfg)
+    params = model.init(gen, device="cuda")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n, dtype=np.int32)
+               for n in (40, 12, 33, 20)]
+
+    def serve(log, profile=False):
+        eng = SlotBufferEngine(cfg, params, model, n_slots_per_layer=8,
+                               use_kernel=True, use_superkernel=True,
+                               max_seq=96)
+        eng.tracer.log = log
+        srv = ServingEngine(eng, EngineServingConfig(max_batch=2,
+                                                     admission_cap=False))
+        reqs = [Request(prompt=p, max_new_tokens=24, request_id=i)
+                for i, p in enumerate(prompts)]
+        torch.cuda.synchronize()
+        prof = torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA])
+        if profile:
+            prof.start()
+        srv.serve(reqs)
+        eng.synchronize()
+        if profile:
+            prof.stop()
+        return eng, [r.output for r in reqs], prof
+
+    _, want, _ = serve(None)
+    log = SpanLog()
+    eng, got, prof = serve(log, profile=True)
+    assert got == want
+    s = eng.stats
+    assert s.replays > 0 and s.swap_experts > 0
+    assert s.copy_wait_demand_s <= s.copy_wait_s <= s.copy_s + 1e-3
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    trace = json.loads(path.read_text())
+    spans = log.chrome_events(trace["baseTimeNanoseconds"])
+    evs = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+
+    def corr(e):
+        return e.get("args", {}).get("correlation")
+
+    h2d = {corr(e): "Pinned" in e["name"] for e in evs
+           if e.get("cat") == "gpu_memcpy" and "HtoD" in e["name"]}
+    kern = {corr(e) for e in evs if e.get("cat") == "kernel"}
+    rt = [e for e in evs if e.get("cat") in ("cuda_runtime", "cuda_driver")]
+    copies = [e for e in rt if corr(e) in h2d]
+    experts = [e for e in copies if h2d[corr(e)]]
+    launches = [e for e in rt if corr(e) in kern]
+    assert len(experts) > 100 and len(launches) > 100
+    in_res = _contained(experts, spans, {"residency"})
+    any_in_res = _contained(copies, spans, {"residency"})
+    in_any = _contained(copies, spans, {e["name"] for e in spans})
+    in_step = _contained(launches, spans,
+                         {"decode_step", "prefill_chunk", "serve.sample"})
+    print(f"{len(experts)} expert copy calls, {in_res:.4f} in residency; "
+          f"{len(copies)} HtoD copy calls, {any_in_res:.4f} in residency, "
+          f"{in_any:.4f} in any span; {len(launches)} launches, "
+          f"{in_step:.4f} in steps and sampling")
+    assert in_res >= 0.95 and in_any >= 0.95 and in_step >= 0.95
