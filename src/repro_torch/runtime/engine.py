@@ -95,12 +95,13 @@ LINK_BANDWIDTH = 64e9
 def _needed_mask(ids: torch.Tensor, E: int,
                  active: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(E,) bool union of the expert ids in `ids` (T, k). Rows whose
-    `active` entry is False write to a sentinel entry that is sliced off."""
+    `active` entry is False write to a sentinel entry that is sliced off.
+    `index_fill_` takes True as a kernel argument: `m[ids] = True` would
+    copy it to the device and synchronise the stream."""
     if active is not None:
         ids = torch.where(active[:, None], ids, torch.full_like(ids, E))
     m = torch.zeros(E + 1, dtype=torch.bool, device=ids.device)
-    m[ids.reshape(-1)] = True
-    return m[:E]
+    return m.index_fill_(0, ids.reshape(-1).long(), True)[:E]
 
 
 def _route_ffn_entry(p, cfg: ModelConfig, x: torch.Tensor,
@@ -663,7 +664,7 @@ class SlotBufferEngine:
         stream has waited for every pending copy into a slot it reads."""
         with self.tracer.span("residency", "residency_s", kind="wait"):
             self._wait_slots(slot_map)
-            sm = torch.from_numpy(slot_map).to(self.device)
+            sm = self._upload(slot_map)
         return self._dispatch(self._ffn, p, self.buffer, sm, x, flat, r)
 
     def _full_experts(self, li: int) -> Dict[str, torch.Tensor]:
@@ -684,6 +685,20 @@ class SlotBufferEngine:
 
     def drop_resident_experts(self) -> None:
         self._resident = {}
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """A host array the engine builds (a slot map, a routing bias, the
+        active-row mask, a chunk's tokens) onto the device with no host
+        wait; every such upload goes through here. On CUDA the array is
+        copied into a fresh page-locked block of PyTorch's caching host
+        allocator and the copy enqueued on the compute stream; the copy
+        records that stream, so the block is not handed out again before
+        the copy ends, and the array may change at once. On the CPU it is
+        the array itself, as a tensor."""
+        t = torch.from_numpy(a)
+        if self.device.type == "cpu":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
 
     # -- asynchronous swap-ins -------------------------------------------------
     def _wait_slots(self, slot_map: np.ndarray, fused: bool = False) -> None:
@@ -1197,8 +1212,7 @@ class SlotBufferEngine:
                               cfg.moe.router_norm_topk)
             needed = sorted({int(e) for e in self._pull(r.expert_ids).ravel()})
             self._ensure_resident_seq(li, needed)
-            slot_map = torch.from_numpy(self.table.layer_slot_map(li)).to(
-                self.device)
+            slot_map = self._upload(self.table.layer_slot_map(li))
             out, _ = moe_mod.moe_slotbuf(p["moe"], self.buffer, slot_map, flat,
                                          cfg.moe, capacity=B * T * k)
             ff = out.reshape(B, T, -1)
@@ -1241,19 +1255,13 @@ class SlotBufferEngine:
             return max(base, self.degraded_route_bias)
         return base
 
-    def _bias_to_device(self, bias: np.ndarray) -> torch.Tensor:
-        """A host bias array onto the device, `non_blocking`: PyTorch adds
-        no stream sync, and a copy from pageable memory reads its source
-        before it returns, so the array may go at once."""
-        return torch.from_numpy(bias).to(self.device, non_blocking=True)
-
     def _residency_bias(self, li: int) -> torch.Tensor:
         """(E,) device bias of MoE layer li from the host slot table, the
         state every residency decision reads: no device->host pull.
         Assigned in-flight transfers count as resident: they land before
         the FFN that reads them."""
         mask = self.table.layer_slot_map(li) >= 0
-        return self._bias_to_device(
+        return self._upload(
             residency_logit_bias(mask, self._route_bias_strength()))
 
     def _pregate_bias(self, li: int, s: int) -> torch.Tensor:
@@ -1262,7 +1270,7 @@ class SlotBufferEngine:
         with the biased routing those layers will run."""
         rows = np.stack([self.table.layer_slot_map(li + 1 + j) >= 0
                          for j in range(s)])
-        return self._bias_to_device(
+        return self._upload(
             residency_logit_bias(rows, self._route_bias_strength()))
 
     # -- adaptive horizon ----------------------------------------------------
@@ -1430,7 +1438,7 @@ class SlotBufferEngine:
         t = min(C, len(cursor.tokens) - o)
         buf = np.zeros((1, C), np.int64)
         buf[0, :t] = cursor.tokens[o:o + t]
-        return o, t, torch.from_numpy(buf).to(self.device)
+        return o, t, self._upload(buf)
 
     def prefill_chunk(self, cursor: PrefillCursor) -> bool:
         """Ingest ONE padded (1, C) chunk of the cursor's prompt through the
@@ -1574,7 +1582,7 @@ class SlotBufferEngine:
             if batched:
                 act = np.asarray(state.active, bool)
                 top = int(np.asarray(state.pos)[act].max()) if act.any() else 0
-                active_dev = torch.from_numpy(act).to(self.device)
+                active_dev = self._upload(act)
             else:
                 top, active_dev = state.pos, None
             assert top < self.max_seq, (
@@ -1927,7 +1935,7 @@ class SlotBufferEngine:
                 slot_map = self.table.layer_slot_map(li)
                 with self.tracer.span("residency", "residency_s", kind="wait"):
                     self._wait_slots(slot_map, fused=True)
-                    slot_map_dev = torch.from_numpy(slot_map).to(self.device)
+                    slot_map_dev = self._upload(slot_map)
                 x, masks_dev, new_cs, lg = self._dispatch(
                     self._sk_seg, seg, [self._p[j] for j in seg],
                     [caches[j] for j in seg], x_in, clen, self.buffer,

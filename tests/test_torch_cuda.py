@@ -1582,3 +1582,102 @@ def test_program_spans_hold_the_copies_and_launches(gen, tmp_path):
           f"{in_any:.4f} in any span; {len(launches)} launches, "
           f"{in_step:.4f} in steps and sampling")
     assert in_res >= 0.95 and in_any >= 0.95 and in_step >= 0.95
+
+
+# ---------------------------------------------------------------------------
+# host arrays onto the device with no host wait (`SlotBufferEngine._upload`)
+# ---------------------------------------------------------------------------
+
+def test_upload_keeps_each_map_while_its_copy_waits(gen):
+    """The compute stream held by a sleep: map A uploaded, the host array
+    overwritten with B and uploaded again while both copies still wait.
+    The device tensors read A and B: each upload stages through its own
+    page-locked block, never one buffer rewritten in place."""
+    cfg = get_smoke_config("olmoe-1b-7b")
+    model = Model(cfg)
+    eng = SlotBufferEngine(cfg, model.init(gen, device="cuda"), model,
+                           n_slots_per_layer=4)
+    E = cfg.moe.num_experts
+    host = np.arange(E, dtype=np.int32)
+    want_a, want_b = host.copy(), host[::-1].copy()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    dev_a = eng._upload(host)
+    host[:] = want_b
+    dev_b = eng._upload(host)
+    assert not torch.cuda.current_stream().query(), \
+        "the copies ran before the map was overwritten: the test saw nothing"
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(dev_a.cpu().numpy(), want_a)
+    np.testing.assert_array_equal(dev_b.cpu().numpy(), want_b)
+
+
+def _innermost(spans, t):
+    """Names of the program spans holding instant t, outermost first."""
+    return [e["name"] for e in sorted(
+        (e for e in spans if e["ts"] <= t <= e["ts"] + e["dur"]),
+        key=lambda e: -e["dur"])]
+
+
+def test_no_host_sync_between_a_segments_residency_and_its_dispatch(gen,
+                                                                    tmp_path):
+    """A profiled serve (one row at a time, 16-token chunks, 8 of 32
+    experts a layer on the card) with the span log on: every
+    `cudaStreamSynchronize` inside a `segment` or `prefill_chunk` span is
+    its pull's; the slot maps, the routing masks and the chunk tokens go
+    up with no host wait. The served tokens are those of the fully-resident
+    oracle."""
+    cfg = reduce_config(get_config("olmoe-1b-7b"), layers=4, d_model=128,
+                        heads=4, kv_heads=4, vocab=512, experts=32, top_k=8,
+                        d_expert=64)
+    model = Model(cfg)
+    eng = SlotBufferEngine(cfg, model.init(gen, device="cuda"), model,
+                           n_slots_per_layer=8, use_kernel=True,
+                           use_superkernel=True, max_seq=96)
+    log = SpanLog()
+    eng.tracer.log = log
+    chunk = 16
+    rng = np.random.default_rng(0)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n,
+                                        dtype=np.int32),
+                    max_new_tokens=20, request_id=i)
+            for i, n in enumerate((40, 12, 33))]
+    srv = ServingEngine(eng, EngineServingConfig(
+        max_batch=1, admission_cap=False, prefill_chunk=chunk))
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        srv.serve(reqs)
+        eng.synchronize()
+    s = eng.stats
+    assert s.replays > 0 and s.swap_experts > 0
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    trace = json.loads(path.read_text())
+    spans = log.chrome_events(trace["baseTimeNanoseconds"])
+    pulls = sorted((e["ts"], e["ts"] + e["dur"]) for e in spans
+                   if e["name"] == "pull")
+    syncs = [e for e in trace["traceEvents"] if e.get("ph") == "X"
+             and e.get("cat") == "cuda_runtime"
+             and e["name"] == "cudaStreamSynchronize"]
+    in_pull, stray = 0, []
+    for e in syncs:
+        a, b = e["ts"], e["ts"] + e.get("dur", 0)
+        i = bisect.bisect_right(pulls, (b, b)) - 1
+        if i >= 0 and pulls[i][1] >= a:
+            in_pull += 1
+            continue
+        names = _innermost(spans, (a + b) / 2)
+        if {"segment", "prefill_chunk"} & set(names):
+            stray.append("/".join(names))
+    print(f"{len(syncs)} cudaStreamSynchronize: {in_pull} in pulls, "
+          f"{len(stray)} elsewhere in segments and chunks")
+    assert in_pull > 0 and not stray, stray[:5]
+
+    for req in reqs:
+        lg, st = eng.reference_prefill_chunked(req.prompt[None, :], chunk)
+        want = [int(lg.argmax(-1)[0])]
+        while len(want) < req.max_new_tokens:
+            lg, st = sk_reference_decode_step(eng, lg.argmax(-1), st)
+            want.append(int(lg.argmax(-1)[0]))
+        assert list(req.output) == want, req.request_id

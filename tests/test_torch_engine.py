@@ -22,6 +22,8 @@ from repro_torch.bridge import params_from_reference
 from repro_torch.configs import get_smoke_config
 from repro_torch.models.transformer import Model
 from repro_torch.runtime.engine import SlotBufferEngine
+from repro_torch.runtime.request import Request
+from repro_torch.runtime.serving import EngineServingConfig, ServingEngine
 
 CFG = get_smoke_config("olmoe-1b-7b")
 TOL = 5e-2
@@ -132,3 +134,49 @@ def test_forward_bitwise_vs_reference_forward(ref):
         toks = rng.integers(0, CFG.vocab_size, (2, 7))
         assert torch.equal(te.forward(toks), te.reference_forward(toks))
     assert te.stats.evictions > 0
+
+
+@pytest.mark.parametrize("superkernel", [True, False],
+                         ids=["superkernel", "unfused"])
+@pytest.mark.parametrize("chunk", [4, 0], ids=["chunked", "monolithic"])
+def test_dispatched_slot_map_is_the_table_at_dispatch(superkernel, chunk):
+    """Every slot map that reaches a MoE dispatch (`_sk_seg`, `_ffn`) is
+    its layer's `SlotTable.layer_slot_map` when the dispatch is issued,
+    and stays so while later swaps assign and release that layer's
+    slots: the engine hands the kernels a copy, never the table."""
+    model = Model(CFG)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    eng = SlotBufferEngine(CFG, params, model, n_slots_per_layer=4,
+                           use_kernel=True, use_superkernel=superkernel,
+                           step_size=1, pregate_margin=0, max_seq=64,
+                           device="cpu")
+    segs, _ = eng._sk_segments()
+    seen = []
+    dispatch = eng._dispatch
+
+    def recording(fn, *args, **kw):
+        if fn.__name__ == "_sk_seg":
+            li, sm = segs.index(args[0]), args[6]
+        elif fn.__name__ == "_ffn" and args[1] is eng.buffer:
+            li = next(j for j, i in enumerate(eng.moe_layer_ids)
+                      if eng._p[i] is args[0])
+            sm = args[2]
+        else:
+            return dispatch(fn, *args, **kw)
+        seen.append((li, sm, eng.table.layer_slot_map(li)))
+        return dispatch(fn, *args, **kw)
+
+    eng._dispatch = recording
+    rng = np.random.default_rng(9)
+    reqs = [Request(rng.integers(0, CFG.vocab_size, n), max_new_tokens=6,
+                    request_id=i) for i, n in enumerate((9, 5, 7))]
+    ServingEngine(eng, EngineServingConfig(
+        max_batch=2, admission_cap=False, prefill_chunk=chunk)).serve(reqs)
+    assert all(r.done for r in reqs)
+    assert len(seen) > 20 and eng.stats.evictions > 0
+    for li, sm, at_dispatch in seen:
+        assert sm.dtype == torch.int32
+        np.testing.assert_array_equal(sm.numpy(), at_dispatch)
+    # the table moved on after some of them: a shared buffer would show it
+    assert any(not np.array_equal(at_dispatch, eng.table.layer_slot_map(li))
+               for li, _, at_dispatch in seen)
